@@ -1,0 +1,141 @@
+"""Build and load the port's native libraries.
+
+Two shared libraries with a plain C interface, loaded with ctypes:
+
+- ``libiclr17c_kernels.so``: every ``csrc/*.cu`` in one ``nvcc`` call for
+  ``sm_90a`` (H100). No source includes PyTorch's or CUTLASS's headers, so
+  the build takes seconds, not the minutes of ``torch.utils.cpp_extension``.
+- ``librans.so``: the port's copy of the rANS coder
+  (``coding/src/rans.cc``), built with ``g++``. The CPU path needs only this.
+
+Both go to ``build/iclr17c_torch/`` at the root of the checkout on first use.
+A build is keyed by a hash of its sources and command, so an edited source
+rebuilds, and it runs under a file lock, so concurrent processes (parallel
+test workers) build once. A failed build raises with the compiler's stderr.
+"""
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+BUILD_DIR = _PKG.parent / "build" / "iclr17c_torch"
+CSRC = Path(__file__).resolve().parent / "csrc"
+RANS_SRC = _PKG / "coding" / "src" / "rans.cc"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+
+_c = ctypes.c_void_p
+_i = ctypes.c_int
+_ll = ctypes.c_longlong
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+            "PATH): the CUDA kernels are built from source on first use"
+        )
+    return found
+
+
+def build(name: str, compiler: str, flags: list, sources: list, deps: list = ()) -> tuple:
+    """Compile ``sources`` into ``BUILD_DIR/name`` unless an up-to-date copy
+    exists. Returns (path, seconds spent compiling; 0.0 for a cache hit)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    digest = hashlib.sha256(" ".join([Path(compiler).name] + flags).encode())
+    for path in sorted(list(sources) + list(deps)):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    key = digest.hexdigest()
+    lib = BUILD_DIR / name
+    stamp = BUILD_DIR / (name + ".sha256")
+    with open(BUILD_DIR / (name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists() and stamp.exists() and stamp.read_text() == key:
+            return lib, 0.0
+        tmp = BUILD_DIR / f"{name}.tmp{os.getpid()}"
+        cmd = [compiler] + flags + ["-o", str(tmp)] + [str(s) for s in sources]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"building {name} failed ({' '.join(cmd)}):\n{proc.stderr}{proc.stdout}"
+            )
+        os.replace(tmp, lib)
+        stamp.write_text(key)
+    return lib, seconds
+
+
+@functools.lru_cache(maxsize=None)
+def kernels() -> ctypes.CDLL:
+    """The CUDA kernels K1-K3 (built on first call)."""
+    sources = sorted(CSRC.glob("*.cu"))
+    path, _ = build(
+        "libiclr17c_kernels.so", _nvcc(), NVCC_FLAGS, sources, sorted(CSRC.glob("*.cuh"))
+    )
+    lib = ctypes.CDLL(str(path))
+    lib.iclr17c_gdn.restype = _i
+    lib.iclr17c_gdn.argtypes = [_c, _c, _c, _c, _ll, _i, _i, _c]
+    lib.iclr17c_conv_gdn.restype = _i
+    lib.iclr17c_conv_gdn.argtypes = [_c] * 6 + [_i] * 12 + [_c]
+    lib.iclr17c_quant_pack.restype = _i
+    lib.iclr17c_quant_pack.argtypes = [_c, _c, _c, _ll, ctypes.c_float, _i, _c]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def rans() -> ctypes.CDLL:
+    """The host rANS coder (built on first call)."""
+    path, _ = build("librans.so", "g++", GXX_FLAGS, [RANS_SRC])
+    return ctypes.CDLL(str(path))
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise if a C launcher returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def check_tensor(name: str, t, shape: tuple = None, dtype=torch.float32) -> None:
+    """Validate a tensor handed to a kernel: on CUDA, of ``dtype``,
+    C-contiguous, 16-byte aligned, and of ``shape`` where one is given."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer is not 16-byte aligned")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def forward_only(what: str, *tensors) -> None:
+    """The kernels have no backward yet (the training slice adds them):
+    refuse a call that autograd would need to differentiate."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} is forward-only on CUDA; call it under torch.no_grad()"
+        )

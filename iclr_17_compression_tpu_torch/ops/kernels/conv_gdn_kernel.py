@@ -1,0 +1,86 @@
+"""K2: strided conv + bias + optional (I)GDN in one pass, the CUDA kernel
+``csrc/conv_gdn.cu`` and its plain version, and the fused Ballé-17 encoder.
+
+Counterpart of ``iclr_17_compression_tpu/ops/pallas/conv_gdn_kernel.py``
+(``_conv_gdn_kernel`` / ``conv_gdn_fused_raw`` / ``conv_gdn`` /
+``analysis17_fused``). ``conv_gdn`` takes NHWC ``x``, an HWIO weight (as the
+JAX function does), an optional bias and optional effective GDN parameters
+(``gamma_t`` = gamma.T and ``beta``, as ``conv_gdn_fused_raw`` takes them;
+None for no GDN). A CPU tensor goes to
+``conv_gdn_plain``; a CUDA tensor launches the kernel or raises.
+"""
+
+from typing import Optional
+
+import torch
+
+from . import _build
+from .gdn_kernel import gdn_fused_plain
+from ..conv import conv2d, hwio_to_oihw, oihw_to_hwio
+from ..gdn import gdn_reparam
+
+
+def conv_gdn_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                   gamma_t: Optional[torch.Tensor], beta: Optional[torch.Tensor],
+                   stride: int, padding: int, inverse: bool = False) -> torch.Tensor:
+    """The plain PyTorch version: ``F.conv2d`` then the plain GDN."""
+    y = conv2d(x, hwio_to_oihw(w), b, stride=stride, padding=padding)
+    if gamma_t is not None:
+        y = gdn_fused_plain(y, gamma_t, beta, inverse)
+    return y
+
+
+def conv_gdn(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+             gamma_t: Optional[torch.Tensor], beta: Optional[torch.Tensor],
+             stride: int, padding: int, inverse: bool = False) -> torch.Tensor:
+    """Conv (+ bias) (+ (I)GDN): the kernel on CUDA, the plain version on CPU."""
+    if x.device.type == "cpu":
+        return conv_gdn_plain(x, w, b, gamma_t, beta, stride, padding, inverse)
+    _build.forward_only("conv_gdn", x, w, b, gamma_t, beta)
+    n, h, wd, cin = x.shape
+    k, k2, cin_w, cout = w.shape
+    if k != k2 or cin_w != cin:
+        raise ValueError(f"conv_gdn: weight {tuple(w.shape)} does not fit input {tuple(x.shape)}")
+    if cout % 32 or cout > 256:
+        raise ValueError(f"conv_gdn: the kernel takes Cout % 32 == 0 and Cout <= 256, got {cout}")
+    ho = (h + 2 * padding - k) // stride + 1
+    wo = (wd + 2 * padding - k) // stride + 1
+    gdn_on = gamma_t is not None
+    _build.check_tensor("x", x)
+    _build.check_tensor("w", w)
+    if b is not None:
+        _build.check_tensor("b", b, (cout,))
+    if gdn_on:
+        _build.check_tensor("gamma_t", gamma_t, (cout, cout))
+        _build.check_tensor("beta", beta, (cout,))
+    out = torch.empty((n, ho, wo, cout), device=x.device, dtype=torch.float32)
+    lib = _build.kernels()
+    with torch.cuda.device(x.device):
+        err = lib.iclr17c_conv_gdn(
+            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+            gamma_t.data_ptr() if gdn_on else None, beta.data_ptr() if gdn_on else None,
+            out.data_ptr(), n, h, wd, cin, ho, wo, cout, k, stride, padding,
+            int(gdn_on), int(inverse), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(err, "conv_gdn")
+    conv_gdn.launches += 1
+    return out
+
+
+conv_gdn.launches = 0
+
+
+def analysis17_fused(encoder, x: torch.Tensor) -> torch.Tensor:
+    """The Ballé-17 analysis transform as three ``conv_gdn`` calls, driven
+    from an ``Analysis17`` module: conv1 9×9 s4 + GDN, conv2 5×5 s2 + GDN,
+    conv3 5×5 s2 (no bias, no GDN). NHWC in, NHWC latent out."""
+    def hwio(conv):
+        return oihw_to_hwio(conv.weight).contiguous()
+
+    def gdn_args(gdn):
+        beta, gamma = gdn_reparam(gdn.params())
+        return gamma.t().contiguous(), beta
+
+    y = conv_gdn(x, hwio(encoder.conv1), encoder.conv1.bias, *gdn_args(encoder.gdn1), 4, 4)
+    y = conv_gdn(y, hwio(encoder.conv2), encoder.conv2.bias, *gdn_args(encoder.gdn2), 2, 2)
+    return conv_gdn(y, hwio(encoder.conv3), None, None, None, 2, 2)

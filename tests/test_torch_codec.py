@@ -1,0 +1,117 @@
+"""Port parity: the Ballé-17 file codec against the JAX package's
+``codec_cli`` and rANS coder, on the CPU path.
+
+Stated tolerances: headers byte-equal; PSNR within 0.01 dB and bpp within
+0.5% of the JAX codec; CDF tables within ±1 count per entry (XLA's and
+PyTorch's float32 tanh/softplus differ by an ulp); with identical tables and
+latent, the rANS stream is byte-identical.
+"""
+
+import os
+import struct
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iclr_17_compression_tpu.coding import api as japi
+from iclr_17_compression_tpu.coding import codec_cli as jcli
+from iclr_17_compression_tpu.models.cheng2020 import _bit_estimator_params
+from iclr_17_compression_tpu_torch.coding import api as tapi
+from iclr_17_compression_tpu_torch.coding import codec_cli as tcli
+from iclr_17_compression_tpu_torch.ops.metrics import psnr
+from iclr_17_compression_tpu_torch.train.weights import load_balle17, read_checkpoint
+
+CKPT = os.path.join(os.path.dirname(__file__), "..", "results", "ckpts",
+                    "lam2048_iter_19000.ckpt")
+
+
+def _image(seed, h, w):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.full((h, w, 3), 0.5, np.float32)
+    for _ in range(4):
+        f = rng.uniform(-3, 3, 2) / np.array([h, w])
+        img += rng.uniform(0.05, 0.15, 3).astype(np.float32) * np.cos(
+            2 * np.pi * (f[0] * yy + f[1] * xx) + rng.uniform(0, 6))[..., None]
+    img += 0.03 * rng.standard_normal((h, w, 3)).astype(np.float32)
+    return np.clip(img, 0, 1)
+
+
+@pytest.fixture(scope="module")
+def models():
+    tree = read_checkpoint(CKPT)
+    jparams = {"params": jax.tree_util.tree_map(jnp.asarray, tree)}
+    return jparams, load_balle17(CKPT, device="cpu")
+
+
+def _header_len(data):
+    return 4 + 2 + data[5] + struct.calcsize("<HII") + struct.calcsize("<HHHhh")
+
+
+def test_codec_matches_jax_codec(models):
+    jparams, model = models
+    img = _image(0, 40, 56)  # not a multiple of 16: exercises the padding
+    jdata = jcli.encode_image(img, "balle17", jparams, n=128)
+    jrec = jcli.decode_image(jdata, jparams)
+    data = tcli.encode_image(img, model, device="cpu")
+    rec = tcli.decode_image(data, model, device="cpu")
+    assert rec.shape == img.shape and rec.min() >= 0 and rec.max() <= 1
+    assert data[:_header_len(data)] == jdata[:_header_len(jdata)]
+    p_port = float(psnr(torch.from_numpy(rec), torch.from_numpy(img)))
+    p_jax = float(psnr(torch.from_numpy(np.asarray(jrec)), torch.from_numpy(img)))
+    assert abs(p_port - p_jax) <= 0.01
+    assert abs(len(data) - len(jdata)) <= 0.005 * len(jdata)
+    # the port reads back the latent it wrote
+    lat, h0, w0 = tcli.read_latent(data, model)
+    assert (h0, w0) == img.shape[:2] and lat.shape == (3, 4, 128)
+
+
+def test_cdf_tables_and_rans_stream_match_jax(models):
+    jparams, model = models
+    zmin, zmax = -12, 15
+    jcodec = japi.build_cdf_tables_from_bit_estimator(
+        _bit_estimator_params(jparams, "bit_estimator"), zmin, zmax)
+    tcodec = tapi.build_cdf_tables_from_bit_estimator(model.bitEstimator.params(), zmin, zmax)
+    assert tcodec.freqs.shape == jcodec.freqs.shape == (128, zmax - zmin + 1)
+    assert (tcodec.freqs.sum(axis=1) == 1 << 14).all()
+    diff = np.abs(tcodec.freqs.astype(np.int64) - jcodec.freqs.astype(np.int64))
+    assert diff.max() <= 1
+
+    rng = np.random.default_rng(2)
+    lat = np.clip(np.round(rng.laplace(0, 2, (5, 7, 128))), zmin, zmax).astype(np.int64)
+    same = japi.RansCodec(tcodec.freqs, offset=zmin)  # the JAX coder on the port's tables
+    stream = tapi.encode_latent(tcodec, lat)
+    assert stream == japi.encode_latent(same, lat)
+    np.testing.assert_array_equal(tapi.decode_latent(tcodec, stream, lat.shape), lat)
+    np.testing.assert_array_equal(japi.decode_latent(same, stream, lat.shape), lat)
+
+
+def test_quantize_pmf_matches_jax():
+    rng = np.random.default_rng(3)
+    for nsym in (2, 17, 255):
+        pmf = rng.dirichlet(np.full(nsym, 0.3))
+        np.testing.assert_array_equal(tapi._quantize_pmf(pmf, 14), japi._quantize_pmf(pmf, 14))
+
+
+def test_encode_refuses_a_latent_that_may_be_clipped():
+    big = load_balle17(CKPT, device="cpu")
+    with torch.no_grad():
+        big.Encoder.conv3.weight.mul_(1000.0)
+    with pytest.raises(ValueError, match="clipped"):
+        tcli.encode_image(_image(4, 16, 16), big, device="cpu")
+
+
+def test_cli_png_roundtrip(models, tmp_path):
+    from PIL import Image
+
+    img = (_image(5, 32, 48) * 255).astype(np.uint8)
+    src, icz, dst = tmp_path / "in.png", tmp_path / "x.icz", tmp_path / "out.png"
+    Image.fromarray(img).save(src)
+    tcli.main(["encode", str(src), str(icz), "--ckpt", CKPT, "--device", "cpu"])
+    tcli.main(["decode", str(icz), str(dst), "--ckpt", CKPT, "--device", "cpu"])
+    rec = np.asarray(Image.open(dst))
+    assert rec.shape == img.shape
+    assert float(psnr(torch.from_numpy(rec / 255.0), torch.from_numpy(img / 255.0))) > 20.0
