@@ -8,13 +8,17 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases, one JSON line each:
   device  the card (torch and nvidia-smi); exits non-zero without CUDA
   build   nvcc of the CUDA kernels and g++ of the rANS coder, with seconds
+          (under 60 s from clean), and each kernel's registers, shared memory
+          and spills as ptxas reports them
   k1/k2/k3  each kernel against its plain PyTorch version on the card at the
           shapes of the main path (one 768×512 image, N=128): error against
           the stated tolerance (max abs and rel error), the wrapper's launch
           counter so far, kernel, plain and library device times (CUDA
           events around a batch of calls queued behind a sleep kernel, median
           of 20 after 3 warm-ups), the kernel's time for one call from an idle
-          queue (wrapper included), and the bound from the shapes
+          queue (wrapper included), and the bound from the shapes; K1 and K2
+          also give the same bits on a second call, and hold at the widths
+          off the main path (K1 at C=192 and 256, K2 at Cout=192)
   main    the Ballé-17 file codec at N=128 with the archived lam2048 weights
           on 4 synthetic 768×512 images: encode → bytes → decode, with the
           launch counters reset just before and read just after; then the
@@ -30,6 +34,7 @@ non-zero. Imports nothing of JAX.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -42,10 +47,18 @@ CKPT = os.path.join(ROOT, "results", "ckpts", "lam2048_iter_19000.ckpt")
 N_IMAGES, IMG_H, IMG_W, N_CH = 4, 512, 768, 128
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit): fp32
-# outside the tensor cores, and HBM3 bandwidth. The kernels are fp32 FMA on
-# the CUDA cores.
+# outside the tensor cores, TF32 on the tensor cores (dense), and HBM3
+# bandwidth. K1 and K2 compute their products in 3xTF32 on the tensor cores
+# (three TF32 products each), the rest in fp32; K3 is fp32 elementwise.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+# The kernels' symbols in the library: K2's conv and its split-K reduction,
+# K1, K3.
+KERNEL_SYMBOLS = ("conv_gdn_kernel", "conv_gdn_reduce_kernel", "gdn_rows_kernel",
+                  "quant_pack_kernel")
+# The whole port build (nvcc of the kernels and g++ of the coder) from clean.
+BUILD_LIMIT_S = 60.0
 
 # Kernel vs plain version on the card, both fp32 with TF32 off. The sums run
 # in another order and rsqrtf has about 2 ulp of error, so K1 and K2 agree to
@@ -77,8 +90,42 @@ def check(cond: bool, what: str) -> None:
 
 
 def bound_ms(flops: float, nbytes: float):
+    """The least time of an fp32 route on the CUDA cores."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_3xtf32_ms(mma_flops: float, elementwise_flops: float, nbytes: float):
+    """The least time of the kernels' route: the products as three TF32
+    products on the tensor cores, the elementwise work in fp32."""
+    t_ops = 3.0 * mma_flops / PEAK_TF32_FLOPS + elementwise_flops / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, static shared memory and spills of each kernel, from the
+    ``nvcc -Xptxas -v`` output the build keeps."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = next((k for k in KERNEL_SYMBOLS if k in m.group(1)), m.group(1))
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                             spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def smooth_image(rng: np.random.Generator) -> np.ndarray:
@@ -130,9 +177,19 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.rans()
     t_rans = time.perf_counter() - t0
+    lib = _build.kernels()
+    ptxas = ptxas_report((_build.BUILD_DIR / "libiclr17c_kernels.so.log").read_text())
+    dyn_smem = {"conv_gdn_kernel": lib.iclr17c_conv_gdn_smem_bytes(N_CH),
+                "conv_gdn_reduce_kernel": lib.iclr17c_gdn_smem_bytes(N_CH),
+                "gdn_rows_kernel": lib.iclr17c_gdn_smem_bytes(N_CH)}
+    for name, nbytes in dyn_smem.items():
+        ptxas.setdefault(name, {})["dynamic_smem_bytes_c128"] = nbytes
     emit({"phase": "build", "kernels_s": round(t_kernels, 3), "rans_s": round(t_rans, 3),
-          "dir": str(_build.BUILD_DIR)})
+          "dir": str(_build.BUILD_DIR), "ptxas": ptxas})
     print(f"build seconds: nvcc kernels {t_kernels:.2f}, g++ rans {t_rans:.2f}", flush=True)
+    check(t_kernels + t_rans < BUILD_LIMIT_S,
+          f"build took {t_kernels + t_rans:.1f} s, over {BUILD_LIMIT_S:.0f} s")
+    check(all(k in ptxas for k in KERNEL_SYMBOLS), f"ptxas report names {sorted(ptxas)}")
 
     def time_ms(fn, warmup: int = 3, reps: int = 20, batch: int = 10) -> float:
         """Device time of one call: CUDA events around ``batch`` calls queued
@@ -207,13 +264,16 @@ def main() -> int:
             stages.append(args)
             x = k2.conv_gdn_plain(*args)
         k2_row = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                  "flops": 0.0, "bytes": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": []}
+                  "bound_fp32_ms": 0.0, "mma_flops": 0.0, "flops": 0.0, "bytes": 0.0,
+                  "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": []}
         for i, args in enumerate(stages):
             x, w, b, gamma_t, beta, stride, pad = args
             out = k2.conv_gdn(*args)
+            again = k2.conv_gdn(*args)
             ref = k2.conv_gdn_plain(*args)
             torch.cuda.synchronize()
             compare(out, ref, f"K2 stage {i + 1}", k2_row)
+            check(torch.equal(out, again), f"K2 stage {i + 1}: two calls differ")
             ms = time_ms(lambda: k2.conv_gdn(*args))
             one_call = call_ms(lambda: k2.conv_gdn(*args))
             plain = time_ms(lambda: k2.conv_gdn_plain(*args))
@@ -230,52 +290,102 @@ def main() -> int:
             _, ho, wo, cout = out.shape
             kk = w.shape[0]
             p = ho * wo
-            flops = 2.0 * p * kk * kk * cin * cout + p * cout
-            nbytes = 4.0 * (x.numel() + w.numel() + out.numel() + cout)
+            mma = 2.0 * p * kk * kk * cin * cout
+            elementwise = p * cout if b is not None else 0.0
+            nbytes = 4.0 * (x.numel() + w.numel() + out.numel() + (cout if b is not None else 0))
             if gamma_t is not None:
-                flops += 2.0 * p * cout * cout + 4.0 * p * cout
+                mma += 2.0 * p * cout * cout
+                elementwise += 4.0 * p * cout
                 nbytes += 4.0 * (cout * cout + cout)
-            b_ms, _ = bound_ms(flops, nbytes)
+            b_ms, b_by = bound_3xtf32_ms(mma, elementwise, nbytes)
+            b32_ms, _ = bound_ms(mma + elementwise, nbytes)
             for key, val in (("ms", ms), ("call_ms", one_call), ("plain_ms", plain),
-                             ("library_ms", lib_ms), ("bound_ms", b_ms), ("flops", flops),
-                             ("bytes", nbytes)):
+                             ("library_ms", lib_ms), ("bound_ms", b_ms), ("bound_fp32_ms", b32_ms),
+                             ("mma_flops", mma), ("flops", mma + elementwise), ("bytes", nbytes)):
                 k2_row[key] += val
             k2_row["shapes"].append({"x": list(x.shape), "w": list(w.shape), "stride": stride,
-                                     "gdn": gamma_t is not None, "ms": ms, "call_ms": one_call,
-                                     "plain_ms": plain,
-                                     "library_ms": lib_ms, "bound_ms": b_ms,
-                                     "gflop": flops / 1e9})
-        k2_row["bound_by"] = bound_ms(k2_row["flops"], k2_row["bytes"])[1]
+                                     "gdn": gamma_t is not None,
+                                     "splits": k2.plan_splits(p, kk * kk,
+                                                              k2.block_slots(0, cout)),
+                                     "ms": ms, "call_ms": one_call, "plain_ms": plain,
+                                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                     "bound_fp32_ms": b32_ms, "gflop": (mma + elementwise) / 1e9})
+        k2_row["bound_by"] = bound_3xtf32_ms(k2_row["mma_flops"],
+                                             k2_row["flops"] - k2_row["mma_flops"],
+                                             k2_row["bytes"])[1]
+        # off the main path: Cout = 192 (slice 2's width, one block an SM),
+        # without a split (288 tiles of 64 pixels: the conv kernel's own bias
+        # and streamed-GDN epilogue) and with one (96 tiles: the reduction)
+        slots192 = k2.block_slots(0, 192)
+        off_path = []
+        for h, wd in ((256, 288), (128, 192)):
+            splits = k2.plan_splits((h // 2) * (wd // 2), 25, slots192)
+            check((splits == 1) == (h == 256),
+                  f"K2 Cout=192 {h}x{wd}: {splits} splits on {slots192} slots")
+            off_path.append(f"Cout=192 {h}x{wd} splits={splits}")
+            xs = (torch.randn((1, h, wd, N_CH), generator=gen) * 0.5).to(dev)
+            ws = (torch.randn((5, 5, N_CH, 192), generator=gen) / 80).to(dev)
+            bs = (torch.randn(192, generator=gen) * 0.01).to(dev)
+            gs = (torch.rand((192, 192), generator=gen) * 0.02).to(dev)
+            betas = (torch.rand(192, generator=gen) + 0.5).to(dev)
+            for inverse in (False, True):
+                args = (xs, ws, bs, gs, betas, 2, 2, inverse)
+                out = k2.conv_gdn(*args)
+                ref = k2.conv_gdn_plain(*args)
+                torch.cuda.synchronize()
+                compare(out, ref, f"K2 Cout=192 {h}x{wd} inverse={inverse}", k2_row)
+        k2_row["checked_off_path"] = off_path
         rows["conv_gdn"] = k2_row
         emit({"phase": "k2_conv_gdn", "ok": True, "counter": k2.conv_gdn.launches, **k2_row})
 
         # ---- K1: the two decoder IGDNs (64×96 and 128×192 pixels)
-        k1_row = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0.0,
-                  "bytes": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": []}
+        k1_row = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                  "bound_fp32_ms": 0.0, "mma_flops": 0.0, "flops": 0.0, "bytes": 0.0,
+                  "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": []}
         for igdn, (h, wd) in ((model.Decoder.igdn1, (IMG_H // 8, IMG_W // 8)),
                               (model.Decoder.igdn2, (IMG_H // 4, IMG_W // 4))):
             beta, gamma = gdn_reparam(igdn.params())
             gamma_t, beta = gamma.t().contiguous(), beta.contiguous()
             x = torch.randn((1, h, wd, N_CH), generator=gen).to(dev)
             out = k1.gdn_fused(x, gamma_t, beta, True)
+            again = k1.gdn_fused(x, gamma_t, beta, True)
             ref = k1.gdn_fused_plain(x, gamma_t, beta, True)
             torch.cuda.synchronize()
             compare(out, ref, f"K1 {h}x{wd}", k1_row)
+            check(torch.equal(out, again), f"K1 {h}x{wd}: two calls differ")
             ms = time_ms(lambda: k1.gdn_fused(x, gamma_t, beta, True))
             one_call = call_ms(lambda: k1.gdn_fused(x, gamma_t, beta, True))
             plain = time_ms(lambda: k1.gdn_fused_plain(x, gamma_t, beta, True))
             p = h * wd
-            flops = 2.0 * p * N_CH * N_CH + 4.0 * p * N_CH
+            mma = 2.0 * p * N_CH * N_CH
+            elementwise = 4.0 * p * N_CH
             nbytes = 4.0 * (2 * x.numel() + N_CH * N_CH + N_CH)
-            b_ms, _ = bound_ms(flops, nbytes)
+            b_ms, b_by = bound_3xtf32_ms(mma, elementwise, nbytes)
+            b32_ms, _ = bound_ms(mma + elementwise, nbytes)
             for key, val in (("ms", ms), ("call_ms", one_call), ("plain_ms", plain),
-                             ("bound_ms", b_ms), ("flops", flops), ("bytes", nbytes)):
+                             ("bound_ms", b_ms), ("bound_fp32_ms", b32_ms), ("mma_flops", mma),
+                             ("flops", mma + elementwise), ("bytes", nbytes)):
                 k1_row[key] += val
             k1_row["shapes"].append({"x": list(x.shape), "ms": ms, "call_ms": one_call,
-                                     "plain_ms": plain,
-                                     "bound_ms": b_ms, "gflop": flops / 1e9})
-        k1_row["bound_by"] = bound_ms(k1_row["flops"], k1_row["bytes"])[1]
+                                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                                     "bound_fp32_ms": b32_ms, "gflop": (mma + elementwise) / 1e9})
+        k1_row["bound_by"] = bound_3xtf32_ms(k1_row["mma_flops"],
+                                             k1_row["flops"] - k1_row["mma_flops"],
+                                             k1_row["bytes"])[1]
         k1_row["library_ms"] = None
+        # off the main path: slice 2's C = 192 and the contract's largest C = 256
+        for c in (192, 256):
+            x = torch.randn((1, 64, 96, c), generator=gen).to(dev)
+            gamma_t = (torch.rand((c, c), generator=gen) * 0.05).to(dev)
+            beta = (torch.rand(c, generator=gen) + 0.5).to(dev)
+            for inverse in (False, True):
+                out = k1.gdn_fused(x, gamma_t, beta, inverse)
+                again = k1.gdn_fused(x, gamma_t, beta, inverse)
+                ref = k1.gdn_fused_plain(x, gamma_t, beta, inverse)
+                torch.cuda.synchronize()
+                compare(out, ref, f"K1 C={c} inverse={inverse}", k1_row)
+                check(torch.equal(out, again), f"K1 C={c}: two calls differ")
+        k1_row["checked_off_path"] = ["C=192 64x96", "C=256 64x96"]
         rows["gdn"] = k1_row
         emit({"phase": "k1_gdn", "ok": True, "counter": k1.gdn_fused.launches, **k1_row})
 
@@ -298,7 +408,8 @@ def main() -> int:
             "ms": time_ms(lambda: k3.quantize_pack(lat, 1.0, 127.0)),
             "call_ms": call_ms(lambda: k3.quantize_pack(lat, 1.0, 127.0)),
             "plain_ms": time_ms(lambda: k3.quantize_pack_plain(lat, 1.0, 127.0)),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bound_fp32_ms": b_ms,
+            "max_abs_err": 0.0,
             "max_rel_err": 0.0,
             "shapes": [{"x": list(lat.shape), "step": 1.0, "lim": 127}],
         }
@@ -413,11 +524,16 @@ def main() -> int:
     }
     for name in ("conv_gdn", "gdn", "quantize_pack"):
         row = rows[name]
-        kernels.append({"name": name, "route": "cuda", "source": meta[name][0],
-                        "replaces": meta[name][1], "launches": launches[name],
-                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+        entry = {"name": name, "route": "cuda", "source": meta[name][0],
+                 "replaces": meta[name][1], "launches": launches[name],
+                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                 "bound_route": "3xtf32" if name != "quantize_pack" else "fp32"}
+        if name == "conv_gdn":
+            entry["stages"] = [{k: st[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                               for st in row["shapes"]]
+        kernels.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,7 +11,9 @@ Two shared libraries with a plain C interface, loaded with ctypes:
 Both go to ``build/iclr17c_torch/`` at the root of the checkout on first use.
 A build is keyed by a hash of its sources and command, so an edited source
 rebuilds, and it runs under a file lock, so concurrent processes (parallel
-test workers) build once. A failed build raises with the compiler's stderr.
+test workers) build once. A failed build raises with the compiler's stderr;
+a good one leaves the compiler's output beside the library (``<name>.log``:
+for the kernels, ``ptxas`` registers, shared memory and spills of each).
 """
 
 import ctypes
@@ -33,7 +35,7 @@ RANS_SRC = _PKG / "coding" / "src" / "rans.cc"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
@@ -82,6 +84,7 @@ def build(name: str, compiler: str, flags: list, sources: list, deps: list = ())
                 f"building {name} failed ({' '.join(cmd)}):\n{proc.stderr}{proc.stdout}"
             )
         os.replace(tmp, lib)
+        (BUILD_DIR / (name + ".log")).write_text(proc.stderr + proc.stdout)
         stamp.write_text(key)
     return lib, seconds
 
@@ -97,7 +100,12 @@ def kernels() -> ctypes.CDLL:
     lib.iclr17c_gdn.restype = _i
     lib.iclr17c_gdn.argtypes = [_c, _c, _c, _c, _ll, _i, _i, _c]
     lib.iclr17c_conv_gdn.restype = _i
-    lib.iclr17c_conv_gdn.argtypes = [_c] * 6 + [_i] * 12 + [_c]
+    lib.iclr17c_conv_gdn.argtypes = [_c] * 7 + [_i] * 13 + [_c]
+    for fn in (lib.iclr17c_conv_gdn_smem_bytes, lib.iclr17c_gdn_smem_bytes):
+        fn.restype = ctypes.c_size_t
+        fn.argtypes = [_i]
+    lib.iclr17c_conv_gdn_blocks_per_sm.restype = _i
+    lib.iclr17c_conv_gdn_blocks_per_sm.argtypes = [_i]
     lib.iclr17c_quant_pack.restype = _i
     lib.iclr17c_quant_pack.argtypes = [_c, _c, _c, _ll, ctypes.c_float, _i, _c]
     return lib

@@ -8,8 +8,14 @@ JAX function does), an optional bias and optional effective GDN parameters
 (``gamma_t`` = gamma.T and ``beta``, as ``conv_gdn_fused_raw`` takes them;
 None for no GDN). A CPU tensor goes to
 ``conv_gdn_plain``; a CUDA tensor launches the kernel or raises.
+
+A stage with too few 64-pixel tiles to fill the card splits its K (the k·k
+taps) into ``plan_splits`` parts of whole taps; the wrapper allocates the
+fp32 partials and the C launcher reduces them in fixed order inside the
+same call.
 """
 
+import functools
 from typing import Optional
 
 import torch
@@ -18,6 +24,39 @@ from . import _build
 from .gdn_kernel import gdn_fused_plain
 from ..conv import conv2d, hwio_to_oihw, oihw_to_hwio
 from ..gdn import gdn_reparam
+
+
+BM = 64  # output pixels a block of the kernel (csrc/conv_gdn.cu)
+
+
+def plan_splits(pixels: int, taps: int, slots: int) -> int:
+    """Splits of K for a conv of ``pixels`` output pixels and ``taps`` taps,
+    on a card that runs ``slots`` blocks at once (SMs × blocks an SM holds).
+
+    1 when the 64-pixel tiles alone fill the slots. Else the S, at most one a
+    tap, that gives at least ``slots`` blocks and the least time in units of
+    one tap of one block: waves of ``slots`` blocks times the most taps a
+    split holds (fewest splits on a tie).
+    """
+    tiles = -(-pixels // BM)
+    if tiles >= slots:
+        return 1
+    first = min(taps, -(-slots // tiles))
+
+    def cost(s):
+        return -(-tiles * s // slots) * -(-taps // s)
+
+    return min(range(first, taps + 1), key=lambda s: (cost(s), s))
+
+
+@functools.lru_cache(maxsize=None)
+def block_slots(index: int, cout: int) -> int:
+    """Blocks of the kernel that card ``index`` runs at once at ``cout``
+    output channels: its SMs times the blocks an SM holds."""
+    per_sm = _build.kernels().iclr17c_conv_gdn_blocks_per_sm(cout)
+    if per_sm < 1:
+        raise RuntimeError(f"conv_gdn: no block of the kernel fits an SM at Cout={cout}")
+    return per_sm * torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def conv_gdn_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -54,12 +93,18 @@ def conv_gdn(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
         _build.check_tensor("gamma_t", gamma_t, (cout, cout))
         _build.check_tensor("beta", beta, (cout,))
     out = torch.empty((n, ho, wo, cout), device=x.device, dtype=torch.float32)
+    p = n * ho * wo
     lib = _build.kernels()
     with torch.cuda.device(x.device):
+        splits = plan_splits(p, k * k, block_slots(torch.cuda.current_device(), cout))
+        partials = None
+        if splits > 1:
+            partials = torch.empty((splits, p, cout), device=x.device, dtype=torch.float32)
         err = lib.iclr17c_conv_gdn(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             gamma_t.data_ptr() if gdn_on else None, beta.data_ptr() if gdn_on else None,
-            out.data_ptr(), n, h, wd, cin, ho, wo, cout, k, stride, padding,
+            out.data_ptr(), None if partials is None else partials.data_ptr(), splits,
+            n, h, wd, cin, ho, wo, cout, k, stride, padding,
             int(gdn_on), int(inverse), torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, "conv_gdn")

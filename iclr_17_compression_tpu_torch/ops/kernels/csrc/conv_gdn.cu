@@ -1,25 +1,47 @@
 // K2: torch-semantics k x k stride-s convolution with bias and an optional
-// (I)GDN epilogue, NHWC, fp32, in one pass.
+// (I)GDN epilogue, NHWC, fp32 accuracy, as an implicit GEMM on the tensor
+// cores in 3xTF32.
 //
 // Replaces the Pallas kernel iclr_17_compression_tpu/ops/pallas/conv_gdn_kernel.py
 // (_conv_gdn_kernel, launched by conv_gdn_fused_raw; chained three times by
 // analysis17_fused into the Ballé-17 encoder). The TPU version phase-stacks
 // the input to fill 128 lanes and double-buffers a halo DMA; neither serves
-// here. This kernel is an implicit GEMM instead:
-//   M = output pixels (32 a block), N = Cout (all of it in the block, so the
-//   GDN of a pixel needs no other block), K = k*k*Cin,
-// with the weight in HWIO order, which is already the (K, Cout) row-major B
-// matrix. Each step stages BK = 32 rows of K: the A tile gathered from the
-// input with zero padding (a per-block pixel table and a per-step tap table
-// turn the gather into adds), and the B tile as one contiguous copy. The
-// accumulator stays in registers through bias and the GDN epilogue
-// (gdn_epilogue.cuh) and is written once.
+// here. The GEMM is
+//   M = output pixels (BM = 64 a block), N = all of Cout (<= 256, so the GDN
+//   of a pixel needs no other block), K = k*k*Cin in HWIO order (dy, dx, ci),
+// and the HWIO weight is already the (K, Cout) row-major B matrix.
 //
 // Bound on an H100: the Ballé-17 stages need 1.5 to 5 GFLOP each against a
-// few MB of traffic, far above the fp32 ridge (about 20 operations a byte):
-// fp32 FMA throughput on the CUDA cores bounds it (TF32 tensor cores would
-// break parity with the fp32 reference). Shared memory per block is about
-// 40 KB at Cout = 128, so several blocks share an SM.
+// few MB of traffic, so they are bound by operations: about 0.05 ms for the
+// three stages at 768x512 counted at the TF32 peak (three products at
+// 495 TFLOP/s). mma.sync does not reach that peak (it is wgmma's), and
+// each operand is split into hi and lo in the loop, so the kernel is bound
+// by the issue of the tensor-core products and of the splits. What the
+// design does about it:
+// - the products run on the tensor cores (mma.sync m16n8k8, 3xTF32; see
+//   gdn_epilogue.cuh for the arithmetic and why it keeps fp32 accuracy);
+//   8 warps at Cout = 128, each a 32 x 32 tile;
+// - loads are a 4-stage ring of cp.async copies, one barrier and one wait a
+//   32-deep K step. With Cin % 4 == 0 a pixel's row of a step is 16-byte
+//   copies (for Cin >= 32 one tap x 32 channels: 128 contiguous bytes); the
+//   padding halo is zero-filled by the copy. With Cin = 3 (the RGB input of
+//   stage 1) the A tile is gathered with 4-byte copies instead, which costs
+//   no extra pass over the image for a zero fourth channel and needs no
+//   padded weight;
+// - small stages split K: the wrapper picks S splits of whole taps
+//   (conv_gdn_kernel.plan_splits) so that the grid fills the SMs in whole
+//   waves; each split writes an fp32 partial tile to a (S, P, Cout) scratch,
+//   and conv_gdn_reduce_kernel (gdn.cu) sums the S partials in fixed order,
+//   adds the bias, runs the (I)GDN and stores once: no atomics, so two calls
+//   give the same bits. The planner counts the blocks an SM holds at this
+//   Cout (iclr17c_conv_gdn_blocks_per_sm): two at Cout = 128, one at 192
+//   and 256, where a block needs 139 and 172 KB of shared memory;
+// - without a split the bias and the GDN run on the register tile
+//   (gdn_epilogue.cuh), and the result is staged through shared memory for
+//   16-byte stores.
+// The tile was chosen with nvcc -Xptxas -v: 8 warps of 32 x 32 at Cout = 128
+// fit in 127 registers a thread with no spills, so two blocks share an SM
+// (107 KB of shared memory each).
 
 #include <cuda_runtime.h>
 
@@ -27,147 +49,222 @@
 
 namespace iclr17c {
 
-__global__ void __launch_bounds__(256)
-conv_gdn_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ bias, const float* __restrict__ gamma_t,
-                const float* __restrict__ beta, float* __restrict__ out, int N,
-                int H, int W, int Cin, int Ho, int Wo, int C, int ksz, int stride,
-                int pad, int gdn_on, int inverse) {
+constexpr int BM = 64;      // output pixels a block: 2 warps of 32
+constexpr int STAGES = 4;   // depth of the cp.async ring
+
+struct ConvArgs {
+  const float* x;        // (N, H, W, Cin)
+  const float* w;        // (ksz, ksz, Cin, C) HWIO = (K, C)
+  const float* bias;     // (C,) or null
+  const float* gamma_t;  // (C, C) or null: no GDN
+  const float* beta;     // (C,)
+  float* out;            // (N, Ho, Wo, C)
+  float* part;           // (splits, P, C) when splits > 1
+  int N, H, W, Cin, Ho, Wo, C, ksz, stride, pad, splits, inverse;
+};
+
+// The ring, or after the main loop the output tile and a 2-slot gamma_t ring.
+static size_t conv_smem_floats(int C) {
+  const size_t ring = static_cast<size_t>(STAGES) * (BM * LDK + BK * ldb_of(C));
+  const size_t epilogue = static_cast<size_t>(BM) * lda_of(C) + 2ull * BK * ldb_of(C);
+  return ring > epilogue ? ring : epilogue;
+}
+
+__global__ void __launch_bounds__(512) conv_gdn_kernel(ConvArgs a) {
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;             // BK * LDA   A tile, [k][m]
-  float* Bs = As + BK * LDA;    // BK * C     B tile, [k][n]
-  float* Ys = Bs + BK * C;      // C * LDA    y*y for the GDN epilogue
-  __shared__ int pn[BM], piy[BM], pix[BM];   // per output pixel: image, top, left
-  __shared__ int kdy[BK], kdx[BK], kci[BK];  // per K row: tap and input channel
+  __shared__ int pn[BM], piy[BM], pix[BM];  // per output pixel: image, top, left
 
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
-  const int cg = tid % (C / 8);
-  const int pg = tid / (C / 8);
-  const int c0 = 4 * cg;
-  const int c1 = C / 2 + 4 * cg;
-  const long long hw_out = static_cast<long long>(Ho) * Wo;
-  const long long P = hw_out * N;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row0 = WARP_M * (warp & 1);
+  const int col0 = WARP_N * (warp >> 1);
+  const int C = a.C;
+  const int Cin = a.Cin;
+  const int ldb = ldb_of(C);
+  const int a_tile = BM * LDK;
+  const int stage = a_tile + BK * ldb;
+  const long long hw = static_cast<long long>(a.Ho) * a.Wo;
+  const long long P = hw * a.N;
   const long long pix0 = static_cast<long long>(blockIdx.x) * BM;
-  const int K = ksz * ksz * Cin;
+
+  // this split's whole taps [t0, t1) of k*k, t0 = floor(split * taps / splits)
+  const int taps = a.ksz * a.ksz;
+  const int split = blockIdx.y;
+  const int kbeg = static_cast<int>(static_cast<long long>(split) * taps / a.splits) * Cin;
+  const int kend = static_cast<int>(static_cast<long long>(split + 1) * taps / a.splits) * Cin;
+  const int steps = (kend - kbeg + BK - 1) / BK;
 
   for (int m = tid; m < BM; m += nthreads) {
     const long long p = pix0 + m;
     if (p < P) {
-      const int n = static_cast<int>(p / hw_out);
-      const int r = static_cast<int>(p - n * hw_out);
+      const int n = static_cast<int>(p / hw);
+      const int r = static_cast<int>(p - n * hw);
       pn[m] = n;
-      piy[m] = (r / Wo) * stride - pad;
-      pix[m] = (r % Wo) * stride - pad;
+      piy[m] = (r / a.Wo) * a.stride - a.pad;
+      pix[m] = (r % a.Wo) * a.stride - a.pad;
     } else {
       pn[m] = -1;
       piy[m] = 0;
       pix[m] = 0;
     }
   }
+  __syncthreads();
 
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  // the source of input element (pixel row m, K index kg), or null for zero
+  auto a_src = [&](int m, int kg, int dy, int dx, int ci) -> const float* {
+    const int n = pn[m];
+    const int iy = piy[m] + dy;
+    const int ix = pix[m] + dx;
+    if (kg >= kend || n < 0 || iy < 0 || iy >= a.H || ix < 0 || ix >= a.W) return nullptr;
+    return a.x + ((static_cast<long long>(n) * a.H + iy) * a.W + ix) * Cin + ci;
+  };
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();  // the previous step's readers are done
-    for (int kk = tid; kk < BK; kk += nthreads) {
+  auto load_stage = [&](int slot, int step) {
+    float* as = smem + slot * stage;
+    const int k0 = kbeg + step * BK;
+    load_rows_async(as + a_tile, ldb, a.w, k0, kend, BK, C, tid, nthreads);
+    if (Cin % 4 == 0) {
+      // 8 copies of 16 bytes a pixel row; thread tid always takes unit tid % 8
+      const int u = tid & 7;
+      const int kg = k0 + 4 * u;
+      const int tap = kg / Cin;
+      const int ci = kg - tap * Cin;
+      const int dy = tap / a.ksz;
+      const int dx = tap - dy * a.ksz;
+      for (int m = tid >> 3; m < BM; m += nthreads >> 3) {
+        const float* src = a_src(m, kg, dy, dx, ci);
+        cp_async16(as + m * LDK + 4 * u, src ? src : a.x, src != nullptr);
+      }
+    } else {
+      // one 4-byte copy an element; thread tid always takes column tid % 32
+      const int kk = tid & 31;
       const int kg = k0 + kk;
-      if (kg < K) {
-        const int t = kg / Cin;
-        kci[kk] = kg - t * Cin;
-        kdy[kk] = t / ksz;
-        kdx[kk] = t - (t / ksz) * ksz;
-      } else {
-        kci[kk] = -1;
-        kdy[kk] = 0;
-        kdx[kk] = 0;
+      const int tap = kg / Cin;
+      const int ci = kg - tap * Cin;
+      const int dy = tap / a.ksz;
+      const int dx = tap - dy * a.ksz;
+      for (int m = tid >> 5; m < BM; m += nthreads >> 5) {
+        const float* src = a_src(m, kg, dy, dx, ci);
+        cp_async4(as + m * LDK + kk, src ? src : a.x, src != nullptr);
       }
     }
-    for (int e = 4 * tid; e < BK * C; e += 4 * nthreads) {
-      const int kk = e / C;
-      const int kg = k0 + kk;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (kg < K)
-        v = *reinterpret_cast<const float4*>(&w[static_cast<long long>(kg) * C + (e - kk * C)]);
-      *reinterpret_cast<float4*>(&Bs[e]) = v;
-    }
-    __syncthreads();  // tap table visible
-    // Consecutive threads take consecutive K rows of one pixel: for Cin >= 32
-    // that is one contiguous run of input channels in device memory.
-    for (int e = tid; e < BK * BM; e += nthreads) {
-      const int kk = e % BK;
-      const int m = e / BK;
-      float v = 0.f;
-      const int ci = kci[kk];
-      const int n = pn[m];
-      if (ci >= 0 && n >= 0) {
-        const int iy = piy[m] + kdy[kk];
-        const int ix = pix[m] + kdx[kk];
-        if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-          v = x[((static_cast<long long>(n) * H + iy) * W + ix) * Cin + ci];
-      }
-      As[kk * LDA + m] = v;
-    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
+
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step's tiles have landed; every warp is done with step - 1
+    const int ahead = step + STAGES - 1;
+    if (ahead < steps) load_stage(ahead % STAGES, ahead);
+    cp_async_commit();
+    const float* as = smem + (step % STAGES) * stage;
+    mma_chunk<false>(acc, as + row0 * LDK, LDK, as + a_tile + col0, ldb, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+
+  const int ldt = lda_of(C);
+  float* tile = smem;  // [BM][ldt], then the gamma_t ring
+  if (a.splits > 1) {
+    frag_to_smem(acc, tile + row0 * ldt + col0, ldt, lane);
     __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk * LDA + 4 * pg]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk * C + c0]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk * C + c1]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    store_rows(tile, ldt, a.part + split * P * C, pix0, P, BM, C, tid, nthreads);
+    return;
+  }
+  if (a.bias != nullptr) {
+    const int t = lane & 3;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int ni = 0; ni < 4; ++ni) {
+      const float b0 = a.bias[col0 + 8 * ni + 2 * t];
+      const float b1 = a.bias[col0 + 8 * ni + 2 * t + 1];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int mi = 0; mi < 2; ++mi) {
+        acc[mi][ni][0] += b0;
+        acc[mi][ni][1] += b1;
+        acc[mi][ni][2] += b0;
+        acc[mi][ni][3] += b1;
+      }
     }
   }
-
-  if (bias != nullptr) {
+  if (a.gamma_t != nullptr) {
+    frag_to_smem(acc, tile + row0 * ldt + col0, ldt, lane);
+    float nrm[2][4][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float b = bias[tile_channel(j, cg, C)];
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][j] += b;
-    }
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) nrm[mi][ni][r] = 0.f;
+    gdn_norm_streamed(nrm, tile + row0 * ldt, a.gamma_t, tile + BM * ldt, C, col0, tid,
+                      nthreads, lane);
+    gdn_apply(acc, nrm, a.beta, col0, a.inverse, lane);
+    __syncthreads();  // every warp has read the tile as its A operand
   }
-  if (gdn_on)
-    gdn_epilogue(acc, gamma_t, beta, C, inverse, Bs, Ys, tid, nthreads, pg, cg);
-  store_tile(acc, out, pix0, P, C, pg, cg);
+  frag_to_smem(acc, tile + row0 * ldt + col0, ldt, lane);
+  __syncthreads();
+  store_rows(tile, ldt, a.out, pix0, P, BM, C, tid, nthreads);
 }
+
+static bool conv_smem_set[64];
 
 }  // namespace iclr17c
 
 extern "C" size_t iclr17c_conv_gdn_smem_bytes(int C) {
+  return sizeof(float) * iclr17c::conv_smem_floats(C);
+}
+
+// Blocks of K2 at C output channels that one SM holds at once (registers,
+// threads and shared memory), for the wrapper's split-K plan.
+extern "C" int iclr17c_conv_gdn_blocks_per_sm(int C) {
   using namespace iclr17c;
-  return sizeof(float) * (static_cast<size_t>(BK) * LDA + static_cast<size_t>(BK) * C +
-                          static_cast<size_t>(C) * LDA);
+  if (C <= 0 || C % 32 != 0 || C > 256) return -1;
+  if (allow_smem(conv_gdn_kernel, conv_smem_set) != cudaSuccess) return -1;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_gdn_kernel, 2 * C,
+                                                    iclr17c_conv_gdn_smem_bytes(C)) != cudaSuccess)
+    return -1;
+  return per_sm;
 }
 
 // Launch K2 on `stream`. x: (N, H, W, Cin); w: (ksz, ksz, Cin, C) HWIO;
 // bias: (C,) or null; gamma_t (C, C) and beta (C,) are read only when gdn_on.
-// out: (N, Ho, Wo, C). Returns the cudaError_t of the launch (0 = success).
+// out: (N, Ho, Wo, C). With splits > 1, `partials` is a (splits, N*Ho*Wo, C)
+// fp32 scratch and a second launch (conv_gdn_reduce_kernel, gdn.cu) reduces it.
+// Returns the cudaError_t of the launches (0 = success).
 extern "C" int iclr17c_conv_gdn(const float* x, const float* w, const float* bias,
                                 const float* gamma_t, const float* beta, float* out,
-                                int N, int H, int W, int Cin, int Ho, int Wo, int C,
-                                int ksz, int stride, int pad, int gdn_on, int inverse,
-                                void* stream) {
+                                float* partials, int splits, int N, int H, int W, int Cin,
+                                int Ho, int Wo, int C, int ksz, int stride, int pad,
+                                int gdn_on, int inverse, void* stream) {
   using namespace iclr17c;
-  if (N <= 0 || Ho <= 0 || Wo <= 0 || Cin <= 0 || C <= 0 || C % 32 != 0 || C > 256 ||
-      ksz <= 0 || stride <= 0 || pad < 0)
+  if (N <= 0 || H <= 0 || W <= 0 || Ho <= 0 || Wo <= 0 || Cin <= 0 || C <= 0 ||
+      C % 32 != 0 || C > 256 || ksz <= 0 || stride <= 0 || pad < 0 || splits < 1 ||
+      splits > ksz * ksz || splits > 65535 || (splits > 1 && partials == nullptr) ||
+      (gdn_on && (gamma_t == nullptr || beta == nullptr)))
     return cudaErrorInvalidValue;
-  const size_t smem = iclr17c_conv_gdn_smem_bytes(C);
-  cudaError_t err = allow_smem(conv_gdn_kernel, smem);
+  cudaError_t err = allow_smem(conv_gdn_kernel, conv_smem_set);
   if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long P = static_cast<long long>(N) * Ho * Wo;
-  const long long blocks = (P + BM - 1) / BM;
-  conv_gdn_kernel<<<static_cast<unsigned int>(blocks), C, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, gamma_t, beta, out, N, H, W, Cin, Ho, Wo, C, ksz, stride, pad,
-      gdn_on, inverse);
-  return cudaGetLastError();
+  const long long tiles = (P + BM - 1) / BM;
+  ConvArgs a{x, w, bias, gdn_on ? gamma_t : nullptr, beta, out, partials,
+             N, H, W, Cin, Ho, Wo, C, ksz, stride, pad, splits, inverse};
+  conv_gdn_kernel<<<dim3(static_cast<unsigned int>(tiles), splits), 2 * C,
+                    iclr17c_conv_gdn_smem_bytes(C), s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
+  return gdn_rows_launch(partials, splits, P * C, bias, gdn_on ? gamma_t : nullptr, beta, out,
+                         P, C, inverse, s);
 }

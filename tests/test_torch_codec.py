@@ -2,9 +2,10 @@
 ``codec_cli`` and rANS coder, on the CPU path.
 
 Stated tolerances: headers byte-equal; PSNR within 0.01 dB and bpp within
-0.5% of the JAX codec; CDF tables within ±1 count per entry (XLA's and
-PyTorch's float32 tanh/softplus differ by an ulp); with identical tables and
-latent, the rANS stream is byte-identical.
+0.5% of the JAX codec; CDF tables equal for three of the four archived
+checkpoints and within the 2 entries, 1 count each, that msssim48 differs in
+today (``CDF_TABLE_DIFFS``); with identical tables and latent, the rANS
+stream is byte-identical.
 """
 
 import os
@@ -69,16 +70,35 @@ def test_codec_matches_jax_codec(models):
     assert (h0, w0) == img.shape[:2] and lat.shape == (3, 4, 128)
 
 
-def test_cdf_tables_and_rans_stream_match_jax(models):
-    jparams, model = models
-    zmin, zmax = -12, 15
+# Entries of the (128, 121) table at z in [-60, 60] where the port's CDF
+# tables differ from the JAX package's on the CPU, for each archived Ballé
+# checkpoint, and by how many counts at most. XLA's and PyTorch's float32
+# tanh/softplus/sigmoid differ in the last ulp on some inputs, which can move
+# a pmf entry across a quantization boundary; only msssim48 is affected.
+CDF_TABLE_DIFFS = {
+    "lam128_iter_10000": (0, 0),
+    "lam2048_iter_19000": (0, 0),
+    "lam8192_iter_20000": (0, 0),
+    "msssim48_iter_12000": (2, 1),
+}
+
+
+@pytest.mark.parametrize("ckpt", sorted(CDF_TABLE_DIFFS))
+def test_cdf_tables_and_rans_stream_match_jax(ckpt):
+    path = os.path.join(os.path.dirname(CKPT), ckpt + ".ckpt")
+    jparams = {"params": jax.tree_util.tree_map(jnp.asarray, read_checkpoint(path))}
+    model = load_balle17(path, device="cpu")
+    zmin, zmax = -60, 60
     jcodec = japi.build_cdf_tables_from_bit_estimator(
         _bit_estimator_params(jparams, "bit_estimator"), zmin, zmax)
     tcodec = tapi.build_cdf_tables_from_bit_estimator(model.bitEstimator.params(), zmin, zmax)
     assert tcodec.freqs.shape == jcodec.freqs.shape == (128, zmax - zmin + 1)
     assert (tcodec.freqs.sum(axis=1) == 1 << 14).all()
     diff = np.abs(tcodec.freqs.astype(np.int64) - jcodec.freqs.astype(np.int64))
-    assert diff.max() <= 1
+    entries, counts = CDF_TABLE_DIFFS[ckpt]
+    assert int((diff > 0).sum()) <= entries and int(diff.max()) <= counts
+    if entries == 0:
+        np.testing.assert_array_equal(tcodec.freqs, jcodec.freqs)
 
     rng = np.random.default_rng(2)
     lat = np.clip(np.round(rng.laplace(0, 2, (5, 7, 128))), zmin, zmax).astype(np.int64)
