@@ -27,14 +27,36 @@ Phases, one JSON line each:
           per image, GPU decode equal to the CPU decode of the same file)
   profile one encode + decode under torch.profiler: device busy time by
           kernel against the wall time, and the host coder stages' times
+  train   the Ballé-17 training path at full width (N=128, batch 4, 256×256
+          crops, λ 8192, the config of examples/balle17.json) on 16
+          synthetic 512×512 PPM training images and 2 768×512 test images
+          written under build/: the training CLI's main (train_single_image)
+          for 100 steps, then --resume to 120, with the launch counters reset just before and
+          read just after (K2 3 and K1 2 launches a step, the eval's
+          launches excluded); checks: every rd_loss finite and the last 10
+          steps' mean below the first 10's; the gradient of every parameter
+          through the kernels' autograd Functions against the plain path on
+          the card (GRAD_TOL); K2 at the three training stages and K1 at the
+          two training IGDN shapes against their plain versions, with split
+          counts and times; the resume starts at step 100 from parameters
+          and Adam moments read back bit-equal, on the batch the
+          uninterrupted loop would draw; the last iter_<step>.ckpt loads
+          through load_balle17 and codes a test image with exact symbols; a
+          model moved to the card by hand with TF32 on trains in fp32.
+          Numbers: median step ms over steps 20-100 and images/s, peak
+          memory, the step's phases (CUDA events), a 10-step profile (device
+          busy, idle share, K1/K2 backward recompute, top kernels), the
+          eval's bpp, PSNR and MS-SSIM
 Then the card's name and power limit, one line with every kernel's numbers,
 and last the line {"ok": true, "device": {...}}. Any failed check exits
 non-zero. Imports nothing of JAX.
 """
 
+import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -74,6 +96,18 @@ DECODE_ATOL = 1e-4
 # GPU vs CPU latent: round() may flip where the encoder output sits within
 # float error of k+0.5; at most 0.1% of elements, by 1.
 LATENT_FLIP_FRAC = 1e-3
+
+# Training phase: the run's length, its resume, and the profiled window.
+TRAIN_STEPS, RESUME_STEPS = 100, 120
+N_TRAIN_IMAGES, TRAIN_IMG = 16, 512
+PROFILE_START, PROFILE_STEPS = 40, 10
+# Gradients through the kernels' Functions vs the plain path on the card,
+# per parameter tensor, as a fraction of its largest |gradient|. The
+# backward is the same plain recompute on both sides; only the forward
+# differs, by K1's and K2's 3xTF32 error (rtol 1e-4 at most), which the
+# loss's λ = 8192 and the decoder carry into every gradient. 1e-3 leaves a
+# factor of 10 over that; a TF32 path misses it by the decoder's 1e-3.
+GRAD_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -128,20 +162,44 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def smooth_image(rng: np.random.Generator) -> np.ndarray:
+def smooth_image(rng: np.random.Generator, h: int = IMG_H, w: int = IMG_W) -> np.ndarray:
     """A natural-looking synthetic HWC image in [0, 1]: a few low-frequency
     colour waves, edges from a random step pattern, and fine texture."""
-    yy, xx = np.mgrid[0:IMG_H, 0:IMG_W].astype(np.float32)
-    img = np.zeros((IMG_H, IMG_W, 3), np.float32) + rng.uniform(0.3, 0.7, 3).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.zeros((h, w, 3), np.float32) + rng.uniform(0.3, 0.7, 3).astype(np.float32)
     for _ in range(6):
-        fy, fx = rng.uniform(-6, 6, 2) / np.array([IMG_H, IMG_W])
+        fy, fx = rng.uniform(-6, 6, 2) / np.array([h, w])
         phase = rng.uniform(0, 2 * np.pi)
         amp = rng.uniform(0.03, 0.12, 3).astype(np.float32)
         img += amp * np.cos(2 * np.pi * (fy * yy + fx * xx) + phase)[..., None]
-    blocks = rng.uniform(-0.15, 0.15, (IMG_H // 64, IMG_W // 64, 3)).astype(np.float32)
+    blocks = rng.uniform(-0.15, 0.15, (h // 64, w // 64, 3)).astype(np.float32)
     img += np.repeat(np.repeat(blocks, 64, axis=0), 64, axis=1)
-    img += 0.03 * rng.standard_normal((IMG_H, IMG_W, 3)).astype(np.float32)
+    img += 0.03 * rng.standard_normal((h, w, 3)).astype(np.float32)
     return np.clip(img, 0.0, 1.0)
+
+
+def k2_work(args, out):
+    """(product flops, elementwise flops, bytes) of one K2 call."""
+    x, w, b, gamma_t, beta = args[:5]
+    _, h, wd, cin = x.shape
+    _, ho, wo, cout = out.shape
+    kk = w.shape[0]
+    p = out.shape[0] * ho * wo
+    mma = 2.0 * p * kk * kk * cin * cout
+    elementwise = p * cout if b is not None else 0.0
+    nbytes = 4.0 * (x.numel() + w.numel() + out.numel() + (cout if b is not None else 0))
+    if gamma_t is not None:
+        mma += 2.0 * p * cout * cout
+        elementwise += 4.0 * p * cout
+        nbytes += 4.0 * (cout * cout + cout)
+    return mma, elementwise, nbytes
+
+
+def k1_work(x):
+    """(product flops, elementwise flops, bytes) of one K1 call."""
+    c = x.shape[-1]
+    p = x.numel() // c
+    return 2.0 * p * c * c, 4.0 * p * c, 4.0 * (2 * x.numel() + c * c + c)
 
 
 def main() -> int:
@@ -242,6 +300,77 @@ def main() -> int:
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["max_rel_err"] = max(row["max_rel_err"], rel)
 
+    def new_row(library: bool) -> dict:
+        row = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "bound_fp32_ms": 0.0, "mma_flops": 0.0, "flops": 0.0, "bytes": 0.0,
+               "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": []}
+        row["library_ms"] = 0.0 if library else None
+        return row
+
+    def add_numbers(row: dict, shape: dict, mma: float, elementwise: float,
+                    nbytes: float) -> None:
+        """Fold one shape's measured times and computed bounds into ``row``."""
+        b_ms, b_by = bound_3xtf32_ms(mma, elementwise, nbytes)
+        b32_ms, _ = bound_ms(mma + elementwise, nbytes)
+        shape.update(bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32_ms,
+                     gflop=(mma + elementwise) / 1e9)
+        for key in ("ms", "call_ms", "plain_ms", "library_ms"):
+            if row.get(key) is not None:
+                row[key] += shape[key]
+        for key, val in (("bound_ms", b_ms), ("bound_fp32_ms", b32_ms), ("mma_flops", mma),
+                         ("flops", mma + elementwise), ("bytes", nbytes)):
+            row[key] += val
+        row["shapes"].append(shape)
+        row["bound_by"] = bound_3xtf32_ms(row["mma_flops"], row["flops"] - row["mma_flops"],
+                                          row["bytes"])[1]
+
+    def measure_k2(args, row: dict, what: str) -> None:
+        """K2 on ``args`` against its plain version (and the same bits on a
+        second call), its device times, and cuDNN ``F.conv2d`` + plain GDN."""
+        x, w, b, gamma_t, beta, stride, pad = args
+        out = k2.conv_gdn(*args)
+        again = k2.conv_gdn(*args)
+        ref = k2.conv_gdn_plain(*args)
+        torch.cuda.synchronize()
+        compare(out, ref, what, row)
+        check(torch.equal(out, again), f"{what}: two calls differ")
+        oihw = w.permute(3, 2, 0, 1).contiguous()
+        xc = x.permute(0, 3, 1, 2)
+
+        def library():
+            y = torch.nn.functional.conv2d(xc, oihw, b, stride=stride, padding=pad)
+            if gamma_t is not None:
+                k1.gdn_fused_plain(y.permute(0, 2, 3, 1), gamma_t, beta)
+
+        _, ho, wo, cout = out.shape
+        shape = {"x": list(x.shape), "w": list(w.shape), "stride": stride,
+                 "gdn": gamma_t is not None,
+                 "splits": k2.plan_splits(out.shape[0] * ho * wo, w.shape[0] ** 2,
+                                          k2.block_slots(0, cout)),
+                 "ms": time_ms(lambda: k2.conv_gdn(*args)),
+                 "call_ms": call_ms(lambda: k2.conv_gdn(*args)),
+                 "plain_ms": time_ms(lambda: k2.conv_gdn_plain(*args)),
+                 "library_ms": time_ms(library)}
+        add_numbers(row, shape, *k2_work(args, out))
+
+    def measure_k1(x, igdn, row: dict, what: str) -> None:
+        """K1 (inverse, with ``igdn``'s parameters) on ``x`` against its
+        plain version (and the same bits on a second call), and its device
+        times."""
+        beta, gamma = gdn_reparam(igdn.params())
+        gamma_t, beta = gamma.t().contiguous(), beta.contiguous()
+        out = k1.gdn_fused(x, gamma_t, beta, True)
+        again = k1.gdn_fused(x, gamma_t, beta, True)
+        ref = k1.gdn_fused_plain(x, gamma_t, beta, True)
+        torch.cuda.synchronize()
+        compare(out, ref, what, row)
+        check(torch.equal(out, again), f"{what}: two calls differ")
+        shape = {"x": list(x.shape),
+                 "ms": time_ms(lambda: k1.gdn_fused(x, gamma_t, beta, True)),
+                 "call_ms": call_ms(lambda: k1.gdn_fused(x, gamma_t, beta, True)),
+                 "plain_ms": time_ms(lambda: k1.gdn_fused_plain(x, gamma_t, beta, True))}
+        add_numbers(row, shape, *k1_work(x))
+
     model = load_balle17(CKPT, device="cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
     rows = {}
@@ -263,57 +392,11 @@ def main() -> int:
             args = (x, w, conv.bias, gamma_t, beta, stride, stride)
             stages.append(args)
             x = k2.conv_gdn_plain(*args)
-        k2_row = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                  "bound_fp32_ms": 0.0, "mma_flops": 0.0, "flops": 0.0, "bytes": 0.0,
-                  "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": []}
+        k2_row = new_row(library=True)
         for i, args in enumerate(stages):
-            x, w, b, gamma_t, beta, stride, pad = args
-            out = k2.conv_gdn(*args)
-            again = k2.conv_gdn(*args)
-            ref = k2.conv_gdn_plain(*args)
-            torch.cuda.synchronize()
-            compare(out, ref, f"K2 stage {i + 1}", k2_row)
-            check(torch.equal(out, again), f"K2 stage {i + 1}: two calls differ")
-            ms = time_ms(lambda: k2.conv_gdn(*args))
-            one_call = call_ms(lambda: k2.conv_gdn(*args))
-            plain = time_ms(lambda: k2.conv_gdn_plain(*args))
-            oihw = w.permute(3, 2, 0, 1).contiguous()
-            xc = x.permute(0, 3, 1, 2)
-
-            def library():
-                y = torch.nn.functional.conv2d(xc, oihw, b, stride=stride, padding=pad)
-                if gamma_t is not None:
-                    k1.gdn_fused_plain(y.permute(0, 2, 3, 1), gamma_t, beta)
-
-            lib_ms = time_ms(library)
-            _, h, wd, cin = x.shape
-            _, ho, wo, cout = out.shape
-            kk = w.shape[0]
-            p = ho * wo
-            mma = 2.0 * p * kk * kk * cin * cout
-            elementwise = p * cout if b is not None else 0.0
-            nbytes = 4.0 * (x.numel() + w.numel() + out.numel() + (cout if b is not None else 0))
-            if gamma_t is not None:
-                mma += 2.0 * p * cout * cout
-                elementwise += 4.0 * p * cout
-                nbytes += 4.0 * (cout * cout + cout)
-            b_ms, b_by = bound_3xtf32_ms(mma, elementwise, nbytes)
-            b32_ms, _ = bound_ms(mma + elementwise, nbytes)
-            for key, val in (("ms", ms), ("call_ms", one_call), ("plain_ms", plain),
-                             ("library_ms", lib_ms), ("bound_ms", b_ms), ("bound_fp32_ms", b32_ms),
-                             ("mma_flops", mma), ("flops", mma + elementwise), ("bytes", nbytes)):
-                k2_row[key] += val
-            k2_row["shapes"].append({"x": list(x.shape), "w": list(w.shape), "stride": stride,
-                                     "gdn": gamma_t is not None,
-                                     "splits": k2.plan_splits(p, kk * kk,
-                                                              k2.block_slots(0, cout)),
-                                     "ms": ms, "call_ms": one_call, "plain_ms": plain,
-                                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                                     "bound_fp32_ms": b32_ms, "gflop": (mma + elementwise) / 1e9})
-        k2_row["bound_by"] = bound_3xtf32_ms(k2_row["mma_flops"],
-                                             k2_row["flops"] - k2_row["mma_flops"],
-                                             k2_row["bytes"])[1]
-        # off the main path: Cout = 192 (slice 2's width, one block an SM),
+            measure_k2(args, k2_row, f"K2 stage {i + 1}")
+        # off the main path: Cout = 192 (the hyperprior / joint-AR width,
+        # ROADMAP item 16; one block an SM),
         # without a split (288 tiles of 64 pixels: the conv kernel's own bias
         # and streamed-GDN epilogue) and with one (96 tiles: the reduction)
         slots192 = k2.block_slots(0, 192)
@@ -339,41 +422,13 @@ def main() -> int:
         emit({"phase": "k2_conv_gdn", "ok": True, "counter": k2.conv_gdn.launches, **k2_row})
 
         # ---- K1: the two decoder IGDNs (64×96 and 128×192 pixels)
-        k1_row = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                  "bound_fp32_ms": 0.0, "mma_flops": 0.0, "flops": 0.0, "bytes": 0.0,
-                  "max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": []}
+        k1_row = new_row(library=False)
         for igdn, (h, wd) in ((model.Decoder.igdn1, (IMG_H // 8, IMG_W // 8)),
                               (model.Decoder.igdn2, (IMG_H // 4, IMG_W // 4))):
-            beta, gamma = gdn_reparam(igdn.params())
-            gamma_t, beta = gamma.t().contiguous(), beta.contiguous()
             x = torch.randn((1, h, wd, N_CH), generator=gen).to(dev)
-            out = k1.gdn_fused(x, gamma_t, beta, True)
-            again = k1.gdn_fused(x, gamma_t, beta, True)
-            ref = k1.gdn_fused_plain(x, gamma_t, beta, True)
-            torch.cuda.synchronize()
-            compare(out, ref, f"K1 {h}x{wd}", k1_row)
-            check(torch.equal(out, again), f"K1 {h}x{wd}: two calls differ")
-            ms = time_ms(lambda: k1.gdn_fused(x, gamma_t, beta, True))
-            one_call = call_ms(lambda: k1.gdn_fused(x, gamma_t, beta, True))
-            plain = time_ms(lambda: k1.gdn_fused_plain(x, gamma_t, beta, True))
-            p = h * wd
-            mma = 2.0 * p * N_CH * N_CH
-            elementwise = 4.0 * p * N_CH
-            nbytes = 4.0 * (2 * x.numel() + N_CH * N_CH + N_CH)
-            b_ms, b_by = bound_3xtf32_ms(mma, elementwise, nbytes)
-            b32_ms, _ = bound_ms(mma + elementwise, nbytes)
-            for key, val in (("ms", ms), ("call_ms", one_call), ("plain_ms", plain),
-                             ("bound_ms", b_ms), ("bound_fp32_ms", b32_ms), ("mma_flops", mma),
-                             ("flops", mma + elementwise), ("bytes", nbytes)):
-                k1_row[key] += val
-            k1_row["shapes"].append({"x": list(x.shape), "ms": ms, "call_ms": one_call,
-                                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                                     "bound_fp32_ms": b32_ms, "gflop": (mma + elementwise) / 1e9})
-        k1_row["bound_by"] = bound_3xtf32_ms(k1_row["mma_flops"],
-                                             k1_row["flops"] - k1_row["mma_flops"],
-                                             k1_row["bytes"])[1]
-        k1_row["library_ms"] = None
-        # off the main path: slice 2's C = 192 and the contract's largest C = 256
+            measure_k1(x, igdn, k1_row, f"K1 {h}x{wd}")
+        # off the main path: the hyperprior / joint-AR width (ROADMAP item 16)
+        # C = 192 and the contract's largest C = 256
         for c in (192, 256):
             x = torch.randn((1, 64, 96, c), generator=gen).to(dev)
             gamma_t = (torch.rand((c, c), generator=gen) * 0.05).to(dev)
@@ -402,16 +457,37 @@ def main() -> int:
         rsym16, rdeq16 = k3.quantize_pack_plain(lat * 8, 16.0, 128.0)
         check(torch.equal(sym16, rsym16) and torch.equal(deq16, rdeq16),
               "K3 step 16: not bit-exact")
+        # the 16-bit store the file codec runs (step 1, lim 32767): ties and
+        # values beyond the limit at both ends
+        wide = lat * 300.0
+        edge = torch.arange(-32800, -32700, dtype=torch.float32, device=dev) + 0.5
+        vals = torch.cat([edge, -edge, ties])
+        wide.view(-1)[: vals.numel()] = vals
+        wsym, wdeq = k3.quantize_pack(wide, 1.0, 32767.0, bits=16)
+        rwsym, rwdeq = k3.quantize_pack_plain(wide, 1.0, 32767.0, bits=16)
+        torch.cuda.synchronize()
+        check(wsym.dtype == torch.uint16 and torch.equal(wsym, rwsym)
+              and torch.equal(wdeq, rwdeq), "K3 16-bit symbols: not bit-exact")
+        wsym32 = wsym.to(torch.int32)  # CUDA has no min/max of uint16
+        check(int(wsym32.min()) == 0 and int(wsym32.max()) == 2 * 32767,
+              "K3 16-bit symbols: the clamp at ±32767 was not exercised")
         n = lat.numel()
-        b_ms, b_by = bound_ms(5.0 * n, 9.0 * n)
+        b_ms, b_by = bound_ms(5.0 * n, 10.0 * n)
+        b8_ms, _ = bound_ms(5.0 * n, 9.0 * n)
+        # ms / plain_ms: the 16-bit variant the file codec launches; the
+        # byte variant (the Pallas kernel's contract) beside it
         rows["quantize_pack"] = {
-            "ms": time_ms(lambda: k3.quantize_pack(lat, 1.0, 127.0)),
-            "call_ms": call_ms(lambda: k3.quantize_pack(lat, 1.0, 127.0)),
-            "plain_ms": time_ms(lambda: k3.quantize_pack_plain(lat, 1.0, 127.0)),
+            "ms": time_ms(lambda: k3.quantize_pack(wide, 1.0, 32767.0, bits=16)),
+            "call_ms": call_ms(lambda: k3.quantize_pack(wide, 1.0, 32767.0, bits=16)),
+            "plain_ms": time_ms(lambda: k3.quantize_pack_plain(wide, 1.0, 32767.0, bits=16)),
+            "ms_8bit": time_ms(lambda: k3.quantize_pack(lat, 1.0, 127.0)),
+            "plain_ms_8bit": time_ms(lambda: k3.quantize_pack_plain(lat, 1.0, 127.0)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bound_fp32_ms": b_ms,
+            "bound_ms_8bit": b8_ms,
             "max_abs_err": 0.0,
             "max_rel_err": 0.0,
-            "shapes": [{"x": list(lat.shape), "step": 1.0, "lim": 127}],
+            "shapes": [{"x": list(lat.shape), "step": 1.0, "lim": 32767, "bits": 16},
+                       {"x": list(lat.shape), "step": 1.0, "lim": 127, "bits": 8}],
         }
         emit({"phase": "k3_quantize_pack", "ok": True, "counter": k3.quantize_pack.launches,
               **rows["quantize_pack"]})
@@ -440,8 +516,8 @@ def main() -> int:
     with torch.no_grad():
         for i, (img, data, rec) in enumerate(zip(images, files, recons)):
             x = torch.from_numpy(img[None]).to(dev)
-            sym, _ = k3.quantize_pack(model.Encoder(x), 1.0, 127.0)
-            encoded = sym[0].cpu().numpy().astype(np.int64) - 127
+            sym, _ = k3.quantize_pack(model.Encoder(x), 1.0, 32767.0, bits=16)
+            encoded = sym[0].cpu().numpy().astype(np.int64) - 32767
             decoded, _, _ = codec_cli.read_latent(data, model)
             check(np.array_equal(decoded, encoded), f"image {i}: decoded symbols differ")
             check(rec.shape == img.shape and np.isfinite(rec).all()
@@ -513,6 +589,335 @@ def main() -> int:
           "host_ms": {"cdf_tables": 1e3 * (t1 - t0), "rans_encode": 1e3 * (t2 - t1),
                       "rans_decode": 1e3 * (t3 - t2)}})
 
+    # ---- train: the Ballé-17 training path at full width
+    from torch.profiler import ProfilerActivity, profile
+
+    from iclr_17_compression_tpu_torch.data.datasets import (
+        ImageFolderDataset, batch_iterator, write_ppm)
+    from iclr_17_compression_tpu_torch.models.balle17 import Balle17Compressor
+    from iclr_17_compression_tpu_torch.ops.conv import conv2d
+    from iclr_17_compression_tpu_torch.ops.entropy import estimate_bits
+    from iclr_17_compression_tpu_torch.ops.gdn import gdn_plain
+    from iclr_17_compression_tpu_torch.ops.quant import add_uniform_noise
+    from iclr_17_compression_tpu_torch.train import cli as train_cli
+    from iclr_17_compression_tpu_torch.train.checkpoint import latest_checkpoint, load_train_state
+    from iclr_17_compression_tpu_torch.train.config import TrainConfig
+    from iclr_17_compression_tpu_torch.train.state import apply_gradients, create_train_state
+
+    work = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    train_dir, test_dir = os.path.join(work, "train"), os.path.join(work, "test")
+    os.makedirs(train_dir)
+    os.makedirs(test_dir)
+    rng = np.random.default_rng(1)
+    for i in range(N_TRAIN_IMAGES):
+        write_ppm(os.path.join(train_dir, f"{i:02d}.ppm"), smooth_image(rng, TRAIN_IMG, TRAIN_IMG))
+    test_images = [smooth_image(rng) for _ in range(2)]
+    for i, img in enumerate(test_images):
+        write_ppm(os.path.join(test_dir, f"{i}.ppm"), img)
+    cfg = dataclasses.replace(
+        TrainConfig.from_json(os.path.join(ROOT, "examples", "balle17.json")),
+        tot_step=TRAIN_STEPS, save_model_freq=TRAIN_STEPS, print_freq=10, cal_step=1,
+        tensorboard=False, train_dir=train_dir, test_dir=test_dir, save_root=work)
+    check((cfg.out_channel_n, cfg.batch_size, cfg.image_size, cfg.train_lambda,
+           cfg.lr_base, cfg.grad_clip) == (N_CH, 4, 256, 8192, 1e-4, 5.0),
+          "examples/balle17.json is not the N=128, batch 4, 256 px, λ 8192 config")
+    run_dir = os.path.join(work, "run1")
+    cfg_path, resume_cfg_path = (os.path.join(work, f) for f in ("train.json", "resume.json"))
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    with open(resume_cfg_path, "w") as f:
+        f.write(dataclasses.replace(cfg, tot_step=RESUME_STEPS).to_json())
+
+    # the loop's own step, timed (host clock around work that ends in a
+    # synchronize), its first batch kept, a profiler over one window; the
+    # eval's kernel launches counted apart
+    steps, first_batch, box = [], {}, {}
+    eval_launches, eval_results = {"conv_gdn": 0, "gdn": 0}, []
+    real_make_step, real_eval = train_cli.make_balle17_train_step, train_cli.eval_kodak
+
+    def timed_make_step(*args, **kw):
+        step_fn = real_make_step(*args, **kw)
+
+        def timed_step(state, x, generator):
+            first_batch.setdefault("step", state.step)
+            first_batch.setdefault("x", x.detach().clone())
+            if state.step == box.get("profile_start"):
+                box["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                box["prof"].__enter__()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step_fn(state, x, generator)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            steps.append((state.step, t0, t1, float(metrics["rd_loss"])))
+            if "prof" in box and state.step == box["profile_start"] + PROFILE_STEPS:
+                box["prof"].__exit__(None, None, None)
+                box["window_ms"] = 1e3 * (t1 - steps[-PROFILE_STEPS][1])
+            return metrics
+
+        return timed_step
+
+    def counted_eval(*args, **kw):
+        before = (k2.conv_gdn.launches, k1.gdn_fused.launches)
+        res = real_eval(*args, **kw)
+        eval_launches["conv_gdn"] += k2.conv_gdn.launches - before[0]
+        eval_launches["gdn"] += k1.gdn_fused.launches - before[1]
+        eval_results.append(res)
+        return res
+
+    def read_launches():
+        return {"conv_gdn": k2.conv_gdn.launches - eval_launches["conv_gdn"],
+                "gdn": k1.gdn_fused.launches - eval_launches["gdn"],
+                "quantize_pack": k3.quantize_pack.launches}
+
+    def reset_launches():
+        k1.gdn_fused.launches = k2.conv_gdn.launches = k3.quantize_pack.launches = 0
+        eval_launches.update(conv_gdn=0, gdn=0)
+
+    train_cli.make_balle17_train_step, train_cli.eval_kodak = timed_make_step, counted_eval
+    try:
+        # run A: steps 0-100, counters around it only
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        state_a = train_cli.main(["--config", cfg_path, "-n", "run1"])
+        run_a_s = time.perf_counter() - t0
+        launches_a = read_launches()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        eval_launches_a = dict(eval_launches)
+        steps_a, batch_a = list(steps), first_batch.pop("x")
+        first_batch.clear()
+
+        # what run A saved, read back into a fresh state, equals what it held
+        fresh = create_train_state(Balle17Compressor(N_CH).to(dev), lr=cfg.lr_base)
+        fresh, meta = load_train_state(fresh, os.path.join(run_dir, "latest.ckpt"))
+        saved_opt = state_a.optimizer.state_dict()["state"]
+        read_opt = fresh.optimizer.state_dict()["state"]
+        check(fresh.step == TRAIN_STEPS == meta["step"], f"saved step {fresh.step}, {meta}")
+        check(all(torch.equal(a, b) for a, b in zip(state_a.model.state_dict().values(),
+                                                    fresh.model.state_dict().values())),
+              "resume: parameters read back differ from the saved ones")
+        check(len(saved_opt) == len(read_opt) and all(
+            torch.equal(saved_opt[i][k], read_opt[i][k])
+            for i in saved_opt for k in ("exp_avg", "exp_avg_sq", "step")),
+            "resume: Adam moments read back differ from the saved ones")
+
+        # run B: --resume to 120, profiling steps 105-115
+        box["profile_start"] = TRAIN_STEPS + 5
+        reset_launches()
+        state_b = train_cli.main(["--config", resume_cfg_path, "-n", "run1",
+                                  "--resume", run_dir])
+        launches_b = read_launches()
+        steps_b = steps[len(steps_a):]
+    finally:
+        train_cli.make_balle17_train_step, train_cli.eval_kodak = real_make_step, real_eval
+
+    per_epoch = N_TRAIN_IMAGES // cfg.batch_size
+    epoch, skip = divmod(TRAIN_STEPS, per_epoch)
+    expected = next(batch_iterator(ImageFolderDataset(train_dir, cfg.image_size, cfg.seed),
+                                   cfg.batch_size, seed=cfg.seed, epoch=epoch, skip=skip))
+    check(first_batch["step"] == TRAIN_STEPS and state_b.step == RESUME_STEPS,
+          f"resume ran steps {first_batch['step']}..{state_b.step}")
+    check(torch.equal(first_batch["x"].cpu(), torch.from_numpy(expected)),
+          "resume: the first batch is not the one the uninterrupted loop draws")
+    n_a, n_b = len(steps_a), len(steps_b)
+    check(n_a == TRAIN_STEPS and n_b == RESUME_STEPS - TRAIN_STEPS, f"steps run {n_a}, {n_b}")
+    check(launches_a == {"conv_gdn": 3 * n_a, "gdn": 2 * n_a, "quantize_pack": 0}
+          and launches_b == {"conv_gdn": 3 * n_b, "gdn": 2 * n_b, "quantize_pack": 0},
+          f"training launches {launches_a}, {launches_b}: expected K2 3 and K1 2 a step")
+    check(len(eval_results) == 1 and eval_launches_a == {"conv_gdn": 6, "gdn": 4},
+          f"eval: {len(eval_results)} runs, launches {eval_launches_a}")
+    losses = [s[3] for s in steps_a + steps_b]
+    check(all(np.isfinite(losses)), "a training loss is not finite")
+    first10, last10 = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(last10 < first10, f"rd_loss did not fall: first 10 {first10:.2f}, last 10 {last10:.2f}")
+    ev = eval_results[0]
+    check(all(np.isfinite([ev[k] for k in ("bpp", "psnr", "ms_ssim", "ms_ssim_db")])),
+          f"eval metrics not finite: {ev}")
+
+    step_ms = [1e3 * (t1 - t0) for k, t0, t1, _ in steps_a if k >= 20]
+    iter_ms = [1e3 * (b[1] - a[1]) for a, b in zip(steps_a, steps_a[1:]) if a[0] >= 20]
+    med_step, med_iter = statistics.median(step_ms), statistics.median(iter_ms)
+
+    # the window's device time: busy, by kernel, and by range
+    prof = box["prof"]
+    by_kernel, ranges = {}, {}
+    top_backward, n_kernels = 0.0, 0
+
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if getattr(evt, "is_user_annotation", False):
+                continue  # a range's span on the device timeline, not a kernel
+            name = evt.name.split("(")[0][:60]
+            by_kernel[name] = by_kernel.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3
+            n_kernels += not name.startswith("Memcpy")
+            continue
+        if evt.name.startswith(("train_step/", "iclr17c::gdn_backward",
+                                "iclr17c::conv_gdn_backward")):
+            ranges[evt.name] = ranges.get(evt.name, 0.0) + evt.device_time_total / 1e3
+        if evt.name.startswith("autograd::engine::evaluate_function"):
+            parent = evt.cpu_parent
+            while parent is not None and not parent.name.startswith("autograd::engine"):
+                parent = parent.cpu_parent
+            if parent is None:
+                top_backward += evt.device_time_total / 1e3
+    busy = sum(by_kernel.values())
+    window_ms = box["window_ms"]
+    recompute = ranges.get("iclr17c::conv_gdn_backward", 0.0) + ranges.get(
+        "iclr17c::gdn_backward", 0.0)
+    forward_kernels = sum(v for k, v in by_kernel.items() if "iclr17c::" in k)
+
+    # the step's phases on the card, CUDA events, 20 steps after 3 (a fresh
+    # model: what it computes does not depend on the weights)
+    phase_state = create_train_state(
+        Balle17Compressor(N_CH).init_(torch.Generator().manual_seed(cfg.seed)).to(dev),
+        lr=cfg.lr_base)
+    phases = []
+    for i in range(23):
+        ev_ = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        gen_i = train_cli.step_generator(cfg.seed, i, dev)
+        ev_[0].record()
+        out = phase_state.model(batch_a, train=True, generator=gen_i)
+        loss = cfg.train_lambda * out["mse"] + out["bpp"]
+        ev_[1].record()
+        phase_state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev_[2].record()
+        apply_gradients(phase_state)
+        ev_[3].record()
+        torch.cuda.synchronize()
+        if i >= 3:
+            phases.append([ev_[j].elapsed_time(ev_[j + 1]) for j in range(3)])
+    phase_ms = {k: statistics.median(p[j] for p in phases)
+                for j, k in enumerate(("forward", "backward", "optimizer"))}
+
+    # gradient parity on the card: the kernels' Functions against the plain
+    # path, same weights, same batch, same noise
+    def plain_loss(m, x, generator):
+        enc, dec = m.Encoder, m.Decoder
+        y = gdn_plain(conv2d(x, enc.conv1.weight, enc.conv1.bias, stride=4, padding=4),
+                      enc.gdn1.params())
+        y = gdn_plain(conv2d(y, enc.conv2.weight, enc.conv2.bias, stride=2, padding=2),
+                      enc.gdn2.params())
+        latent = add_uniform_noise(conv2d(y, enc.conv3.weight, None, stride=2, padding=2),
+                                   generator, 0.5)
+        z = gdn_plain(dec.deconv1(latent), dec.igdn1.params(), inverse=True)
+        z = gdn_plain(dec.deconv2(z), dec.igdn2.params(), inverse=True)
+        recon = dec.deconv3(z)
+        bits, _ = estimate_bits(latent, m.bitEstimator.params())
+        mse = torch.mean((recon - x) ** 2)
+        return (cfg.train_lambda * mse + bits / (x.shape[0] * x.shape[1] * x.shape[2]),
+                torch.clamp(recon, 0.0, 1.0))
+
+    def kernel_loss(m, x, generator):
+        out = m(x, train=True, generator=generator)
+        return cfg.train_lambda * out["mse"] + out["bpp"], out["recon"]
+
+    def grads(m, loss_fn):
+        m.zero_grad(set_to_none=True)
+        loss, recon = loss_fn(m, batch_a, train_cli.step_generator(cfg.seed, 7, dev))
+        loss.backward()
+        return (float(loss.detach()), recon.detach(),
+                {k: p.grad.clone() for k, p in m.named_parameters()})
+
+    def grad_gap(ga, gb):
+        return max(float((ga[k] - gb[k]).abs().max() / gb[k].abs().max().clamp(min=1e-30))
+                   for k in gb)
+
+    parity_model = Balle17Compressor(N_CH).init_(torch.Generator().manual_seed(cfg.seed)).to(dev)
+    loss_k, _, g_kernel = grads(parity_model, kernel_loss)
+    loss_p, _, g_plain = grads(parity_model, plain_loss)
+    gap = grad_gap(g_kernel, g_plain)
+    check(gap <= GRAD_TOL, f"gradients through the kernels vs plain: {gap:.2e} > {GRAD_TOL}")
+
+    # TF32 on (PyTorch's defaults), a model moved to the card by hand: its
+    # forward turns TF32 off, so forward and backward match the fp32 path
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    tf32_model = Balle17Compressor(N_CH).init_(torch.Generator().manual_seed(cfg.seed)).cuda()
+    loss_t, recon_t, g_tf32 = grads(tf32_model, kernel_loss)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    _, recon_p, g_tf32_plain = grads(tf32_model, plain_loss)
+    tf32_recon_err = float((recon_t - recon_p).abs().max())
+    tf32_gap = grad_gap(g_tf32, g_tf32_plain)
+    check(flags == (False, False), f"TF32 flags after a CUDA forward: {flags}")
+    check(tf32_recon_err <= DECODE_ATOL and tf32_gap <= GRAD_TOL,
+          f"model moved by hand with TF32 on: recon {tf32_recon_err:.2e}, grads {tf32_gap:.2e}")
+
+    # K2 and K1 at the training shapes against their plain versions
+    enc, dec = state_b.model.Encoder, state_b.model.Decoder
+    k2_train, k1_train = new_row(library=True), new_row(library=False)
+    with torch.no_grad():
+        x = batch_a
+        for i, (conv, gdn, stride) in enumerate(((enc.conv1, enc.gdn1, 4),
+                                                 (enc.conv2, enc.gdn2, 2),
+                                                 (enc.conv3, None, 2))):
+            w = conv.weight.permute(2, 3, 1, 0).contiguous()
+            gamma_t = beta = None
+            if gdn is not None:
+                beta, gamma = gdn_reparam(gdn.params())
+                gamma_t, beta = gamma.t().contiguous(), beta.contiguous()
+            args = (x, w, conv.bias, gamma_t, beta, stride, stride)
+            measure_k2(args, k2_train, f"K2 training stage {i + 1}")
+            x = k2.conv_gdn_plain(*args)
+        for igdn, hw in ((dec.igdn1, 32), (dec.igdn2, 64)):
+            x = torch.randn((cfg.batch_size, hw, hw, N_CH), generator=gen).to(dev)
+            measure_k1(x, igdn, k1_train, f"K1 training {cfg.batch_size}x{hw}x{hw}")
+
+    # train → file codec: the last checkpoint codes a test image exactly
+    last = latest_checkpoint(run_dir)
+    check(last is not None and last.endswith(f"iter_{RESUME_STEPS}.ckpt"), f"last ckpt {last}")
+    trained = load_balle17(last, device="cuda")
+    data = codec_cli.encode_image(test_images[0], trained, device="cuda")
+    rec = codec_cli.decode_image(data, trained, device="cuda")
+    with torch.no_grad():
+        xt = torch.from_numpy(test_images[0][None]).to(dev)
+        sym, _ = k3.quantize_pack(trained.Encoder(xt), 1.0, 32767.0, bits=16)
+    decoded, _, _ = codec_cli.read_latent(data, trained)
+    check(np.array_equal(decoded, sym[0].cpu().numpy().astype(np.int64) - 32767),
+          "trained checkpoint: decoded symbols differ from the encoder's")
+    check(rec.shape == test_images[0].shape and np.isfinite(rec).all()
+          and rec.min() >= 0.0 and rec.max() <= 1.0, "trained checkpoint: bad recon")
+
+    train_launches = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    emit({"phase": "train", "ok": True, "n": N_CH, "batch": cfg.batch_size,
+          "crop": cfg.image_size, "steps": [TRAIN_STEPS, RESUME_STEPS],
+          "launches_per_step": {"conv_gdn": launches_a["conv_gdn"] / n_a,
+                                "gdn": launches_a["gdn"] / n_a},
+          "launches": train_launches, "eval_launches": eval_launches_a,
+          "rd_loss_first10": first10, "rd_loss_last10": last10,
+          "rd_loss_every10": losses[::10],
+          "median_step_ms": med_step, "images_per_s": cfg.batch_size * 1e3 / med_step,
+          "median_iteration_ms": med_iter,
+          "loop_images_per_s": cfg.batch_size * 1e3 / med_iter,
+          "run_a_s": run_a_s, "peak_memory_gib": peak_bytes / 2 ** 30,
+          "phase_ms": phase_ms,
+          "profile": {"steps": [TRAIN_STEPS + 5, TRAIN_STEPS + 5 + PROFILE_STEPS],
+                      "device_idle_share": 1.0 - busy / window_ms,
+                      "per_step_ms": {
+                          "wall": window_ms / PROFILE_STEPS,
+                          "device_busy": busy / PROFILE_STEPS,
+                          "forward": ranges.get("train_step/forward", 0.0) / PROFILE_STEPS,
+                          "k1_k2_forward_kernels": forward_kernels / PROFILE_STEPS,
+                          "backward": top_backward / PROFILE_STEPS,
+                          "k1_k2_backward_recompute": recompute / PROFILE_STEPS,
+                          "cudnn_and_other_backward": (top_backward - recompute) / PROFILE_STEPS,
+                          "optimizer": ranges.get("train_step/optimizer", 0.0) / PROFILE_STEPS},
+                      "kernels_per_step": n_kernels / PROFILE_STEPS,
+                      "window_ms_by_range": ranges,
+                      "window_ms_by_kernel": dict(sorted(by_kernel.items(),
+                                                         key=lambda kv: -kv[1])[:15])},
+          "grad_parity": {"tol": GRAD_TOL, "max_gap": gap, "loss_kernel": loss_k,
+                          "loss_plain": loss_p},
+          "tf32_check": {"flags_after_forward": flags, "recon_max_abs_err": tf32_recon_err,
+                         "grad_gap": tf32_gap},
+          "k2_training": k2_train, "k1_training": k1_train,
+          "eval": {k: ev[k] for k in ("bpp", "psnr", "ms_ssim", "ms_ssim_db")},
+          "handoff": {"ckpt": os.path.basename(last), "bytes": len(data),
+                      "bpp": 8.0 * len(data) / (IMG_H * IMG_W),
+                      "psnr_db": float(psnr(torch.from_numpy(rec),
+                                            torch.from_numpy(test_images[0])))}})
+
     kernels = []
     meta = {
         "gdn": ("iclr_17_compression_tpu_torch/ops/kernels/csrc/gdn.cu",
@@ -525,7 +930,8 @@ def main() -> int:
     for name in ("conv_gdn", "gdn", "quantize_pack"):
         row = rows[name]
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
-                 "replaces": meta[name][1], "launches": launches[name],
+                 "replaces": meta[name][1], "launches": launches[name] + train_launches[name],
+                 "launches_by_path": {"codec": launches[name], "train": train_launches[name]},
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -533,6 +939,12 @@ def main() -> int:
         if name == "conv_gdn":
             entry["stages"] = [{k: st[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
                                for st in row["shapes"]]
+        train_row = {"conv_gdn": k2_train, "gdn": k1_train}.get(name)
+        if train_row is not None:
+            entry["max_abs_err"] = max(row["max_abs_err"], train_row["max_abs_err"])
+            entry["training_shapes"] = [
+                {k: st.get(k) for k in ("x", "ms", "plain_ms", "library_ms", "bound_ms")}
+                for st in train_row["shapes"]]
         kernels.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -137,6 +137,10 @@ def build_cdf_tables_from_bit_estimator(
 ) -> RansCodec:
     """Evaluate the BitEstimator CDF per channel on the integer grid
     [zmin, zmax] (on the CPU, fp32) and quantize to integer frequencies."""
+    if zmax - zmin + 1 > 1 << scale_bits:
+        # every symbol needs a count of at least 1 out of 1 << scale_bits
+        raise ValueError(f"{zmax - zmin + 1} symbols in [{zmin}, {zmax}] do not fit "
+                         f"{scale_bits}-bit tables")
     params = _cpu_params(params)
     ch = params.f1.h.shape[0]
     x = torch.arange(zmin, zmax + 1, dtype=torch.float32)[:, None].expand(-1, ch)

@@ -8,8 +8,10 @@ Counterpart of the Ballé-17 parts of
   lat_h u16 | lat_w u16 | lat_c u16 | zmin i16 | zmax i16 | len u32 | rANS
 
 Encode on CUDA: pad to a multiple of 16, the encoder as three K2 launches,
-K3 (step 1, lim 127) turns the latent into uint8 symbols on the device and
-only those bytes cross to the host, then the CDF tables and rANS. Decode:
+K3 (step 1, lim 32767, 16-bit symbols: every latent the header's i16
+zmin/zmax can describe, as the JAX codec codes) turns the latent into
+symbols on the device and only those cross to the host, then the CDF tables
+and rANS. Decode:
 rANS, then the decoder (deconvs with a K1 IGDN after each of the first
 two), clipped to [0, 1].
 
@@ -34,7 +36,7 @@ from .api import build_cdf_tables_from_bit_estimator, decode_latent, encode_late
 MAGIC = b"ICZ1"
 KIND_BALLE17 = 1
 PAD_MULTIPLE = 16
-SYMBOL_LIM = 127  # K3 at step 1: symbols 0..254 stand for latents -127..127
+SYMBOL_LIM = 32767  # K3 at step 1, 16 bits: symbols 0..65534 stand for latents ±32767
 
 
 def pad_to_multiple(img: np.ndarray, m: int) -> np.ndarray:
@@ -92,15 +94,12 @@ def encode_image(image: np.ndarray, model, device: Optional[str] = None) -> byte
     x = torch.from_numpy(np.ascontiguousarray(pad_to_multiple(image, PAD_MULTIPLE)[None],
                                               np.float32)).to(dev)
     with torch.no_grad():
-        symbols, _ = quantize_pack(model.Encoder(x), 1.0, float(SYMBOL_LIM))
+        symbols, _ = quantize_pack(model.Encoder(x), 1.0, float(SYMBOL_LIM), bits=16)
     sym = symbols[0].cpu().numpy()
     if sym.min() == 0 or sym.max() == 2 * SYMBOL_LIM:
-        # the JAX codec never clips the latent; refuse rather than write a
-        # different stream
-        raise ValueError(
-            f"latent reaches ±{SYMBOL_LIM} and may have been clipped; "
-            "this image cannot be coded with 8-bit symbols"
-        )
+        # beyond what the i16 header fields hold; the JAX codec cannot write
+        # such a latent either
+        raise ValueError(f"latent reaches ±{SYMBOL_LIM} and may have been clipped")
     lat = sym.astype(np.int64) - SYMBOL_LIM
     zmin, zmax = int(lat.min()), int(lat.max())
     codec = build_cdf_tables_from_bit_estimator(model.bitEstimator.params(), zmin, zmax)

@@ -1,4 +1,4 @@
-"""Ballé-2017 codec, eval forward.
+"""Ballé-2017 codec.
 
 Counterpart of ``iclr_17_compression_tpu/models/balle17.py``:
 
@@ -6,18 +6,23 @@ Counterpart of ``iclr_17_compression_tpu/models/balle17.py``:
              conv 5×5 s2 p2 (no bias)                        [÷16 spatial]
   synthesis: deconv 5×5 s2 p2 op1 → IGDN → deconv 5×5 s2 p2 op1 → IGDN →
              deconv 9×9 s4 p4 op3 (N→3)                      [×16 spatial]
-  quant    : eval round(x)
+  quant    : train x+U(-0.5,0.5) (noise-round) or round with a straight-
+             through gradient (ste); eval round(x); or the binarized code
+             (binarize: sigmoid → (x > 0.5), identity gradient)
   rate     : factorized BitEstimator, bits = Σ clip(-log2 ΔC, 0, 50)
 
 On CUDA the analysis transform runs as three K2 launches
-(``analysis17_fused``) and each IGDN as one K1 launch; on the CPU every
-stage is plain PyTorch. Module names give the reference state_dict keys
-(``Encoder.conv1.weight``, ``Decoder.igdn2.gamma``, ``bitEstimator.f1.h``).
-The training modes (noise, straight-through, binarize) belong to the
-training slice.
+(``analysis17_fused``) and each IGDN as one K1 launch, forward and under
+autograd alike; on the CPU every stage is plain PyTorch. Every forward on a
+CUDA tensor turns TF32 off for the process (``utils.device.no_tf32``), so
+the cuDNN convolutions of the forward and of the backward that follows run
+in fp32, as the JAX package computes. Module names give the reference
+state_dict keys (``Encoder.conv1.weight``, ``Decoder.igdn2.gamma``,
+``bitEstimator.f1.h``).
 """
 
-from typing import Dict
+import math
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -26,26 +31,43 @@ from ..nn.layers import GDN, BitEstimator, TorchConv, TorchConvTranspose
 from ..ops import quant
 from ..ops.entropy import estimate_bits
 from ..ops.kernels.conv_gdn_kernel import analysis17_fused
+from ..utils.device import no_tf32
+
+QUANT_MODES = ("noise-round", "ste", "binarize")
+
+
+def _fp32_on_cuda(x: torch.Tensor) -> None:
+    if x.device.type == "cuda":
+        no_tf32()
 
 
 class Analysis17(nn.Module):
-    """3-stage analysis transform (÷16), NHWC."""
+    """3-stage analysis transform (÷16), NHWC. ``binarize=True`` is the
+    reference's Analysis_net_17_new: sigmoid → binarizer, returning
+    (code, pre_binarize)."""
 
-    def __init__(self, out_channel_n: int = 128):
+    def __init__(self, out_channel_n: int = 128, binarize: bool = False):
         super().__init__()
         n = out_channel_n
-        self.conv1 = TorchConv(3, n, 9, stride=4, padding=4)
+        self.binarize = binarize
+        self.conv1 = TorchConv(3, n, 9, stride=4, padding=4, gain=math.sqrt(2 * (3 + n) / 6))
         self.gdn1 = GDN(n)
-        self.conv2 = TorchConv(n, n, 5, stride=2, padding=2)
+        self.conv2 = TorchConv(n, n, 5, stride=2, padding=2, gain=math.sqrt(2))
         self.gdn2 = GDN(n)
-        self.conv3 = TorchConv(n, n, 5, stride=2, padding=2, bias=False)
+        self.conv3 = TorchConv(n, n, 5, stride=2, padding=2, bias=False, gain=math.sqrt(2))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
+        _fp32_on_cuda(x)
         if x.device.type == "cuda":
-            return analysis17_fused(self, x)
-        x = self.gdn1(self.conv1(x))
-        x = self.gdn2(self.conv2(x))
-        return self.conv3(x)
+            x = analysis17_fused(self, x)
+        else:
+            x = self.gdn1(self.conv1(x))
+            x = self.gdn2(self.conv2(x))
+            x = self.conv3(x)
+        if self.binarize:
+            pre = torch.sigmoid(x)
+            return quant.binarize_ste(pre), pre
+        return x
 
 
 class Synthesis17(nn.Module):
@@ -54,45 +76,77 @@ class Synthesis17(nn.Module):
     def __init__(self, out_channel_n: int = 128):
         super().__init__()
         n = out_channel_n
-        self.deconv1 = TorchConvTranspose(n, n, 5, stride=2, padding=2, output_padding=1)
+        sq2 = math.sqrt(2)
+        self.deconv1 = TorchConvTranspose(n, n, 5, stride=2, padding=2, output_padding=1,
+                                          gain=sq2)
         self.igdn1 = GDN(n, inverse=True)
-        self.deconv2 = TorchConvTranspose(n, n, 5, stride=2, padding=2, output_padding=1)
+        self.deconv2 = TorchConvTranspose(n, n, 5, stride=2, padding=2, output_padding=1,
+                                          gain=sq2)
         self.igdn2 = GDN(n, inverse=True)
-        self.deconv3 = TorchConvTranspose(n, 3, 9, stride=4, padding=4, output_padding=3)
+        self.deconv3 = TorchConvTranspose(n, 3, 9, stride=4, padding=4, output_padding=3,
+                                          gain=sq2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _fp32_on_cuda(x)
         x = self.igdn1(self.deconv1(x))
         x = self.igdn2(self.deconv2(x))
         return self.deconv3(x)
 
 
 class Balle17Compressor(nn.Module):
-    """End-to-end Ballé-17 codec. ``forward(image)`` (NHWC in [0, 1]) returns
-    the eval-mode dict of the JAX model:
+    """End-to-end Ballé-17 codec. ``forward(image, train, generator)``
+    (NHWC in [0, 1]) returns the JAX model's dict:
       recon  : reconstruction clipped to [0, 1]
-      latent : round(analysis(image))
+      latent : the quantized (or, training noise-round, noised) latent
       mse    : mean squared error of the unclipped reconstruction
-      bpp    : estimated bits per pixel under the factorized prior
+      bpp    : estimated bits per pixel under the factorized prior; for
+               ``binarize``, latent elements per pixel
+      pre_binarize : the sigmoid before the binarizer (``binarize`` only)
+    ``generator`` draws the training noise of ``noise-round`` (the
+    counterpart of the JAX model's explicit ``rng``).
     """
 
-    def __init__(self, out_channel_n: int = 128):
+    def __init__(self, out_channel_n: int = 128, quant: str = "noise-round"):
         super().__init__()
+        if quant not in QUANT_MODES:
+            raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
         self.out_channel_n = out_channel_n
-        self.Encoder = Analysis17(out_channel_n)
+        self.quant = quant
+        self.Encoder = Analysis17(out_channel_n, binarize=quant == "binarize")
         self.Decoder = Synthesis17(out_channel_n)
         self.bitEstimator = BitEstimator(out_channel_n)
 
-    def forward(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def init_(self, generator: torch.Generator) -> "Balle17Compressor":
+        """The JAX package's training init (``nn/layers.py``), drawn from
+        ``generator`` in module order."""
+        for m in self.modules():
+            if m is not self and hasattr(m, "init_"):
+                m.init_(generator)
+        return self
+
+    def forward(self, image: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        _fp32_on_cuda(image)
         n, h, w, _ = image.shape
-        latent = quant.round(self.Encoder(image))
+        out = {}
+        if self.quant == "binarize":
+            latent, out["pre_binarize"] = self.Encoder(image)
+        else:
+            feature = self.Encoder(image)
+            if train and self.quant == "noise-round":
+                latent = quant.add_uniform_noise(feature, generator, 0.5)
+            elif train:
+                latent = quant.round_ste(feature)
+            else:
+                latent = quant.round(feature)
         recon = self.Decoder(latent)
-        mse = torch.mean((recon - image) ** 2)
-        # rate term in fp32 always: the CDF difference of two near-equal
-        # sigmoids cancels catastrophically in lower precision
-        total_bits, _ = estimate_bits(latent.float(), self.bitEstimator.params())
-        return {
-            "recon": torch.clamp(recon, 0.0, 1.0),
-            "latent": latent,
-            "mse": mse,
-            "bpp": total_bits / (n * h * w),
-        }
+        out.update(recon=torch.clamp(recon, 0.0, 1.0), latent=latent,
+                   mse=torch.mean((recon - image) ** 2))
+        if self.quant == "binarize":
+            out["bpp"] = torch.tensor(latent.numel() / (n * h * w), device=image.device)
+        else:
+            # rate term in fp32 always: the CDF difference of two near-equal
+            # sigmoids cancels catastrophically in lower precision
+            total_bits, _ = estimate_bits(latent.float(), self.bitEstimator.params())
+            out["bpp"] = total_bits / (n * h * w)
+        return out

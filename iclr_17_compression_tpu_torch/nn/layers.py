@@ -7,9 +7,16 @@ the reference keys that ``iclr_17_compression_tpu.train.torch_import`` maps:
 conv weight OIHW, deconv weight (Cin, Cout, kh, kw), GDN ``beta``/``gamma``
 reparameterized, Bitparm ``h``/``b``/``a`` as (C,).
 
-Initialization is torch's default here: the port loads trained weights;
-training-time init belongs to the training slice.
+Construction uses torch's default init. Training starts from the JAX
+package's initializers instead, drawn from an explicit generator by each
+module's ``init_(generator)``: ``xavier_normal_`` with the layer's gain on
+conv and deconv weights, biases at 0.01, the GDN identity init, and Bitparm
+``h``/``b``/``a`` ~ N(0, 0.01²). The values differ from the JAX package's
+draws (another generator); the distributions are the same.
 """
+
+import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -19,16 +26,48 @@ from ..ops import entropy as ops_entropy
 from ..ops.gdn import GDNParams, gdn, gdn_param_init
 
 
-class TorchConv(nn.Conv2d):
-    """``nn.Conv2d`` taking and returning NHWC."""
+def xavier_normal_(w: torch.Tensor, gain: float, generator: torch.Generator) -> None:
+    """``xavier_normal_`` with an explicit gain, in place, over a conv weight
+    (Cout, Cin, k, k) or a deconv weight (Cin, Cout, k, k): std =
+    gain·sqrt(2 / ((Cin + Cout)·k·k)), symmetric in the two channel counts,
+    as ``xavier_normal_gain`` (``iclr_17_compression_tpu/nn/layers.py``)."""
+    fan_sum = (w.shape[0] + w.shape[1]) * w.shape[2] * w.shape[3]
+    std = gain * math.sqrt(2.0 / fan_sum)
+    with torch.no_grad():
+        w.copy_(std * torch.randn(w.shape, generator=generator))
+
+
+class _JaxInit:
+    """``init_``: the weight drawn by ``xavier_normal_`` with ``self.gain``,
+    the bias (where there is one) set to 0.01."""
+
+    def init_(self, generator: torch.Generator) -> None:
+        xavier_normal_(self.weight, self.gain, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.fill_(0.01)
+
+
+class TorchConv(_JaxInit, nn.Conv2d):
+    """``nn.Conv2d`` taking and returning NHWC; ``gain`` is the training
+    init's xavier gain."""
+
+    def __init__(self, *args, gain: float = 1.0, **kw):
+        super().__init__(*args, **kw)
+        self.gain = gain
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return ops_conv.conv2d(x, self.weight, self.bias, stride=self.stride,
                                padding=self.padding)
 
 
-class TorchConvTranspose(nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d`` taking and returning NHWC."""
+class TorchConvTranspose(_JaxInit, nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` taking and returning NHWC; ``gain`` is the
+    training init's xavier gain."""
+
+    def __init__(self, *args, gain: float = 1.0, **kw):
+        super().__init__(*args, **kw)
+        self.gain = gain
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return ops_conv.conv_transpose2d(
@@ -48,6 +87,13 @@ class GDN(nn.Module):
         self.beta = nn.Parameter(init.beta)
         self.gamma = nn.Parameter(init.gamma)
 
+    def init_(self, generator: Optional[torch.Generator] = None) -> None:
+        """The identity-like init (deterministic: draws nothing)."""
+        init = gdn_param_init(self.beta.shape[0])
+        with torch.no_grad():
+            self.beta.copy_(init.beta)
+            self.gamma.copy_(init.gamma)
+
     def params(self) -> GDNParams:
         return GDNParams(self.beta, self.gamma)
 
@@ -64,6 +110,13 @@ class Bitparm(nn.Module):
         self.h = nn.Parameter(0.01 * torch.randn(channel))
         self.b = nn.Parameter(0.01 * torch.randn(channel))
         self.a = None if final else nn.Parameter(0.01 * torch.randn(channel))
+
+    def init_(self, generator: torch.Generator) -> None:
+        """h, b, a ~ N(0, 0.01²), in that order."""
+        with torch.no_grad():
+            for p in (self.h, self.b, self.a):
+                if p is not None:
+                    p.copy_(0.01 * torch.randn(p.shape, generator=generator))
 
     def params(self) -> ops_entropy.BitparmParams:
         return ops_entropy.BitparmParams(self.h, self.b, self.a)

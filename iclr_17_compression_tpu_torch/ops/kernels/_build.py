@@ -106,8 +106,9 @@ def kernels() -> ctypes.CDLL:
         fn.argtypes = [_i]
     lib.iclr17c_conv_gdn_blocks_per_sm.restype = _i
     lib.iclr17c_conv_gdn_blocks_per_sm.argtypes = [_i]
-    lib.iclr17c_quant_pack.restype = _i
-    lib.iclr17c_quant_pack.argtypes = [_c, _c, _c, _ll, ctypes.c_float, _i, _c]
+    for fn in (lib.iclr17c_quant_pack, lib.iclr17c_quant_pack16):
+        fn.restype = _i
+        fn.argtypes = [_c, _c, _c, _ll, ctypes.c_float, _i, _c]
     return lib
 
 
@@ -141,8 +142,8 @@ def check_tensor(name: str, t, shape: tuple = None, dtype=torch.float32) -> None
 
 
 def forward_only(what: str, *tensors) -> None:
-    """The kernels have no backward yet (the training slice adds them):
-    refuse a call that autograd would need to differentiate."""
+    """Refuse a call that autograd would need to differentiate, for a kernel
+    that has no gradient (K3, as its Pallas twin has none)."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{what} is forward-only on CUDA; call it under torch.no_grad()"

@@ -9,6 +9,15 @@ JAX function does), an optional bias and optional effective GDN parameters
 None for no GDN). A CPU tensor goes to
 ``conv_gdn_plain``; a CUDA tensor launches the kernel or raises.
 
+Gradients: ``conv_gdn`` is a ``torch.autograd.Function`` on both devices.
+Its backward is the counterpart of ``_conv_gdn_bwd``, the XLA VJP of
+``_ref_conv_gdn`` in the JAX package (there is no Pallas backward): it
+recomputes ``conv_gdn_plain`` (cuDNN ``F.conv2d`` + the plain GDN) from the
+saved inputs and differentiates it. In ``analysis17_fused`` the gradient
+reaches the OIHW conv weights through the ``oihw_to_hwio`` permute and the
+stored GDN parameters through ``gdn_reparam``'s ``lower_bound`` gate, both
+outside the Function.
+
 A stage with too few 64-pixel tiles to fill the card splits its K (the k·k
 taps) into ``plan_splits`` parts of whole taps; the wrapper allocates the
 fp32 partials and the C launcher reduces them in fixed order inside the
@@ -21,7 +30,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .gdn_kernel import gdn_fused_plain
+from .gdn_kernel import gdn_fused_plain, plain_vjp
 from ..conv import conv2d, hwio_to_oihw, oihw_to_hwio
 from ..gdn import gdn_reparam
 
@@ -69,13 +78,32 @@ def conv_gdn_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     return y
 
 
+class _ConvGDN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, gamma_t, beta, stride, padding, inverse):
+        ctx.save_for_backward(x, w, b, gamma_t, beta)
+        ctx.conf = (stride, padding, inverse)
+        if x.device.type == "cpu":
+            return conv_gdn_plain(x, w, b, gamma_t, beta, stride, padding, inverse)
+        return _launch(x, w, b, gamma_t, beta, stride, padding, inverse)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.profiler.record_function("iclr17c::conv_gdn_backward"):
+            grads = plain_vjp(lambda *a: conv_gdn_plain(*a, *ctx.conf), ctx.saved_tensors,
+                              ctx.needs_input_grad, g)
+        return grads + (None, None, None)
+
+
 def conv_gdn(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
              gamma_t: Optional[torch.Tensor], beta: Optional[torch.Tensor],
              stride: int, padding: int, inverse: bool = False) -> torch.Tensor:
-    """Conv (+ bias) (+ (I)GDN): the kernel on CUDA, the plain version on CPU."""
-    if x.device.type == "cpu":
-        return conv_gdn_plain(x, w, b, gamma_t, beta, stride, padding, inverse)
-    _build.forward_only("conv_gdn", x, w, b, gamma_t, beta)
+    """Conv (+ bias) (+ (I)GDN): the kernel on CUDA, the plain version on CPU;
+    differentiable in every tensor argument on both."""
+    return _ConvGDN.apply(x, w, b, gamma_t, beta, stride, padding, inverse)
+
+
+def _launch(x, w, b, gamma_t, beta, stride, padding, inverse):
     n, h, wd, cin = x.shape
     k, k2, cin_w, cout = w.shape
     if k != k2 or cin_w != cin:
@@ -108,7 +136,7 @@ def conv_gdn(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
             int(gdn_on), int(inverse), torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, "conv_gdn")
-    conv_gdn.launches += 1
+    conv_gdn.launches += 1  # forward launches only: the backward runs plain PyTorch
     return out
 
 

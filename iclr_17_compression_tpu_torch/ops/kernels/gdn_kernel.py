@@ -9,6 +9,13 @@ already un-reparameterized by ``ops.gdn.gdn_reparam``:
 
 ``gdn_fused`` takes a tensor of any leading shape (..., C). A CPU tensor goes
 to ``gdn_fused_plain``; a CUDA tensor launches the kernel or raises.
+
+Gradients: ``gdn_fused`` is a ``torch.autograd.Function`` on both devices.
+Its backward is the counterpart of ``_gdn_fused_bwd``, which the JAX package
+writes as the XLA VJP of ``gdn_xla`` (there is no Pallas backward): it
+recomputes ``gdn_fused_plain`` from the saved inputs and differentiates it.
+The gradient reaches the stored GDN parameters through ``gdn_reparam``'s
+``lower_bound`` gate, which the caller applies outside the Function.
 """
 
 import torch
@@ -23,12 +30,45 @@ def gdn_fused_plain(x: torch.Tensor, gamma_t: torch.Tensor, beta: torch.Tensor,
     return x * norm if inverse else x / norm
 
 
+def plain_vjp(plain, inputs, needs_grad, grad_out):
+    """The gradients of ``plain(*inputs)`` against ``grad_out``, one for each
+    input (None where ``needs_grad`` says none is wanted): the backward of the
+    kernels' Functions, recomputed from their saved inputs as the JAX
+    package's VJPs recompute through XLA."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(bool(need))
+                  for t, need in zip(inputs, needs_grad)]
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(plain(*leaves), wanted, grad_out))
+        return tuple(next(grads) if t is not None and t.requires_grad else None
+                     for t in leaves)
+
+
+class _GDN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma_t, beta, inverse):
+        ctx.save_for_backward(x, gamma_t, beta)
+        ctx.inverse = inverse
+        if x.device.type == "cpu":
+            return gdn_fused_plain(x, gamma_t, beta, inverse)
+        return _launch(x, gamma_t, beta, inverse)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.profiler.record_function("iclr17c::gdn_backward"):
+            grads = plain_vjp(lambda *a: gdn_fused_plain(*a, ctx.inverse),
+                              ctx.saved_tensors, ctx.needs_input_grad, g)
+        return grads + (None,)
+
+
 def gdn_fused(x: torch.Tensor, gamma_t: torch.Tensor, beta: torch.Tensor,
               inverse: bool = False) -> torch.Tensor:
-    """(I)GDN over the last axis: the kernel on CUDA, the plain version on CPU."""
-    if x.device.type == "cpu":
-        return gdn_fused_plain(x, gamma_t, beta, inverse)
-    _build.forward_only("gdn_fused", x, gamma_t, beta)
+    """(I)GDN over the last axis: the kernel on CUDA, the plain version on CPU;
+    differentiable in ``x``, ``gamma_t`` and ``beta`` on both."""
+    return _GDN.apply(x, gamma_t, beta, inverse)
+
+
+def _launch(x, gamma_t, beta, inverse):
     c = x.shape[-1]
     if c % 32 or c > 256:
         raise ValueError(f"gdn_fused: the kernel takes C % 32 == 0 and C <= 256, got C={c}")
@@ -43,7 +83,7 @@ def gdn_fused(x: torch.Tensor, gamma_t: torch.Tensor, beta: torch.Tensor,
             x.numel() // c, c, int(inverse), torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, "gdn_fused")
-    gdn_fused.launches += 1
+    gdn_fused.launches += 1  # forward launches only: the backward runs plain PyTorch
     return out
 
 

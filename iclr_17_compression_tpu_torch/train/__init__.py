@@ -1,2 +1,2 @@
-"""Weights: the port's reader of flax msgpack files and the bridge from the
-JAX parameter tree."""
+"""Training: config, train state and step, schedules, meters, checkpoints,
+observability, the CLI, and the weight bridge to the JAX package."""

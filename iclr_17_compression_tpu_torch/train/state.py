@@ -1,0 +1,101 @@
+"""Train state and the Ballé-17 train step.
+
+Counterpart of ``iclr_17_compression_tpu/train/state.py`` (``TrainState``,
+``_make_optimizer``, ``make_balle17_train_step``). JAX's pure
+``(state, batch, rng) -> (state, metrics)`` becomes a step that updates the
+model and optimizer in place and returns the metrics.
+
+Optimizer parity with ``optax.chain(optax.clip(5), optax.adam(lr))``: each
+gradient element is clamped to ±``grad_clip`` (the reference's
+``.clamp_(-5, 5)``, train.py:106-111), then ``torch.optim.Adam`` with
+β = (0.9, 0.999) and eps 1e-8 outside the square root, as optax's. The LR of
+update k (from 0) is ``schedule(k)``, as optax evaluates a schedule at its
+update count.
+"""
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..ops.metrics import ms_ssim
+
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
+
+
+def make_optimizer(params, lr: float = 1e-4) -> torch.optim.Adam:
+    """Adam as ``optax.adam``'s defaults; ``apply_gradients`` sets its LR
+    from the schedule before each update."""
+    return torch.optim.Adam(params, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+
+
+@dataclass
+class TrainState:
+    """The model, its optimizer, the LR schedule, the clamp and the number
+    of updates taken (``step``)."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    schedule: Callable[[int], float]
+    grad_clip: float = 5.0
+    step: int = 0
+
+
+def create_train_state(model: torch.nn.Module, lr=1e-4, grad_clip: float = 5.0) -> TrainState:
+    """``lr`` is a float or a ``step → lr`` schedule."""
+    schedule = lr if callable(lr) else (lambda step: lr)
+    return TrainState(model, make_optimizer(model.parameters(), schedule(0)), schedule,
+                      grad_clip)
+
+
+def apply_gradients(state: TrainState) -> None:
+    """Clamp every gradient element, then one Adam update at the schedule's
+    LR for this step."""
+    for group in state.optimizer.param_groups:
+        group["lr"] = state.schedule(state.step)
+        for p in group["params"]:
+            if p.grad is not None:
+                p.grad.clamp_(-state.grad_clip, state.grad_clip)
+    state.optimizer.step()
+    state.step += 1
+
+
+def msssim_window(batch: torch.Tensor) -> int:
+    """Window 11 needs ≥ 176 px for 5 scales; smaller crops use the
+    reference's small-image window 7."""
+    return 11 if min(batch.shape[1:3]) >= 176 else 7
+
+
+def make_balle17_train_step(train_lambda: float = 8192.0, distortion: str = "mse"):
+    """``train_step(state, batch, generator)``: rd_loss = λ·d + bpp with d the
+    MSE, or 1 − MS-SSIM for ``msssim``; one update; the metrics
+    ``rd_loss``, ``mse``, ``bpp`` and ``psnr`` (detached tensors)."""
+    if distortion not in ("mse", "msssim"):
+        # a DSC loss string ('l1') or typo ('ms_ssim') must not silently
+        # train the whole run as MSE
+        raise ValueError(f"balle17 distortion must be 'mse' or 'msssim', got {distortion!r}")
+
+    def train_step(state: TrainState, batch: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        with torch.profiler.record_function("train_step/forward"):
+            out = state.model(batch, train=True, generator=generator)
+            if distortion == "msssim":
+                d = 1.0 - ms_ssim(out["recon"], batch, win_size=msssim_window(batch))
+            else:
+                d = out["mse"]
+            rd_loss = train_lambda * d + out["bpp"]
+        with torch.profiler.record_function("train_step/backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            rd_loss.backward()
+        with torch.profiler.record_function("train_step/optimizer"):
+            apply_gradients(state)
+        mse = out["mse"].detach()
+        return {
+            "rd_loss": rd_loss.detach(),
+            "mse": mse,
+            "bpp": out["bpp"].detach(),
+            "psnr": 10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-10)),
+        }
+
+    return train_step

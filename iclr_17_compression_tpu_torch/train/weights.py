@@ -1,4 +1,4 @@
-"""Weights of the JAX package, read and carried into the port.
+"""Weights of the JAX package, read and carried into the port, and back.
 
 ``msgpack_restore`` reads a flax msgpack file (``flax.serialization``, as
 written by ``iclr_17_compression_tpu/train/checkpoint.py``) with Python and
@@ -7,10 +7,16 @@ and flax's ext types, 1 = ndarray packed as msgpack ``(shape, dtype name,
 buffer)`` and 3 = numpy scalar packed the same way. Chunked arrays (flax
 splits leaves above 2 GB) are joined back.
 
+``msgpack_dumps`` writes the same format (``flax.serialization.to_bytes``
+of a tree of float arrays gives the same bytes), with the standard library
+and numpy alone.
+
 ``params_from_jax`` turns a JAX Ballé-17 parameter tree into the port's
 ``state_dict`` (reference PyTorch keys and layouts; the inverse of
 ``import_balle17`` in ``iclr_17_compression_tpu/train/torch_import.py``). It
 checks every leaf's shape and dtype, and raises on a missing or extra key.
+``params_to_jax`` is its inverse: a port state_dict as the JAX tree, in the
+JAX model's key order.
 """
 
 import struct
@@ -20,7 +26,7 @@ import numpy as np
 import torch
 
 from ..models.balle17 import Balle17Compressor
-from ..ops.conv import deconv_hwio_to_torch, hwio_to_oihw
+from ..ops.conv import deconv_hwio_to_torch, hwio_to_oihw, oihw_to_hwio
 from ..utils.device import resolve_device
 
 
@@ -119,6 +125,79 @@ def msgpack_restore(data: bytes):
     return _unchunk(tree)
 
 
+def _pack_len(n: int, fix: int, fix_max: int, codes: tuple) -> bytes:
+    """The header of a msgpack str/bin/array/map/ext of length ``n``:
+    ``fix | n`` when ``fix`` is given and n <= fix_max, else the smallest of
+    the 8/16/32-bit length forms in ``codes`` (None where a form is absent)."""
+    if fix is not None and n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt in zip(codes, ("B", "H", "I")):
+        if code is not None and n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(">" + fmt, n)
+    raise ValueError(f"msgpack object of length {n} is too long")
+
+
+def _pack_int(v: int) -> bytes:
+    if 0 <= v < 128:
+        return bytes([v])
+    if -32 <= v < 0:
+        return struct.pack(">b", v)
+    forms = ((0xCC, "B"), (0xCD, "H"), (0xCE, "I"), (0xCF, "Q")) if v >= 0 else \
+        ((0xD0, "b"), (0xD1, "h"), (0xD2, "i"), (0xD3, "q"))
+    for code, fmt in forms:
+        try:
+            return bytes([code]) + struct.pack(">" + fmt, v)
+        except struct.error:
+            continue
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _pack(obj, out: list) -> None:
+    if obj is None:
+        out.append(b"\xc0")
+    elif isinstance(obj, bool):
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int):
+        out.append(_pack_int(obj))
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        b = obj.encode()
+        out += [_pack_len(len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB)), b]
+    elif isinstance(obj, bytes):
+        out += [_pack_len(len(obj), None, 0, (0xC4, 0xC5, 0xC6)), obj]
+    elif isinstance(obj, (list, tuple)):
+        out.append(_pack_len(len(obj), 0x90, 15, (None, 0xDC, 0xDD)))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, dict):
+        # keys sorted, as flax writes them (a JAX pytree flattens a dict so)
+        out.append(_pack_len(len(obj), 0x80, 15, (None, 0xDE, 0xDF)))
+        for k, v in sorted(obj.items()):
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        # flax's ext types: 1 = ndarray, 3 = numpy scalar, each packed as
+        # msgpack (shape, dtype name, C-order buffer)
+        arr = np.asarray(obj)
+        payload = msgpack_dumps((arr.shape, arr.dtype.name, arr.tobytes("C")))
+        code = 1 if isinstance(obj, np.ndarray) else 3
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(n)
+        head = bytes([fixext]) if fixext else _pack_len(n, None, 0, (0xC7, 0xC8, 0xC9))
+        out += [head, struct.pack(">b", code), payload]
+    else:
+        raise TypeError(f"cannot pack {type(obj).__name__} as msgpack")
+
+
+def msgpack_dumps(obj) -> bytes:
+    """Encode nested dicts/lists of numpy arrays, strings, bytes and numbers
+    as flax msgpack bytes (arrays under 2 GB: flax chunks larger ones)."""
+    out = []
+    _pack(obj, out)
+    return b"".join(out)
+
+
 def read_checkpoint(path: str):
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
@@ -163,6 +242,23 @@ def _port_key(path: str) -> str:
     return {"encoder": "Encoder", "decoder": "Decoder"}[top] + "." + ".".join(rest)
 
 
+def _leaf_to_port(path: str, v) -> Optional[tuple]:
+    """One JAX leaf → (port state_dict key, tensor in the port's layout), or
+    None for a path outside the Ballé-17 tree."""
+    try:
+        key = _port_key(path)
+    except (KeyError, ValueError, IndexError):
+        return None
+    v = np.asarray(v)
+    if path.endswith("weight") and v.ndim != 4:
+        return None
+    if path.endswith("weight") and "/conv" in path:
+        v = hwio_to_oihw(v)
+    elif path.endswith("weight"):
+        v = deconv_hwio_to_torch(v)
+    return key, torch.from_numpy(np.array(v, order="C"))
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX Ballé-17 params (nested dicts of arrays, bare or under "params")
     → the port's ``Balle17Compressor`` state_dict."""
@@ -184,12 +280,38 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             raise TypeError(f"{path}: dtype {v.dtype}, expected float32")
         if v.shape != shape:
             raise ValueError(f"{path}: shape {v.shape}, expected {shape}")
-        if path.endswith("weight") and "/conv" in path:
-            v = hwio_to_oihw(v)
-        elif path.endswith("weight"):
-            v = deconv_hwio_to_torch(v)
-        sd[_port_key(path)] = torch.from_numpy(np.array(v, order="C"))
+        key, t = _leaf_to_port(path, v)
+        sd[key] = t
     return sd
+
+
+def _jax_path(key: str) -> str:
+    """Reference PyTorch state_dict key → JAX leaf path (``_port_key``'s
+    inverse)."""
+    top, *rest = key.split(".")
+    if top == "bitEstimator":
+        return f"bit_estimator/{rest[0]}_{rest[1]}"
+    return {"Encoder": "encoder", "Decoder": "decoder"}[top] + "/" + "/".join(rest)
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A port ``Balle17Compressor`` state_dict → the JAX Ballé-17 param tree
+    (nested dicts of float32 numpy arrays, JAX layouts), the inverse of
+    ``params_from_jax``."""
+    tree: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        v = t.detach().to("cpu", torch.float32).numpy()
+        path = _jax_path(key)
+        if path.endswith("weight") and "/conv" in path:
+            v = oihw_to_hwio(v)
+        elif path.endswith("weight"):
+            v = np.flip(v, axis=(2, 3)).transpose(2, 3, 0, 1)  # deconv_hwio_to_torch⁻¹
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(v)
+    return tree
 
 
 def load_balle17(path: str, device: Optional[str] = None):

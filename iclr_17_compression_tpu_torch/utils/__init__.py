@@ -1,3 +1,3 @@
-from .device import resolve_device
+from .device import no_tf32, resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["no_tf32", "resolve_device"]

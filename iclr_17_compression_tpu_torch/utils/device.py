@@ -6,13 +6,23 @@ the CPU.
 
 The JAX package computes in fp32 at precision HIGHEST. On an H100, PyTorch
 runs fp32 convolutions through cuDNN in TF32 unless told otherwise, which
-moves the decoder about 1e-3 away from the reference. ``resolve_device``
-therefore turns TF32 off, for cuDNN and for matmuls, for the whole process.
+moves the decoder about 1e-3 away from the reference. ``no_tf32`` turns
+TF32 off, for cuDNN and for matmuls, for the whole process; ``resolve_device``
+calls it, and so does every port model's forward on a CUDA tensor. The flags
+are global on purpose: autograd runs a model's cuDNN backward after its
+forward has returned, under whatever flags hold then, so a context manager
+around the forward alone would leave the backward in TF32.
 """
 
 from typing import Optional, Union
 
 import torch
+
+
+def no_tf32() -> None:
+    """Run fp32 convolutions and matmuls in full fp32 from now on."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -24,8 +34,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
                 "no CUDA device: the port runs on the GPU; pass device='cpu' "
                 "to run the plain PyTorch path on the CPU"
             )
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        no_tf32()
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -116,12 +116,38 @@ def test_quantize_pmf_matches_jax():
         np.testing.assert_array_equal(tapi._quantize_pmf(pmf, 14), japi._quantize_pmf(pmf, 14))
 
 
-def test_encode_refuses_a_latent_that_may_be_clipped():
-    big = load_balle17(CKPT, device="cpu")
+def test_latent_beyond_8_bit_symbols_codes_as_the_jax_codec():
+    """A latent beyond ±127 (lam2048 with conv3 scaled by 8: -156..164)
+    round-trips exactly through the port's 16-bit symbols, with the JAX
+    codec's latent, header and, with equal tables, its bytes."""
+    scale = 8.0
+    tree = read_checkpoint(CKPT)
+    tree["encoder"]["conv3"]["weight"] = tree["encoder"]["conv3"]["weight"] * scale
+    jparams = {"params": jax.tree_util.tree_map(jnp.asarray, tree)}
+    model = load_balle17(CKPT, device="cpu")
     with torch.no_grad():
-        big.Encoder.conv3.weight.mul_(1000.0)
-    with pytest.raises(ValueError, match="clipped"):
-        tcli.encode_image(_image(4, 16, 16), big, device="cpu")
+        model.Encoder.conv3.weight.mul_(scale)
+    img = _image(4, 48, 64)
+    data = tcli.encode_image(img, model, device="cpu")
+    jdata = jcli.encode_image(img, "balle17", jparams, n=128)
+    lat, h0, w0 = tcli.read_latent(data, model)
+    with torch.no_grad():
+        enc = torch.round(model.Encoder(torch.from_numpy(img[None]))).numpy()[0]
+    np.testing.assert_array_equal(lat, enc)
+    assert np.abs(lat).max() > 127 and (h0, w0) == img.shape[:2]
+    assert tcli.decode_image(data, model, device="cpu").shape == img.shape
+    from iclr_17_compression_tpu.models.balle17 import Analysis17 as JAnalysis17
+
+    jlat = np.asarray(jnp.round(JAnalysis17(128).apply(
+        {"params": jparams["params"]["encoder"]}, jnp.asarray(img[None]))))[0]
+    np.testing.assert_array_equal(lat, jlat)
+    assert data[:_header_len(data)] == jdata[:_header_len(jdata)]
+    zmin, zmax = int(lat.min()), int(lat.max())
+    tcodec = tapi.build_cdf_tables_from_bit_estimator(model.bitEstimator.params(), zmin, zmax)
+    jcodec = japi.build_cdf_tables_from_bit_estimator(
+        _bit_estimator_params(jparams, "bit_estimator"), zmin, zmax)
+    np.testing.assert_array_equal(tcodec.freqs, jcodec.freqs)
+    assert data == jdata
 
 
 def test_cli_png_roundtrip(models, tmp_path):
