@@ -16,7 +16,9 @@ Phases, one JSON line each:
           counter so far, kernel, plain and library device times (CUDA
           events around a batch of calls queued behind a sleep kernel, median
           of 20 after 3 warm-ups), the kernel's time for one call from an idle
-          queue (wrapper included), and the bound from the shapes; K1 and K2
+          queue (wrapper included), and the bound from the shapes (for K3
+          also an empty kernel's launch in the same harness, the floor under
+          its time: launch_floor_ms); K1 and K2
           also give the same bits on a second call, and hold at the widths
           off the main path (K1 at C=192 and 256, K2 at Cout=192)
   main    the Ballé-17 file codec at N=128 with the archived lam2048 weights
@@ -47,6 +49,22 @@ Phases, one JSON line each:
           memory, the step's phases (CUDA events), a 10-step profile (device
           busy, idle share, K1/K2 backward recompute, top kernels), the
           eval's bpp, PSNR and MS-SSIM
+  dsc     the flagship DSC stereo codec (temp_0031bpp, n = 128, full width)
+          on the port's seeded init, 4 synthetic stereo pairs at 320×1216:
+          encode_image → bytes → decode_image with the right image as side
+          information, with the launch counters reset just before and read
+          just after (K2 4 + 7 and K3 1 per image); checks: the symbols and
+          K3's dequantized code round-trip exactly, the recon is finite in
+          [0, 1], GPU decode equals the CPU decode of one file, GPU symbols
+          equal the CPU ones up to rounding flips; the files' codes use all
+          17 symbols and hold the clamp at ±128; a two-stage file (a second
+          model as the reg_0_0625 stage) round-trips. Every GDN and IGDN is
+          moved off its identity init (a full γ, not symmetric), g_a22's
+          last conv is scaled so that the code spreads past the clip, and
+          g_s22's first conv takes it in steps. Numbers: batch-4 serving ms and Mpix/s, one image's
+          profile (device busy, idle share, host coder stages), K2 at each
+          DSC shape (splits, times, cuDNN + plain GDN, cuDNN + K1), K1 at
+          C = 64, K3 at step 16
 Then the card's name and power limit, one line with every kernel's numbers,
 and last the line {"ok": true, "device": {...}}. Any failed check exits
 non-zero. Imports nothing of JAX.
@@ -96,6 +114,16 @@ DECODE_ATOL = 1e-4
 # GPU vs CPU latent: round() may flip where the encoder output sits within
 # float error of k+0.5; at most 0.1% of elements, by 1.
 LATENT_FLIP_FRAC = 1e-3
+
+# DSC phase: the flagship preset at full width (n = 128) on the port's
+# seeded init, 4 stereo pairs at 320×1216 (a KITTI frame floored to ×32, the
+# JAX package's DSC serving shape); each channel of g_a22's last 3×3 conv
+# centred and scaled to a std of 4 steps (64) on the first left image, so
+# that the code (that conv and an attention block) spans every symbol and
+# passes the clip at ±128, and g_s22's first 3×3 conv divided by the step.
+DSC_PRESET, DSC_SEED = "temp_0031bpp", 1234
+N_PAIRS, DSC_H, DSC_W = 4, 320, 1216
+CODE_SPREAD = 64.0
 
 # Training phase: the run's length, its resume, and the profiled window.
 TRAIN_STEPS, RESUME_STEPS = 100, 120
@@ -176,6 +204,19 @@ def smooth_image(rng: np.random.Generator, h: int = IMG_H, w: int = IMG_W) -> np
     img += np.repeat(np.repeat(blocks, 64, axis=0), 64, axis=1)
     img += 0.03 * rng.standard_normal((h, w, 3)).astype(np.float32)
     return np.clip(img, 0.0, 1.0)
+
+
+def shift_pair(a: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """The right eye of a synthetic stereo pair: each row of ``a`` shifted by
+    a smooth disparity of 6-20 px, with a gain of 0.92-1.08 and an offset of
+    ±0.03 (the warp of the eval pairs of tools/make_offline_data.py)."""
+    h, w = a.shape[:2]
+    base = rng.integers(6, 20)
+    yy = np.linspace(0, 2 * np.pi * rng.uniform(0.5, 2.0), h)
+    disp = (base + 4 * np.sin(yy + rng.uniform(0, 6)))[:, None]
+    cols = np.clip(np.arange(w)[None, :] + disp, 0, w - 1).astype(int)
+    b = a[np.arange(h)[:, None], cols]
+    return np.clip(b * rng.uniform(0.92, 1.08) + rng.uniform(-0.03, 0.03), 0, 1).astype(np.float32)
 
 
 def k2_work(args, out):
@@ -324,10 +365,13 @@ def main() -> int:
         row["bound_by"] = bound_3xtf32_ms(row["mma_flops"], row["flops"] - row["mma_flops"],
                                           row["bytes"])[1]
 
-    def measure_k2(args, row: dict, what: str) -> None:
-        """K2 on ``args`` against its plain version (and the same bits on a
-        second call), its device times, and cuDNN ``F.conv2d`` + plain GDN."""
-        x, w, b, gamma_t, beta, stride, pad = args
+    def measure_k2(args, row: dict, what: str, cudnn_k1: bool = False) -> None:
+        """K2 on ``args`` (x, w, b, gamma_t, beta, stride, pad[, inverse])
+        against its plain version (and the same bits on a second call), its
+        device times, cuDNN ``F.conv2d`` + plain GDN and, with ``cudnn_k1``,
+        cuDNN + K1."""
+        x, w, b, gamma_t, beta, stride, pad = args[:7]
+        inverse = bool(args[7]) if len(args) > 7 else False
         out = k2.conv_gdn(*args)
         again = k2.conv_gdn(*args)
         ref = k2.conv_gdn_plain(*args)
@@ -340,7 +384,11 @@ def main() -> int:
         def library():
             y = torch.nn.functional.conv2d(xc, oihw, b, stride=stride, padding=pad)
             if gamma_t is not None:
-                k1.gdn_fused_plain(y.permute(0, 2, 3, 1), gamma_t, beta)
+                k1.gdn_fused_plain(y.permute(0, 2, 3, 1), gamma_t, beta, inverse)
+
+        def with_k1():
+            y = torch.nn.functional.conv2d(xc, oihw, b, stride=stride, padding=pad)
+            k1.gdn_fused(y.permute(0, 2, 3, 1).contiguous(), gamma_t, beta, inverse)
 
         _, ho, wo, cout = out.shape
         shape = {"x": list(x.shape), "w": list(w.shape), "stride": stride,
@@ -351,24 +399,26 @@ def main() -> int:
                  "call_ms": call_ms(lambda: k2.conv_gdn(*args)),
                  "plain_ms": time_ms(lambda: k2.conv_gdn_plain(*args)),
                  "library_ms": time_ms(library)}
+        if cudnn_k1:
+            shape["cudnn_k1_ms"] = time_ms(with_k1)
         add_numbers(row, shape, *k2_work(args, out))
 
-    def measure_k1(x, igdn, row: dict, what: str) -> None:
-        """K1 (inverse, with ``igdn``'s parameters) on ``x`` against its
+    def measure_k1(x, gdn, row: dict, what: str) -> None:
+        """K1 (with ``gdn``'s parameters and direction) on ``x`` against its
         plain version (and the same bits on a second call), and its device
         times."""
-        beta, gamma = gdn_reparam(igdn.params())
-        gamma_t, beta = gamma.t().contiguous(), beta.contiguous()
-        out = k1.gdn_fused(x, gamma_t, beta, True)
-        again = k1.gdn_fused(x, gamma_t, beta, True)
-        ref = k1.gdn_fused_plain(x, gamma_t, beta, True)
+        beta, gamma = gdn_reparam(gdn.params())
+        gamma_t, beta, inv = gamma.t().contiguous(), beta.contiguous(), gdn.inverse
+        out = k1.gdn_fused(x, gamma_t, beta, inv)
+        again = k1.gdn_fused(x, gamma_t, beta, inv)
+        ref = k1.gdn_fused_plain(x, gamma_t, beta, inv)
         torch.cuda.synchronize()
         compare(out, ref, what, row)
         check(torch.equal(out, again), f"{what}: two calls differ")
-        shape = {"x": list(x.shape),
-                 "ms": time_ms(lambda: k1.gdn_fused(x, gamma_t, beta, True)),
-                 "call_ms": call_ms(lambda: k1.gdn_fused(x, gamma_t, beta, True)),
-                 "plain_ms": time_ms(lambda: k1.gdn_fused_plain(x, gamma_t, beta, True))}
+        shape = {"x": list(x.shape), "inverse": inv,
+                 "ms": time_ms(lambda: k1.gdn_fused(x, gamma_t, beta, inv)),
+                 "call_ms": call_ms(lambda: k1.gdn_fused(x, gamma_t, beta, inv)),
+                 "plain_ms": time_ms(lambda: k1.gdn_fused_plain(x, gamma_t, beta, inv))}
         add_numbers(row, shape, *k1_work(x))
 
     model = load_balle17(CKPT, device="cuda")
@@ -474,6 +524,10 @@ def main() -> int:
         n = lat.numel()
         b_ms, b_by = bound_ms(5.0 * n, 10.0 * n)
         b8_ms, _ = bound_ms(5.0 * n, 9.0 * n)
+        # the floor under any kernel's time: an empty kernel's launch, timed
+        # in the same harness
+        stream = torch.cuda.current_stream().cuda_stream
+        floor_ms = time_ms(lambda: lib.iclr17c_empty(stream))
         # ms / plain_ms: the 16-bit variant the file codec launches; the
         # byte variant (the Pallas kernel's contract) beside it
         rows["quantize_pack"] = {
@@ -483,7 +537,7 @@ def main() -> int:
             "ms_8bit": time_ms(lambda: k3.quantize_pack(lat, 1.0, 127.0)),
             "plain_ms_8bit": time_ms(lambda: k3.quantize_pack_plain(lat, 1.0, 127.0)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bound_fp32_ms": b_ms,
-            "bound_ms_8bit": b8_ms,
+            "bound_ms_8bit": b8_ms, "launch_floor_ms": floor_ms,
             "max_abs_err": 0.0,
             "max_rel_err": 0.0,
             "shapes": [{"x": list(lat.shape), "step": 1.0, "lim": 32767, "bits": 16},
@@ -918,6 +972,249 @@ def main() -> int:
                       "psnr_db": float(psnr(torch.from_numpy(rec),
                                             torch.from_numpy(test_images[0])))}})
 
+    # ---- dsc: the flagship DSC stereo codec (temp_0031bpp, n = 128) at
+    # full width on port-init weights, 4 synthetic stereo pairs at 320×1216
+    from iclr_17_compression_tpu_torch.models.dsc import (DSC_PRESETS, DSCDecoder,
+                                                          DSCStereoModel, quantize_code)
+    from iclr_17_compression_tpu_torch.nn.blocks import (ResidualBlockUpsample,
+                                                         ResidualBlockWithStride)
+    from iclr_17_compression_tpu_torch.nn.layers import GDN
+
+    def dsc_model(preset: str, seed: int) -> DSCStereoModel:
+        """The port's seeded init of ``preset`` on the card, every GDN and
+        IGDN moved off its identity (β in 0.7-1.3, γ = 0.3·I + 0.1·U: neither
+        diagonal nor symmetric), so that K2's epilogue and reduce body are
+        held with the norm pool's cross-channel terms and γᵀ."""
+        gen_m = torch.Generator().manual_seed(seed)
+        model = DSCStereoModel(DSC_PRESETS[preset]).init_(gen_m)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, GDN):
+                    c = m.beta.shape[0]
+                    m.beta.copy_(0.7 + 0.6 * torch.rand(c, generator=gen_m))
+                    m.gamma.copy_(0.3 * torch.eye(c) + 0.1 * torch.rand((c, c), generator=gen_m))
+        return model.to(dev).eval()
+
+    def padded(img):
+        return torch.from_numpy(codec_cli.pad_to_multiple(img, cfg_dsc.code_div)[None]).to(dev)
+
+    t_dsc = time.perf_counter()
+    cfg_dsc = DSC_PRESETS[DSC_PRESET]
+    rng = np.random.default_rng(2)
+    lefts = [smooth_image(rng, DSC_H, DSC_W) for _ in range(N_PAIRS)]
+    rights = [shift_pair(a, rng) for a in lefts]
+    dsc = dsc_model(DSC_PRESET, DSC_SEED)
+    # the code spread past the clip: each output channel of g_a22's last
+    # 3×3 conv centred and scaled to CODE_SPREAD on the first left image;
+    # the receiver takes the code in steps (g_s22's first 3×3 conv divided
+    # by the step), as a trained one takes its scale, else the random IGDNs
+    # of g_s22 and g_s square it up to 1e5 and the recon is all clipped
+    last = dsc.g_a22[max(i for i, sp in enumerate(cfg_dsc.ga22) if sp[0] == "conv3")]
+    first = dsc.g_s22[min(i for i, sp in enumerate(cfg_dsc.gs22) if sp[0] == "conv3")]
+    seen = {}
+    hook = last.register_forward_hook(lambda mod, args, out: seen.setdefault("y", out))
+    with torch.no_grad():
+        dsc.encode(padded(lefts[0]))
+        hook.remove()
+        y = seen["y"].flatten(0, 2)
+        scale = CODE_SPREAD / y.std(dim=0)
+        last.weight.mul_(scale.view(-1, 1, 1, 1))
+        last.bias.copy_(scale * (last.bias - y.mean(dim=0)))
+        first.weight.div_(cfg_dsc.coarse_step)
+
+    # the file codec on 4 pairs, the counters around it only
+    k1.gdn_fused.launches = k2.conv_gdn.launches = k3.quantize_pack.launches = 0
+    dsc_files, dsc_recons, dsc_enc_ms, dsc_dec_ms = [], [], [], []
+    for a, b in zip(lefts, rights):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = codec_cli.encode_image(a, dsc, device="cuda")
+        t1 = time.perf_counter()
+        rec = codec_cli.decode_image(data, dsc, device="cuda", si_image=b)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dsc_files.append(data)
+        dsc_recons.append(rec)
+        dsc_enc_ms.append(1e3 * (t1 - t0))
+        dsc_dec_ms.append(1e3 * (t2 - t1))
+    dsc_launches = {"conv_gdn": k2.conv_gdn.launches, "gdn": k1.gdn_fused.launches,
+                    "quantize_pack": k3.quantize_pack.launches}
+    check(dsc_launches == {"conv_gdn": 11 * N_PAIRS, "gdn": 0, "quantize_pack": N_PAIRS},
+          f"DSC launch counts {dsc_launches}, expected K2 4 + 7 and K3 1 per image")
+
+    lim = int(cfg_dsc.code_clip / cfg_dsc.coarse_step)
+    dsc_images, used, past_clip, clamped = [], set(), 0, True
+    for i, (a, data, rec) in enumerate(zip(lefts, dsc_files, dsc_recons)):
+        syms, code = codec_cli.dsc_symbols(padded(a), dsc)
+        with torch.no_grad():
+            pre = dsc.encode(padded(a))[0].cpu().numpy()
+        past = np.abs(pre) > cfg_dsc.code_clip + cfg_dsc.coarse_step / 2
+        past_clip += int(past.sum())
+        clamped &= bool(np.array_equal(syms[past], np.sign(pre[past]).astype(np.int64) * lim))
+        used.update(np.unique(syms).tolist())
+        decoded, name, h0, w0 = codec_cli.read_dsc_code(data)
+        check(name == DSC_PRESET and (h0, w0) == (DSC_H, DSC_W), f"pair {i}: header {name}")
+        check(np.array_equal(decoded[0] / cfg_dsc.coarse_step, syms),
+              f"pair {i}: decoded symbols differ from the encoder's")
+        check(np.array_equal(decoded, code.cpu().numpy()),
+              f"pair {i}: decoded code differs from K3's dequantized code")
+        check(rec.shape == a.shape and np.isfinite(rec).all() and rec.min() >= 0.0
+              and rec.max() <= 1.0, f"pair {i}: recon not finite in [0, 1]")
+        dsc_images.append({"bytes": len(data), "bpp": 8.0 * len(data) / (DSC_H * DSC_W),
+                           "psnr_db": float(psnr(torch.from_numpy(rec), torch.from_numpy(a))),
+                           "symbols_used": int(np.unique(syms).size),
+                           "encode_ms": dsc_enc_ms[i], "decode_ms": dsc_dec_ms[i]})
+    check(sorted(used) == list(range(-lim, lim + 1)),
+          f"the files' codes use symbols {sorted(used)}, not all {2 * lim + 1}")
+    check(past_clip > 0 and clamped, f"the clamp at ±{cfg_dsc.code_clip:g}: {past_clip} "
+          f"elements past it, held {clamped}")
+
+    # the CPU plain path: the same file decodes to the same image, and the
+    # same image encodes to the same symbols up to rounding flips
+    cpu_dsc = DSCStereoModel(cfg_dsc)
+    cpu_dsc.load_state_dict({k: v.cpu() for k, v in dsc.state_dict().items()})
+    cpu_dsc.eval()
+    rec_cpu = codec_cli.decode_image(dsc_files[0], cpu_dsc, device="cpu", si_image=rights[0])
+    dsc_dec_err = float(np.abs(dsc_recons[0] - rec_cpu).max())
+    check(dsc_dec_err <= DECODE_ATOL, f"DSC GPU vs CPU decode of one file: {dsc_dec_err:.3e}")
+    syms_cpu = codec_cli.read_dsc_code(codec_cli.encode_image(lefts[0], cpu_dsc, "cpu"))[0]
+    dsc_flips = np.abs(codec_cli.read_dsc_code(dsc_files[0])[0] - syms_cpu) / cfg_dsc.coarse_step
+    check(dsc_flips.max() <= 1 and (dsc_flips > 0).mean() <= LATENT_FLIP_FRAC,
+          f"DSC GPU vs CPU symbols: {(dsc_flips > 0).mean():.2e} differ, max {dsc_flips.max()}")
+
+    # K3 on the first pair's code, bit-exact against its plain version
+    with torch.no_grad():
+        code_pre = dsc.encode(padded(lefts[0])).contiguous()
+    wsyms, wcode = quantize_code(code_pre, cfg_dsc)
+    rsyms, rcode = k3.quantize_pack_plain(code_pre, cfg_dsc.coarse_step, cfg_dsc.code_clip)
+    check(torch.equal(wsyms, rsyms) and torch.equal(wcode, rcode),
+          "K3 on the DSC code: not bit-exact")
+
+    # a two-stage file: a second port-init model as the reg_0_0625 stage
+    reg = dsc_model("reg_0_0625", DSC_SEED + 1)
+    two = codec_cli.encode_composite(lefts[0], dsc, reg, device="cuda")
+    two_rec = codec_cli.decode_composite(two, dsc, reg, rights[0], device="cuda")
+    _, _, base_code, reg_code, _, _ = codec_cli.read_dsc_composite(two)
+    for stage, code in ((dsc, base_code), (reg, reg_code)):
+        sent = codec_cli.dsc_symbols(padded(lefts[0]), stage)[0]
+        check(np.array_equal(code[0] / cfg_dsc.coarse_step, sent),
+              f"two-stage file: {stage.config.name} symbols differ")
+    check(two_rec.shape == lefts[0].shape and np.isfinite(two_rec).all()
+          and two_rec.min() >= 0.0 and two_rec.max() <= 1.0, "two-stage recon not in [0, 1]")
+
+    # serving throughput: a batch of 4, encode (to the symbols on the host)
+    # then the receiver with the right images
+    x4 = torch.from_numpy(np.stack(lefts)).to(dev)
+    y4 = torch.from_numpy(np.stack(rights)).to(dev)
+    receiver = DSCDecoder(cfg_dsc, model=dsc)
+
+    def serve():
+        with torch.no_grad():
+            symbols, code = quantize_code(dsc.encode(x4), cfg_dsc)
+            symbols.cpu()
+            return receiver(code, y4)
+
+    serve_ms = []
+    for i in range(13):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve()
+        torch.cuda.synchronize()
+        if i >= 3:
+            serve_ms.append(1e3 * (time.perf_counter() - t0))
+    batch_ms = statistics.median(serve_ms)
+
+    # where one image's time goes: encode + decode under the profiler, and
+    # the host coder stages (histogram tables, rANS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = codec_cli.encode_image(lefts[0], dsc, device="cuda")
+        codec_cli.decode_image(data, dsc, device="cuda", si_image=rights[0])
+        torch.cuda.synchronize()
+        dsc_wall_ms = 1e3 * (time.perf_counter() - t0)
+    dsc_by_kernel = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                evt, "is_user_annotation", False):
+            name = evt.name.split("(")[0][:60]
+            dsc_by_kernel[name] = dsc_by_kernel.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3
+    dsc_busy = sum(dsc_by_kernel.values())
+    dsc_n_kernels = sum(1 for evt in prof.events()
+                        if evt.device_type == torch.autograd.DeviceType.CUDA
+                        and not getattr(evt, "is_user_annotation", False))
+    syms0 = codec_cli.dsc_symbols(padded(lefts[0]), dsc)[0]
+    t0 = time.perf_counter()
+    codec = api.build_cdf_tables_from_histogram(syms0, offset=-lim, nsym=2 * lim + 1)
+    t1 = time.perf_counter()
+    stream = api.encode_latent(codec, syms0)
+    t2 = time.perf_counter()
+    api.decode_latent(codec, stream, syms0.shape)
+    t3 = time.perf_counter()
+
+    # K2 at each DSC shape (batch 1), from the blocks' own inputs in one
+    # encode + decode, against plain, cuDNN + plain GDN and cuDNN + K1
+    sites = [("g_a l1", dsc.g_a[1]), ("g_a l3", dsc.g_a[3]), ("g_a l6", dsc.g_a[6]),
+             ("g_a22 l2", dsc.g_a22[2]), ("g_s22 l5", dsc.g_s22[5]), ("g_s l2", dsc.g_s[2]),
+             ("g_s l4", dsc.g_s[4]), ("g_s l7", dsc.g_s[7])]
+    inputs = {}
+    hooks = [block.register_forward_pre_hook(
+        lambda mod, args, where=where: inputs.setdefault(where, args[0]))
+        for where, block in sites]
+    codec_cli.decode_image(codec_cli.encode_image(lefts[0], dsc, device="cuda"), dsc,
+                           device="cuda", si_image=rights[0])
+    for h in hooks:
+        h.remove()
+    k2_dsc, k1_c64 = new_row(library=True), new_row(library=False)
+    with torch.no_grad():
+        for where, block in sites:
+            check(isinstance(block, (ResidualBlockWithStride, ResidualBlockUpsample)), where)
+            xin = inputs[where]
+            if isinstance(block, ResidualBlockWithStride):
+                y, conv, gdn = block.act(block.conv1(xin)), block.conv2, block.gdn
+            else:
+                y, conv, gdn = block.act(block.subpel_conv(xin)), block.conv, block.igdn
+            beta, gamma = gdn_reparam(gdn.params())
+            args = (y.contiguous(), conv.weight.permute(2, 3, 1, 0).contiguous(), conv.bias,
+                    gamma.t().contiguous(), beta.contiguous(), 1, 1, gdn.inverse)
+            measure_k2(args, k2_dsc, f"K2 DSC {where}", cudnn_k1=True)
+            k2_dsc["shapes"][-1]["where"] = where
+        # K1's body at C = 64 (g_a22's GDN) on the two pixel counts of the table
+        for pixels in (97280, 380):
+            x = torch.randn((1, pixels, 64), generator=gen).to(dev)
+            measure_k1(x, dsc.g_a22[2].gdn, k1_c64, f"K1 C=64 {pixels}x64")
+        # K3 on the code: 1×10×38×8 at step 16, clip 128 (8-bit symbols)
+        n3 = code_pre.numel()
+        k3_b_ms, k3_b_by = bound_ms(5.0 * n3, 9.0 * n3)
+        k3_dsc = {"x": list(code_pre.shape), "step": cfg_dsc.coarse_step, "lim": lim, "bits": 8,
+                  "ms": time_ms(lambda: quantize_code(code_pre, cfg_dsc)),
+                  "call_ms": call_ms(lambda: quantize_code(code_pre, cfg_dsc)),
+                  "plain_ms": time_ms(lambda: k3.quantize_pack_plain(
+                      code_pre, cfg_dsc.coarse_step, cfg_dsc.code_clip)),
+                  "bound_ms": k3_b_ms, "bound_by": k3_b_by, "launch_floor_ms": floor_ms,
+                  "max_abs_err": 0.0}
+    dsc_s = time.perf_counter() - t_dsc
+    emit({"phase": "dsc", "ok": True, "preset": DSC_PRESET, "n": cfg_dsc.n, "seed": DSC_SEED,
+          "pairs": N_PAIRS, "shape": [DSC_H, DSC_W, 3], "launches": dsc_launches,
+          "per_image": dsc_images,
+          "cpu_reference": {"decode_max_abs_err": dsc_dec_err,
+                            "symbol_flip_frac": float((dsc_flips > 0).mean())},
+          "code_range": {"symbols_used": len(used), "past_clip": past_clip,
+                         "elements": N_PAIRS * int(code_pre.numel())},
+          "two_stage": {"bytes": len(two), "bpp": 8.0 * len(two) / (DSC_H * DSC_W)},
+          "serving": {"batch": N_PAIRS, "median_ms": batch_ms, "ms_per_image": batch_ms / N_PAIRS,
+                      "mpix_per_s": N_PAIRS * DSC_H * DSC_W / (batch_ms * 1e3)},
+          "profile": {"wall_ms": dsc_wall_ms, "device_busy_ms": dsc_busy,
+                      "device_idle_share": 1.0 - dsc_busy / dsc_wall_ms,
+                      "device_kernels": dsc_n_kernels,
+                      "device_ms_by_kernel": dict(sorted(dsc_by_kernel.items(),
+                                                         key=lambda kv: -kv[1])[:12]),
+                      "host_ms": {"histogram_tables": 1e3 * (t1 - t0),
+                                  "rans_encode": 1e3 * (t2 - t1),
+                                  "rans_decode": 1e3 * (t3 - t2)}},
+          "k2_dsc": k2_dsc, "k1_c64": k1_c64, "k3_step16": k3_dsc, "seconds": dsc_s})
+    print(f"dsc phase seconds: {dsc_s:.1f}", flush=True)
+
     kernels = []
     meta = {
         "gdn": ("iclr_17_compression_tpu_torch/ops/kernels/csrc/gdn.cu",
@@ -930,8 +1227,10 @@ def main() -> int:
     for name in ("conv_gdn", "gdn", "quantize_pack"):
         row = rows[name]
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
-                 "replaces": meta[name][1], "launches": launches[name] + train_launches[name],
-                 "launches_by_path": {"codec": launches[name], "train": train_launches[name]},
+                 "replaces": meta[name][1],
+                 "launches": launches[name] + train_launches[name] + dsc_launches[name],
+                 "launches_by_path": {"codec": launches[name], "train": train_launches[name],
+                                      "dsc": dsc_launches[name]},
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -945,6 +1244,18 @@ def main() -> int:
             entry["training_shapes"] = [
                 {k: st.get(k) for k in ("x", "ms", "plain_ms", "library_ms", "bound_ms")}
                 for st in train_row["shapes"]]
+        if name == "conv_gdn":
+            entry["max_abs_err"] = max(entry["max_abs_err"], k2_dsc["max_abs_err"])
+            entry["dsc_shapes"] = [
+                {k: st.get(k) for k in ("where", "x", "splits", "ms", "call_ms", "plain_ms",
+                                        "library_ms", "cudnn_k1_ms", "bound_ms", "bound_by")}
+                for st in k2_dsc["shapes"]]
+        elif name == "gdn":
+            entry["max_abs_err"] = max(entry["max_abs_err"], k1_c64["max_abs_err"])
+            entry["c64_shapes"] = [{k: st.get(k) for k in ("x", "ms", "plain_ms", "bound_ms")}
+                                   for st in k1_c64["shapes"]]
+        else:
+            entry.update(launch_floor_ms=row["launch_floor_ms"], dsc_step16=k3_dsc)
         kernels.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

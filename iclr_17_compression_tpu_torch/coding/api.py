@@ -1,8 +1,10 @@
-"""Entropy coding: BitEstimator CDF tables → host C++ rANS bitstreams.
+"""Entropy coding: CDF tables → host C++ rANS bitstreams.
 
 Counterpart of ``iclr_17_compression_tpu/coding/api.py`` for the factorized
-prior: ``_quantize_pmf``, ``RansCodec``, ``build_cdf_tables_from_bit_estimator``,
-``encode_latent`` and ``decode_latent``. The coder is the port's own copy of
+prior and the DSC code: ``_quantize_pmf``, ``RansCodec``,
+``build_cdf_tables_from_bit_estimator``, ``build_cdf_tables_from_histogram``
+(the DSC code's in-band tables), ``encode_latent``, ``decode_latent`` and
+``gzip_bpp`` (the reference's rate proxy). The coder is the port's own copy of
 ``rans.cc`` (``coding/src/``), built with g++ into the port's build directory
 on first use (``ops/kernels/_build.py``).
 
@@ -15,7 +17,8 @@ tables and latent, the stream is byte-identical to the JAX coder's.
 
 import ctypes
 import functools
-from typing import Tuple
+import gzip
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -152,6 +155,31 @@ def build_cdf_tables_from_bit_estimator(
     return RansCodec(freqs, offset=zmin, scale_bits=scale_bits)
 
 
+def build_cdf_tables_from_histogram(
+    values: np.ndarray,
+    offset: Optional[int] = None,
+    nsym: Optional[int] = None,
+    scale_bits: int = 14,
+) -> RansCodec:
+    """Empirical per-channel tables of integer ``values`` (..., C) (the DSC
+    code's): each channel's histogram over [offset, offset + nsym), plus 0.5
+    a symbol, quantized to 1 << scale_bits."""
+    v = np.asarray(values)
+    c = v.shape[-1]
+    v = v.reshape(-1, c).astype(np.int64)
+    if offset is None:
+        offset = int(v.min())
+    if nsym is None:
+        nsym = int(v.max()) - offset + 1
+    if nsym > 1 << scale_bits:
+        raise ValueError(f"{nsym} symbols do not fit {scale_bits}-bit tables")
+    freqs = np.empty((c, nsym), np.uint32)
+    for j in range(c):
+        hist = np.bincount(v[:, j] - offset, minlength=nsym).astype(np.float64)
+        freqs[j] = _quantize_pmf(hist + 0.5, scale_bits)
+    return RansCodec(freqs, offset=offset, scale_bits=scale_bits)
+
+
 def _channel_ids(shape: Tuple[int, ...]) -> np.ndarray:
     """Table id per element of an NHWC tensor: the channel index."""
     c = shape[-1]
@@ -168,3 +196,11 @@ def encode_latent(codec: RansCodec, latent: np.ndarray) -> bytes:
 def decode_latent(codec: RansCodec, stream: bytes, shape: Tuple[int, ...]) -> np.ndarray:
     out = codec.decode(stream, _channel_ids(tuple(shape)))
     return out.reshape(shape)
+
+
+def gzip_bpp(code: np.ndarray, n_pixels: int) -> float:
+    """The reference's rate proxy: gzip of the code + 128 as uint8 bytes, in
+    bits per pixel (``len`` of the compressed bytes, as the JAX package
+    counts them)."""
+    u8 = np.clip(np.asarray(code + 128.0, np.float32), 0, 255).astype(np.uint8)
+    return len(gzip.compress(u8.tobytes())) * 8.0 / float(n_pixels)

@@ -1,11 +1,13 @@
 """Training and eval data: NHWC float32 in [0, 1], numpy only.
 
 Counterpart of the single-image parts of
-``iclr_17_compression_tpu/data/datasets.py``: ``ImageFolderDataset``
-(random-resized crop + flips, reference ``Datasets``), ``KodakDataset``
-(whole images floor-cropped to a multiple), ``batch_iterator`` (shuffle,
-batch, thread prefetch, ``skip`` for an exact mid-epoch resume) and their
-helpers. For the same seed, epoch and index they produce the same crops as
+``iclr_17_compression_tpu/data/datasets.py`` and of its generic stereo
+loader: ``ImageFolderDataset`` (random-resized crop + flips, reference
+``Datasets``), ``KodakDataset`` (whole images floor-cropped to a multiple),
+``StereoPairDataset`` (left/right folders paired in sorted order; the eval
+floor-crop to ×32, the training joint crop and vflip), ``batch_iterator``
+(shuffle, batch, thread prefetch, ``skip`` for an exact mid-epoch resume)
+and their helpers. For the same seed, epoch and index they produce the same crops as
 the JAX package: both draw from Python's ``random`` seeded by
 (seed, epoch, index), and the bilinear resize here is Pillow's 8-bit
 two-pass resampler (``Resample.c``: horizontal then vertical, 22-bit fixed
@@ -19,7 +21,7 @@ with Pillow, imported only then.
 import math
 import os
 import random
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -246,6 +248,63 @@ class KodakDataset:
 
     def __getitem__(self, i: int) -> np.ndarray:
         return np.ascontiguousarray(floor_to_multiple(_load(self.paths[i]), self.multiple))
+
+
+def _fit_for_crop(ch: int, cw: int, *imgs: np.ndarray):
+    """Jointly upscale ``imgs`` so that a (ch, cw) crop fits in all of them,
+    every view to one common size: (h, w, *imgs)."""
+    h = min(im.shape[0] for im in imgs)
+    w = min(im.shape[1] for im in imgs)
+    if h >= ch and w >= cw:
+        return (h, w) + tuple(imgs)
+    s = max(ch / h, cw / w)
+    nh = max(ch, int(round(h * s)))
+    nw = max(cw, int(round(w * s)))
+    return (nh, nw) + tuple(_resize(im, nh, nw) for im in imgs)
+
+
+class StereoPairDataset(_EpochSeeded):
+    """Left/right folders paired by sorted order. ``train``: a joint random
+    (ch, cw) crop of both eyes (upscaled first where it does not fit) and a
+    joint vertical flip half the time; always floor-cropped to a multiple of
+    ``multiple`` (the eval protocol's ×32)."""
+
+    def __init__(
+        self,
+        left_dir: str,
+        right_dir: str,
+        crop: Optional[Tuple[int, int]] = (320, 320),
+        multiple: int = 32,
+        train: bool = True,
+        seed: int = 1234,
+    ):
+        self.left = _list_images(left_dir)
+        self.right = _list_images(right_dir)
+        if len(self.left) != len(self.right) or not self.left:
+            raise ValueError(f"pair mismatch: {len(self.left)} left vs {len(self.right)} right")
+        self.crop = crop
+        self.multiple = multiple
+        self.train = train
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.left)
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        rng = self._item_rng(i)
+        a, b = _load(self.left[i]), _load(self.right[i])
+        if self.train and self.crop is not None:
+            ch, cw = self.crop
+            h, w, a, b = _fit_for_crop(ch, cw, a, b)
+            top = rng.randint(0, h - ch)
+            left = rng.randint(0, w - cw)
+            a = a[top: top + ch, left: left + cw]
+            b = b[top: top + ch, left: left + cw]
+            if rng.random() < 0.5:
+                a, b = a[::-1], b[::-1]
+        a = floor_to_multiple(a, self.multiple)
+        b = floor_to_multiple(b, self.multiple)
+        return np.ascontiguousarray(a), np.ascontiguousarray(b)
 
 
 def batch_iterator(

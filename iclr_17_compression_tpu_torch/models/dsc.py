@@ -1,0 +1,511 @@
+"""Learned distributed-source-coding (DSC) stereo codec.
+
+Counterpart of ``iclr_17_compression_tpu/models/dsc.py``: ``DSCConfig``, the
+stack specs, every preset of ``DSC_PRESETS`` (the port's own copy, as data),
+``DSCStereoModel`` and ``DSCDecoder``. Pipeline (reference models/temp.py):
+
+  z1 = g_a(x)          the image to compress, ÷16 latent
+  z2 = g_a(y)          the side-information image (the receiver's camera)
+  code = clip(round(g_a22(z1) / step) · step, ±clip)   the transmitted code
+  ẑ1 = g_s22(code);  fused = g_z1hat_z2(cat(ẑ1, z2));  x̂ = g_s(fused)
+
+A stack is an indexed ``nn.Sequential`` of blocks (``nn/blocks.py``), so
+the keys read ``g_a.<i>.…``, as ``import_dsc`` expects. The coarse
+quantizer is ``quantize_code``: the K3 kernel on CUDA, its plain version on
+the CPU, giving exactly the JAX package's ``clip(round(x/step)·step, ±clip)``
+and the coder's symbols in one pass. Every ResidualBlockWithStride and
+ResidualBlockUpsample runs its 3×3 conv + (I)GDN as one K2 call.
+
+Not ported yet: training (``train=True``, ROADMAP item 15) and the fusion
+modules of ``fusion_pre="fif"`` and ``fusion_post`` in ("bot_att",
+"patch_att", "pam") (``models/enhance.py``, ``attention.py``, ``passr.py``;
+ROADMAP item 17). They raise ``NotImplementedError``.
+"""
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..nn.blocks import (AttentionBlock, ResidualBlock, ResidualBlockUpsample,
+                         ResidualBlockWithStride, SubpelConv, init_dsc_)
+from ..nn.layers import TorchConv
+from ..ops.kernels.quant_pack_kernel import quantize_pack
+from ..ops.metrics import ms_ssim
+from ..utils.device import no_tf32
+
+# ---------------------------------------------------------------------------
+# Stack specs: (kind, features[, arg]).
+#   rb      ResidualBlock(out)
+#   rbs     ResidualBlockWithStride(out, stride=arg or 2)
+#   rbu     ResidualBlockUpsample(out, r=arg or 2)
+#   att     AttentionBlock(ch)
+#   att7    AttentionBlock_7 (7×7 GELU residual units)
+#   conv3   3×3 conv (stride=arg or 1)
+#   conv7   7×7 conv (stride=arg or 1)
+#   subpel  SubpelConv(out, r=arg)
+# ---------------------------------------------------------------------------
+
+Spec = Tuple
+
+
+def build_stack(specs: Tuple[Spec, ...], cin: int, act: str = "leaky_relu"
+                ) -> Tuple[nn.Sequential, int]:
+    """The blocks of ``specs`` on ``cin`` input channels: (the indexed
+    ``nn.Sequential``, its output channels)."""
+    layers = []
+    for spec in specs:
+        kind, feat = spec[0], spec[1]
+        arg = spec[2] if len(spec) > 2 else None
+        if kind == "rb":
+            layers.append(ResidualBlock(cin, feat, act=act))
+        elif kind == "rbs":
+            layers.append(ResidualBlockWithStride(cin, feat, stride=arg or 2, act=act))
+        elif kind == "rbu":
+            layers.append(ResidualBlockUpsample(cin, feat, upsample=arg or 2, act=act))
+        elif kind in ("att", "att7"):
+            if cin != feat:
+                raise ValueError(f"{kind} {feat} on {cin} input channels")
+            layers.append(AttentionBlock(feat) if kind == "att" else
+                          AttentionBlock(feat, unit_act="gelu", unit_kernel=7))
+        elif kind == "conv3":
+            layers.append(TorchConv(cin, feat, 3, stride=arg or 1, padding=1))
+        elif kind == "conv7":
+            layers.append(TorchConv(cin, feat, 7, stride=arg or 1, padding=3))
+        elif kind == "subpel":
+            layers.append(SubpelConv(cin, feat, arg or 2))
+        else:
+            raise ValueError(f"unknown spec kind {kind!r}")
+        cin = feat
+    return nn.Sequential(*layers), cin
+
+
+def _ga_specs(n: int, extra_stride: bool = False) -> Tuple[Spec, ...]:
+    """Cheng-2020 analysis stack (reference models/temp.py:135-147;
+    extra_stride=True is the ÷32 variant, temp_smaller_spatial_dim.py:53-64)."""
+    if extra_stride:
+        return (
+            ("rb", 3), ("rbs", n, 2), ("rb", n), ("rbs", n, 2), ("att", n),
+            ("rbs", n, 2), ("rb", n), ("rbs", n, 2), ("rb", n),
+            ("conv3", n, 2), ("att", n),
+        )
+    return (
+        ("rb", 3), ("rbs", n, 2), ("rb", n), ("rbs", n, 2), ("att", n),
+        ("rb", n), ("rbs", n, 2), ("rb", n), ("conv3", n, 2), ("att", n),
+    )
+
+
+def _gs_specs(n: int, extra_up: bool = False) -> Tuple[Spec, ...]:
+    """Cheng-2020 synthesis stack (reference models/temp.py:149-162)."""
+    if extra_up:
+        return (
+            ("att", n), ("rb", n), ("rbu", n, 2), ("rb", n), ("rbu", n, 2),
+            ("att", n), ("rbu", n, 2), ("rb", n), ("rbu", n, 2), ("rb", n),
+            ("subpel", 3, 2),
+        )
+    return (
+        ("att", n), ("rb", n), ("rbu", n, 2), ("rb", n), ("rbu", n, 2),
+        ("att", n), ("rb", n), ("rbu", n, 2), ("rb", n), ("subpel", 3, 2),
+    )
+
+
+def _gz_specs(n: int, cat_factor: int = 2) -> Tuple[Spec, ...]:
+    """Fusion net g_z1hat_z2 (reference models/temp.py:195-202; 3N input for
+    the addZyDown variant, temp_allRes.py:184-190)."""
+    c = cat_factor * n
+    return (("att", c), ("rb", c), ("rb", n), ("att", n), ("rb", n))
+
+
+GREC_SPECS = (("att", 6), ("rb", 3), ("rb", 3), ("att", 3), ("rb", 3))
+
+
+@dataclass(frozen=True)
+class DSCConfig:
+    """Full specification of one DSC variant (fields as in the JAX package)."""
+
+    name: str
+    n: int = 128                       # base channels
+    code_channels: int = 8             # channels of the transmitted code
+    ga: Tuple[Spec, ...] = ()
+    gs: Tuple[Spec, ...] = ()
+    ga22: Tuple[Spec, ...] = ()
+    gs22: Tuple[Spec, ...] = ()
+    gz: Tuple[Spec, ...] = ()
+    shared_encoder: bool = True        # False → a separate SI encoder (g_a_Y)
+    base_branch: bool = True           # aux autoencoder branch on z1/z2
+    fine_noise: float = 8.0            # train noise half-width for z1/z2
+    coarse_noise: float = 8.0          # train noise half-width for the code
+    coarse_step: float = 16.0          # eval quant step for the code
+    code_clip: Optional[float] = 128.0  # clamp after quantization (None = off)
+    fusion: str = "cat2"               # 'cat2' | 'cat3' (addZyDown)
+    gz2: Tuple[Spec, ...] = ()         # second fusion branch, summed with gz
+    fusion_pre: str = "none"           # 'none' | 'fif'
+    fusion_post: str = "none"          # 'none' | 'bot_att' | 'patch_att' | 'pam'
+    si_mode: str = "use"               # 'use' | 'zero_si' | 'zero_code'
+    loss: str = "msssim"               # 'l1' | 'msssim' | 'mse'
+    msssim_win: int = 7
+    z_target_coarse: bool = True       # L1 z-loss target round(z1/16)*16 vs z1
+    recon_residual: bool = False       # refine x̂ with g_rec1_im2_new(cat(x̂, y))
+    latent_div: int = 16               # spatial ÷ of z1/z2
+    code_div: int = 32                 # spatial ÷ of the code
+
+
+# Symbols of an unclipped code (code_clip None): K3's 16-bit store at this
+# limit, which no code may reach (it could have been clipped there).
+UNCLIPPED_LIM = 32767
+
+
+def code_symbols(cfg: DSCConfig) -> Tuple[int, int]:
+    """(lim, bits) of the coder's symbols of ``cfg``'s code: K3 stores
+    ``sym + lim`` for sym in [-lim, lim] in 8 bits where 2·lim+1 ≤ 256
+    (step 16, clip 128: 17 symbols), else in 16."""
+    if cfg.code_clip is None:
+        return UNCLIPPED_LIM, 16
+    lim = int(round(cfg.code_clip / cfg.coarse_step))
+    if lim * cfg.coarse_step != cfg.code_clip:
+        raise ValueError(f"{cfg.name}: clip {cfg.code_clip} is not a multiple of the step "
+                         f"{cfg.coarse_step}")
+    return lim, 8 if 2 * lim + 1 <= 256 else 16
+
+
+def quantize_code(code_pre: torch.Tensor, cfg: DSCConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The coarse quantizer: (symbols ``sym + lim`` as uint8 or uint16, the
+    code ``sym · step``) with sym = clip(round(code_pre / step), ±lim), in
+    one K3 pass on CUDA (the plain version on the CPU). The code equals the
+    JAX package's ``clip(round(x/step)·step, ±clip)``; round has no
+    gradient there, so none flows here either. An unclipped code that
+    reaches ±``UNCLIPPED_LIM`` raises."""
+    lim, bits = code_symbols(cfg)
+    step = float(cfg.coarse_step)
+    with torch.no_grad():
+        symbols, code = quantize_pack(code_pre.detach().contiguous(), step, lim * step, bits)
+    if cfg.code_clip is None:
+        s = symbols.to(torch.int32)  # CUDA has no min/max of uint16
+        if int(s.min()) == 0 or int(s.max()) == 2 * lim:
+            raise ValueError(f"{cfg.name}: the unclipped code reaches ±{lim} steps")
+    return symbols, code
+
+
+def _fuse_and_synthesize(cfg: DSCConfig, mods: nn.Module, z1_hat, z2, z2_hat, im2):
+    """SI fusion + synthesis, the receiver's tail shared by the full model
+    and ``DSCDecoder``: (fused, recon_raw), the recon unclipped."""
+    if cfg.fusion == "cat3":
+        z_cat = torch.cat([z1_hat, z2_hat, z2], dim=-1)
+    else:
+        si = torch.zeros_like(z2) if cfg.si_mode == "zero_si" else z2
+        zc = torch.zeros_like(z1_hat) if cfg.si_mode == "zero_code" else z1_hat
+        z_cat = torch.cat([zc, si], dim=-1)
+    fused = mods.g_z1hat_z2(z_cat)
+    if cfg.gz2:
+        fused = fused + mods.g_z1hat_z2_freq2(z_cat)
+    recon = mods.g_s(fused)
+    if cfg.recon_residual:
+        recon = recon + mods.g_rec1_im2_new(torch.cat([recon, im2], dim=-1))
+    return fused, recon
+
+
+def _si_encoder(mods: nn.Module) -> nn.Module:
+    """The encoder of the side-information image: ``g_a``, or ``g_a_Y``
+    where the preset has a separate one."""
+    return mods.g_a if mods.config.shared_encoder else mods.g_a_Y
+
+
+def _receiver_stacks(cfg: DSCConfig) -> Tuple[str, ...]:
+    """The names of the stacks the receiver runs."""
+    names = ["g_a" if cfg.shared_encoder else "g_a_Y", "g_s22", "g_z1hat_z2", "g_s"]
+    if cfg.fusion == "cat3":
+        names.append("g_a22")
+    if cfg.gz2:
+        names.append("g_z1hat_z2_freq2")
+    if cfg.recon_residual:
+        names.append("g_rec1_im2_new")
+    return tuple(names)
+
+
+def _fp32_on_cuda(x: torch.Tensor) -> None:
+    if x.device.type == "cuda":
+        no_tf32()
+
+
+class DSCStereoModel(nn.Module):
+    """Two-branch DSC codec; behaviour set by ``config``.
+
+    ``forward(im1, im2, train=False, mask_channels=None)`` (NHWC in [0, 1])
+    returns the JAX model's dict:
+      recon      SI-assisted reconstruction of im1, clipped to [0, 1]
+      recon_raw  the same, unclipped
+      code       the quantized and clamped transmitted code
+      z1, z2     encoder latents;  z1_hat = g_s22(code);  fused
+      im1_hat, im2_hat  aux-branch recons (if ``base_branch``)
+      loss, loss_full, loss_z  the reference's loss triplet
+    ``mask_channels``: optional (code_channels,) mask zeroing code channels
+    before quantization.
+    """
+
+    def __init__(self, config: DSCConfig):
+        super().__init__()
+        if config.fusion_pre != "none" or config.fusion_post != "none":
+            raise NotImplementedError(
+                f"{config.name}: fusion_pre={config.fusion_pre!r} / fusion_post="
+                f"{config.fusion_post!r} need FIF, the bottleneck attentions or PAM, which "
+                "are not ported yet (ROADMAP item 17)")
+        self.config = config
+        self.g_a = build_stack(config.ga, 3)[0]
+        if not config.shared_encoder:
+            self.g_a_Y = build_stack(config.ga, 3)[0]
+        self.g_a22 = build_stack(config.ga22, config.n)[0]
+        self.g_s22 = build_stack(config.gs22, config.code_channels)[0]
+        cat = 3 if config.fusion == "cat3" else 2
+        self.g_z1hat_z2, fused_ch = build_stack(config.gz, cat * config.n)
+        self.g_s = build_stack(config.gs, fused_ch)[0]
+        if config.gz2:
+            self.g_z1hat_z2_freq2 = build_stack(config.gz2, cat * config.n)[0]
+        if config.recon_residual:
+            self.g_rec1_im2_new = build_stack(GREC_SPECS, 6)[0]
+
+    def init_(self, generator: torch.Generator) -> "DSCStereoModel":
+        """The JAX package's DSC init (``nn.blocks.init_dsc_``)."""
+        return init_dsc_(self, generator)
+
+    def encode(self, im1: torch.Tensor) -> torch.Tensor:
+        """The transmitter: ``g_a22(g_a(im1))``, the code before quantization."""
+        _fp32_on_cuda(im1)
+        return self.g_a22(self.g_a(im1))
+
+    def forward(self, im1: torch.Tensor, im2: torch.Tensor, train: bool = False,
+                mask_channels: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        cfg = self.config
+        if train:
+            raise NotImplementedError("DSC training is not ported yet (ROADMAP item 15)")
+        _fp32_on_cuda(im1)
+        z1 = self.g_a(im1)
+        z2 = _si_encoder(self)(im2)
+        out = {"z1": z1, "z2": z2}
+        code_pre = self.g_a22(z1)
+        if mask_channels is not None:
+            code_pre = code_pre * (1.0 - mask_channels.to(code_pre.dtype))
+        _, code = quantize_code(code_pre, cfg)
+        out["code"] = code
+        z1_hat = self.g_s22(code)
+        out["z1_hat"] = z1_hat
+        z2_hat = self.g_s22(self.g_a22(z2)) if cfg.fusion == "cat3" else None
+        fused, recon = _fuse_and_synthesize(cfg, self, z1_hat, z2, z2_hat, im2)
+        out["fused"] = fused
+        clipped = torch.clamp(recon, 0.0, 1.0)
+        out["recon_raw"] = recon
+        out["recon"] = clipped
+
+        if cfg.base_branch:
+            out["im1_hat"] = torch.clamp(self.g_s(torch.round(z1)), 0.0, 1.0)
+            out["im2_hat"] = torch.clamp(self.g_s(torch.round(z2)), 0.0, 1.0)
+
+        zero = torch.zeros((), device=im1.device)
+        if cfg.loss == "l1":
+            z_target = (torch.round(z1 / cfg.coarse_step) * cfg.coarse_step
+                        if cfg.z_target_coarse else z1)
+            loss_z = torch.mean(torch.abs(fused - z_target))
+            loss_full = torch.mean(torch.abs(clipped - im1))
+            loss_base = (0.5 * torch.mean(torch.abs(out["im1_hat"] - im1))
+                         + 0.5 * torch.mean(torch.abs(out["im2_hat"] - im2))
+                         if cfg.base_branch else zero)
+        elif cfg.loss == "msssim":
+            ms_full = ms_ssim(clipped, im1, win_size=cfg.msssim_win)
+            loss_full = 1.0 - ms_full
+            if cfg.base_branch:
+                ms2 = ms_ssim(out["im2_hat"], im2, win_size=cfg.msssim_win)
+                loss_base = 1.0 - 0.5 * (ms_full + ms2)
+            else:
+                loss_base = loss_full
+            # reference parity: the MS-SSIM branch hardcodes mse_on_z = 1
+            loss_z = zero + 1.0
+        else:  # mse
+            loss_z = torch.mean((fused - z1) ** 2)
+            loss_full = torch.mean((clipped - im1) ** 2)
+            loss_base = (0.5 * torch.mean((out["im1_hat"] - im1) ** 2)
+                         + 0.5 * torch.mean((out["im2_hat"] - im2) ** 2)
+                         if cfg.base_branch else zero)
+        out["loss"] = loss_base
+        out["loss_full"] = loss_full
+        out["loss_z"] = loss_z
+        return out
+
+
+class DSCDecoder(nn.Module):
+    """The receiver: (code, side-information image) → reconstruction.
+
+    It runs the stacks of ``model`` (a ``DSCStereoModel`` of the same
+    preset; a new one when None) under their own names (``g_a`` or ``g_a_Y``
+    for the SI encoder, ``g_s22``, ``g_z1hat_z2``, ``g_s``; ``g_a22`` for
+    cat3), shared, not copied. ``clip=False`` returns the raw synthesis
+    output: the residual that the rate-regression stage adds onto a frozen
+    base reconstruction.
+    """
+
+    def __init__(self, config: DSCConfig, clip: bool = True,
+                 model: Optional[DSCStereoModel] = None):
+        super().__init__()
+        self.config = config
+        self.clip = clip
+        model = DSCStereoModel(config) if model is None else model
+        for name in _receiver_stacks(config):
+            setattr(self, name, getattr(model, name))
+
+    def forward(self, code: torch.Tensor, im2: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        _fp32_on_cuda(im2)
+        z2 = _si_encoder(self)(im2)
+        z1_hat = self.g_s22(code)
+        z2_hat = self.g_s22(self.g_a22(z2)) if cfg.fusion == "cat3" else None
+        _, recon = _fuse_and_synthesize(cfg, self, z1_hat, z2, z2_hat, im2)
+        return torch.clamp(recon, 0.0, 1.0) if self.clip else recon
+
+
+# ---------------------------------------------------------------------------
+# Presets, one per reference variant file (the JAX package's table).
+# ---------------------------------------------------------------------------
+
+def _preset(name: str, **kw) -> DSCConfig:
+    n = kw.pop("n", 128)
+    cc = kw.pop("code_channels", 8)
+    defaults = dict(ga=_ga_specs(n), gs=_gs_specs(n), gz=_gz_specs(n))
+    defaults.update(kw)
+    return DSCConfig(name=name, n=n, code_channels=cc, **defaults)
+
+
+_GA22_TEMP = (
+    ("conv3", 64, 1), ("rb", 64), ("rbs", 64, 2), ("att", 64),
+    ("conv3", 32, 1), ("rb", 32), ("conv3", 8, 1), ("att", 8),
+)
+_GS22_TEMP = (
+    ("att", 8), ("conv3", 32, 1), ("rb", 32), ("conv3", 64, 1),
+    ("rb", 64), ("rbu", 128, 2), ("rb", 128),
+)
+
+
+def _ga22_wide(c: int) -> Tuple[Spec, ...]:
+    return (
+        ("conv3", 64, 1), ("rb", 64), ("rbs", 64, 2), ("att", 64),
+        ("rb", c), ("rb", c), ("att", c),
+    )
+
+
+def _gs22_wide(c: int, n: int) -> Tuple[Spec, ...]:
+    return (("att", c), ("rb", c), ("rb", 64), ("rb", 64), ("rbu", n, 2), ("rb", n))
+
+
+_TINY22 = dict(
+    ga22=(("conv3", 8, 1), ("rbs", 8, 2), ("conv3", 2, 1)),
+    gs22=(("conv3", 8, 1), ("rbu", 16, 2), ("rb", 16)),
+)
+
+DSC_PRESETS = {
+    # models/temp.py — the flagship 0.031 bpp model
+    "temp_0031bpp": _preset(
+        "temp_0031bpp", ga22=_GA22_TEMP, gs22=_GS22_TEMP,
+        fine_noise=8.0, coarse_noise=8.0, coarse_step=16.0, loss="msssim"),
+    # models/temp_1bpp.py — 0.125 bpp variant (32-ch code)
+    "temp_1bpp": _preset(
+        "temp_1bpp", code_channels=32, ga22=_ga22_wide(32), gs22=_gs22_wide(32, 128),
+        fine_noise=8.0, coarse_noise=8.0, coarse_step=16.0, loss="l1"),
+    # models/temp_016bpp.py — 41-ch code + channel-mask ablation hook
+    "temp_016bpp": _preset(
+        "temp_016bpp", code_channels=41, ga22=_ga22_wide(41), gs22=_gs22_wide(41, 128),
+        fine_noise=8.0, coarse_noise=8.0, coarse_step=16.0, loss="l1"),
+    # models/temp_016bpp.py at reference HEAD: zeros concatenated for z2
+    "temp_016bpp_si_ablation": _preset(
+        "temp_016bpp_si_ablation", code_channels=41, ga22=_ga22_wide(41),
+        gs22=_gs22_wide(41, 128), fine_noise=8.0, coarse_noise=8.0, coarse_step=16.0,
+        si_mode="zero_si", loss="l1"),
+    # models/high_bit_rate_model.py — 32-ch code, fine quant (step 1)
+    "high_bit_rate": _preset(
+        "high_bit_rate", code_channels=32,
+        ga22=(("att", 128), ("rbs", 128, 2), ("rb", 64), ("att", 64), ("rb", 32), ("att", 32)),
+        gs22=(("att", 32), ("rb", 64), ("att", 64), ("rb", 128), ("rbu", 128, 2),
+              ("att", 128)),
+        fine_noise=0.5, coarse_noise=0.5, coarse_step=1.0, loss="l1", z_target_coarse=False),
+    # models/classic_DSC_model.py — separate X/Y encoders, all-residual 22-nets
+    "classic_dsc": _preset(
+        "classic_dsc",
+        ga22=(("rb", 64), ("rb", 64), ("rbs", 64, 2), ("att", 64), ("rb", 32), ("rb", 32),
+              ("rb", 8), ("att", 8)),
+        gs22=(("att", 8), ("rb", 32), ("rb", 32), ("rb", 64), ("rb", 64), ("rbu", 128, 2),
+              ("rb", 128)),
+        shared_encoder=False, base_branch=False, fine_noise=0.5, coarse_noise=0.5,
+        coarse_step=1.0, code_clip=None, loss="l1", z_target_coarse=False),
+    # models/model_temp_DSC.py — separate SI encoder, no base branch
+    "temp_dsc": _preset(
+        "temp_dsc", ga22=_GA22_TEMP, gs22=_GS22_TEMP, shared_encoder=False,
+        base_branch=False, fine_noise=0.5, coarse_noise=0.5, coarse_step=1.0, loss="l1",
+        z_target_coarse=False),
+    # models/temp_allRes.py — decoder-side symmetric degradation (cat3)
+    "add_zy_down": _preset(
+        "add_zy_down", ga22=_GA22_TEMP, gs22=_GS22_TEMP, gz=_gz_specs(128, 3),
+        fusion="cat3", fine_noise=0.5, coarse_noise=0.5, coarse_step=1.0, loss="l1",
+        z_target_coarse=False),
+    # models/temp_reg_0_0625.py — residual rate-regression stage
+    "reg_0_0625": _preset(
+        "reg_0_0625", ga22=_GA22_TEMP, gs22=_GS22_TEMP, base_branch=False,
+        coarse_noise=8.0, coarse_step=16.0, loss="l1"),
+    # models/temp_highBitRate.py — 16-ch code
+    "high_bit_rate2": _preset(
+        "high_bit_rate2", code_channels=16,
+        ga22=(("conv3", 64, 1), ("rb", 64), ("rbs", 64, 2), ("att", 64), ("conv3", 32, 1),
+              ("rb", 32), ("conv3", 16, 1), ("att", 16)),
+        gs22=(("att", 16), ("conv3", 32, 1), ("rb", 32), ("conv3", 64, 1), ("rb", 64),
+              ("rbu", 128, 2), ("rb", 128)),
+        fine_noise=8.0, coarse_noise=8.0, coarse_step=16.0, loss="l1"),
+    # models/temp_att_0_03bpp.py — + bottleneck cross-attention after fusion
+    "att_0031bpp": _preset(
+        "att_0031bpp", ga22=_GA22_TEMP, gs22=_GS22_TEMP, fusion_post="bot_att",
+        fine_noise=8.0, coarse_noise=8.0, coarse_step=16.0, loss="l1"),
+    # models/temp_bottleneck_Att.py — 1bpp net + patch-match attention fusion
+    "bottleneck_att_1bpp": _preset(
+        "bottleneck_att_1bpp", code_channels=32, ga22=_ga22_wide(32),
+        gs22=_gs22_wide(32, 128), fusion_post="patch_att", fine_noise=8.0,
+        coarse_noise=8.0, coarse_step=16.0, loss="l1"),
+    # models/temp_and_FIF.py — FIF dilated-conv net on z_cat before fusion
+    "fif_0031bpp": _preset(
+        "fif_0031bpp", ga22=_GA22_TEMP, gs22=_GS22_TEMP, fusion_pre="fif",
+        fine_noise=8.0, coarse_noise=8.0, coarse_step=16.0, loss="l1"),
+    # models/temp_and_PAM.py — parallax attention after fusion
+    "pam_0031bpp": _preset(
+        "pam_0031bpp", ga22=_GA22_TEMP, gs22=_GS22_TEMP, fusion_post="pam",
+        fine_noise=8.0, coarse_noise=8.0, coarse_step=16.0, loss="l1"),
+    # models/modelTemp_largerGz.py — expanded fusion with AttentionBlock_7
+    "larger_gz": _preset(
+        "larger_gz", ga22=_GA22_TEMP, gs22=_GS22_TEMP,
+        gz=(("att7", 256), ("att", 256), ("rb", 256), ("rb", 128), ("att7", 128),
+            ("att", 128), ("rb", 128)),
+        fine_noise=8.0, coarse_noise=8.0, coarse_step=16.0, loss="l1"),
+    # models/test_freqSepNet.py — two parallel fusion nets summed
+    "freq_sep": _preset(
+        "freq_sep", ga22=_GA22_TEMP, gs22=_GS22_TEMP,
+        gz2=(("att7", 256), ("conv7", 256, 1), ("rb", 128), ("att7", 128), ("rb", 128)),
+        fine_noise=8.0, coarse_noise=8.0, coarse_step=16.0, loss="l1"),
+    # models/original_att.py — architecturally the temp preset, L1 loss
+    "original_att": _preset(
+        "original_att", ga22=_GA22_TEMP, gs22=_GS22_TEMP,
+        fine_noise=8.0, coarse_noise=8.0, coarse_step=16.0, loss="l1"),
+    # models/temp_smaller_spatial_dim.py — N=360, ÷32 latent
+    "smaller_z": _preset(
+        "smaller_z", n=360,
+        ga=_ga_specs(360, extra_stride=True), gs=_gs_specs(360, extra_up=True),
+        gz=_gz_specs(360),
+        ga22=(("conv3", 64, 1), ("rb", 64), ("att", 64), ("rb", 32), ("rb", 32), ("rb", 8),
+              ("att", 8)),
+        gs22=(("att", 8), ("rb", 32), ("rb", 32), ("rb", 64), ("rb", 64), ("att", 64),
+              ("rb", 360), ("rb", 360)),
+        fine_noise=0.5, coarse_noise=0.5, coarse_step=1.0, loss="l1",
+        z_target_coarse=False, latent_div=32, code_div=32),
+    # development preset: the temp_0031bpp topology at 1/8 width
+    "tiny": _preset(
+        "tiny", n=16, code_channels=2, **_TINY22,
+        fine_noise=8.0, coarse_noise=8.0, coarse_step=16.0, loss="mse"),
+    # development counterpart of reg_0_0625 (residual stage: no base branch)
+    "tiny_reg": _preset(
+        "tiny_reg", n=16, code_channels=2, **_TINY22, base_branch=False,
+        coarse_noise=8.0, coarse_step=16.0, loss="l1"),
+}
+

@@ -7,12 +7,14 @@ the reference keys that ``iclr_17_compression_tpu.train.torch_import`` maps:
 conv weight OIHW, deconv weight (Cin, Cout, kh, kw), GDN ``beta``/``gamma``
 reparameterized, Bitparm ``h``/``b``/``a`` as (C,).
 
-Construction uses torch's default init. Training starts from the JAX
-package's initializers instead, drawn from an explicit generator by each
+Construction uses torch's default init. Ballé-17 training starts from the
+JAX package's initializers instead, drawn from an explicit generator by each
 module's ``init_(generator)``: ``xavier_normal_`` with the layer's gain on
 conv and deconv weights, biases at 0.01, the GDN identity init, and Bitparm
-``h``/``b``/``a`` ~ N(0, 0.01²). The values differ from the JAX package's
-draws (another generator); the distributions are the same.
+``h``/``b``/``a`` ~ N(0, 0.01²). The DSC models keep torch's default law
+for their convs, drawn from a generator by ``torch_default_init_``. The
+values differ from the JAX package's draws (another generator); the
+distributions are the same.
 """
 
 import math
@@ -35,6 +37,17 @@ def xavier_normal_(w: torch.Tensor, gain: float, generator: torch.Generator) -> 
     std = gain * math.sqrt(2.0 / fan_sum)
     with torch.no_grad():
         w.copy_(std * torch.randn(w.shape, generator=generator))
+
+
+def torch_default_init_(conv: nn.Conv2d, generator: torch.Generator) -> None:
+    """torch's default conv init, U(±1/√fan_in) for the weight and the bias
+    (fan_in = Cin·kh·kw), drawn from ``generator``, in place: the JAX
+    package's ``torch_conv_default_init``, which the DSC models use."""
+    bound = 1.0 / math.sqrt(conv.weight[0].numel())
+    with torch.no_grad():
+        conv.weight.uniform_(-bound, bound, generator=generator)
+        if conv.bias is not None:
+            conv.bias.uniform_(-bound, bound, generator=generator)
 
 
 class _JaxInit:

@@ -1,7 +1,7 @@
 """Torch-semantics convolutions on NHWC tensors, and weight layouts.
 
 Counterpart of ``iclr_17_compression_tpu/ops/conv.py`` (``conv2d``,
-``conv_transpose2d``) and of the layout helpers in
+``conv_transpose2d``, ``pixel_shuffle``) and of the layout helpers in
 ``iclr_17_compression_tpu/train/torch_import.py``. Activations are NHWC at
 every public function, as in the JAX package. Inside, the convolutions run
 as ``F.conv2d`` / ``F.conv_transpose2d`` on an NCHW view of the same memory
@@ -58,3 +58,10 @@ def conv_transpose2d(x: torch.Tensor, w: torch.Tensor, b=None, *, stride: int = 
     (Cin, Cout, kh, kw). Output size (H-1)*s - 2p + k + op."""
     return nhwc(F.conv_transpose2d(nchw(x), w, b, stride=stride, padding=padding,
                                    output_padding=output_padding))
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """NHWC ``nn.PixelShuffle(r)``: (N, H, W, Cout·r·r) → (N, H·r, W·r, Cout),
+    the input channels in torch's order (c_out, r_h, r_w), as the JAX
+    ``pixel_shuffle`` takes them."""
+    return x if r == 1 else nhwc(F.pixel_shuffle(nchw(x), r))

@@ -13,10 +13,11 @@ Gradients: ``conv_gdn`` is a ``torch.autograd.Function`` on both devices.
 Its backward is the counterpart of ``_conv_gdn_bwd``, the XLA VJP of
 ``_ref_conv_gdn`` in the JAX package (there is no Pallas backward): it
 recomputes ``conv_gdn_plain`` (cuDNN ``F.conv2d`` + the plain GDN) from the
-saved inputs and differentiates it. In ``analysis17_fused`` the gradient
-reaches the OIHW conv weights through the ``oihw_to_hwio`` permute and the
-stored GDN parameters through ``gdn_reparam``'s ``lower_bound`` gate, both
-outside the Function.
+saved inputs and differentiates it. Through ``conv_gdn_module`` (the
+Ballé-17 encoder's ``analysis17_fused``, the DSC blocks' conv + (I)GDN
+pairs) the gradient reaches the OIHW conv weights through the
+``oihw_to_hwio`` permute and the stored GDN parameters through
+``gdn_reparam``'s ``lower_bound`` gate, both outside the Function.
 
 A stage with too few 64-pixel tiles to fill the card splits its K (the k·k
 taps) into ``plan_splits`` parts of whole taps; the wrapper allocates the
@@ -143,17 +144,24 @@ def _launch(x, w, b, gamma_t, beta, stride, padding, inverse):
 conv_gdn.launches = 0
 
 
+def conv_gdn_module(x: torch.Tensor, conv, gdn=None) -> torch.Tensor:
+    """A ``TorchConv`` module followed by a ``GDN`` module (or none) as one
+    ``conv_gdn`` call, with the conv's stride and padding and the GDN's
+    direction. The gradient reaches the OIHW weight through the
+    ``oihw_to_hwio`` permute and the stored GDN parameters through
+    ``gdn_reparam``, both outside the Function."""
+    gamma_t = beta = None
+    if gdn is not None:
+        beta, gamma = gdn_reparam(gdn.params())
+        gamma_t = gamma.t().contiguous()
+    return conv_gdn(x, oihw_to_hwio(conv.weight).contiguous(), conv.bias, gamma_t, beta,
+                    conv.stride[0], conv.padding[0], gdn is not None and gdn.inverse)
+
+
 def analysis17_fused(encoder, x: torch.Tensor) -> torch.Tensor:
     """The Ballé-17 analysis transform as three ``conv_gdn`` calls, driven
     from an ``Analysis17`` module: conv1 9×9 s4 + GDN, conv2 5×5 s2 + GDN,
     conv3 5×5 s2 (no bias, no GDN). NHWC in, NHWC latent out."""
-    def hwio(conv):
-        return oihw_to_hwio(conv.weight).contiguous()
-
-    def gdn_args(gdn):
-        beta, gamma = gdn_reparam(gdn.params())
-        return gamma.t().contiguous(), beta
-
-    y = conv_gdn(x, hwio(encoder.conv1), encoder.conv1.bias, *gdn_args(encoder.gdn1), 4, 4)
-    y = conv_gdn(y, hwio(encoder.conv2), encoder.conv2.bias, *gdn_args(encoder.gdn2), 2, 2)
-    return conv_gdn(y, hwio(encoder.conv3), None, None, None, 2, 2)
+    y = conv_gdn_module(x, encoder.conv1, encoder.gdn1)
+    y = conv_gdn_module(y, encoder.conv2, encoder.gdn2)
+    return conv_gdn_module(y, encoder.conv3)

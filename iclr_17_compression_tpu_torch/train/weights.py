@@ -17,6 +17,14 @@ and numpy alone.
 checks every leaf's shape and dtype, and raises on a missing or extra key.
 ``params_to_jax`` is its inverse: a port state_dict as the JAX tree, in the
 JAX model's key order.
+
+``dsc_params_from_jax`` / ``dsc_params_to_jax`` do the same for a DSC model
+of a given ``DSCConfig`` (the inverse of ``import_dsc``): the flax tree
+``g_a/l1_rbs/conv1/weight`` (HWIO) is the port's ``g_a.1.conv1.weight``
+(OIHW), ``…/l4_att/a_ru0/conv_in`` is ``….4.conv_a.0.conv.0``,
+``…/l2_rbu/subpel_conv/conv`` is ``….2.subpel_conv.0``. ``load_dsc`` reads a
+bare params file (the archived ``results/ckpts/dsc_*_params.msgpack``) or a
+TrainState dict with ``params``.
 """
 
 import struct
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from ..models.balle17 import Balle17Compressor
+from ..models.dsc import DSC_PRESETS, GREC_SPECS, DSCConfig, DSCStereoModel
 from ..ops.conv import deconv_hwio_to_torch, hwio_to_oihw, oihw_to_hwio
 from ..utils.device import resolve_device
 
@@ -321,4 +330,107 @@ def load_balle17(path: str, device: Optional[str] = None):
     sd = params_from_jax(read_checkpoint(path))
     model = Balle17Compressor(sd["Encoder.conv1.weight"].shape[0])
     model.load_state_dict(sd, strict=True)
+    return model.to(dev).eval()
+
+
+# The torch name of each DSC stack → (its flax name, its specs).
+def _dsc_stacks(cfg: DSCConfig) -> Dict[str, tuple]:
+    return {"g_a": ("g_a", cfg.ga), "g_a_Y": ("g_a_y", cfg.ga), "g_s": ("g_s", cfg.gs),
+            "g_a22": ("g_a22", cfg.ga22), "g_s22": ("g_s22", cfg.gs22),
+            "g_z1hat_z2": ("g_z1hat_z2", cfg.gz),
+            "g_z1hat_z2_freq2": ("g_z1hat_z2_freq2", cfg.gz2),
+            "g_rec1_im2_new": ("g_rec1_im2_new", GREC_SPECS)}
+
+
+_UNIT_CONVS = {"0": "conv_in", "2": "conv_mid", "4": "conv_out"}
+
+
+def stack_flax_path(specs, key: str) -> str:
+    """A key of a stack's state_dict (``<i>.<module>…<leaf>``, the stack built
+    from ``specs``) → its JAX leaf path inside the ``_Stack`` params."""
+    idx, *mods, leaf = key.split(".")
+    kind = specs[int(idx)][0]
+    if kind in ("conv3", "conv7"):
+        inner = []
+    elif kind == "subpel":  # Sequential(conv, PixelShuffle): "0.weight"
+        inner = ["conv"]
+    elif kind in ("rb", "rbs"):
+        inner = mods
+    elif kind == "rbu":
+        inner = [mods[0], "conv"] if mods[0] in ("subpel_conv", "upsample") else mods
+    elif mods == ["conv_b", "3"]:  # att / att7: the gate
+        inner = ["b_conv"]
+    else:  # conv_a.<u>.conv.<j> / conv_b.<u>.conv.<j>
+        inner = [f"{mods[0][-1]}_ru{mods[1]}", _UNIT_CONVS[mods[3]]]
+    return "/".join([f"l{idx}_{kind}"] + inner + [leaf])
+
+
+def _dsc_flax_path(key: str, cfg: DSCConfig) -> str:
+    """A port DSC state_dict key → its JAX leaf path."""
+    top, rest = key.split(".", 1)
+    flax_top, specs = _dsc_stacks(cfg)[top]
+    return f"{flax_top}/{stack_flax_path(specs, rest)}"
+
+
+def _dsc_template(cfg: DSCConfig) -> Dict[str, torch.Tensor]:
+    with torch.device("meta"):
+        return DSCStereoModel(cfg).state_dict()
+
+
+def dsc_params_from_jax(tree: Dict[str, Any], cfg: DSCConfig) -> Dict[str, torch.Tensor]:
+    """JAX ``DSCStereoModel`` params of ``cfg`` (nested dicts of arrays, bare
+    or under "params") → the port's ``DSCStereoModel`` state_dict. Every leaf
+    is checked: shape, float32, none missing, none extra."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    flat = _flatten(tree)
+    template = _dsc_template(cfg)
+    paths = {key: _dsc_flax_path(key, cfg) for key in template}
+    missing = sorted(set(paths.values()) - set(flat))
+    extra = sorted(set(flat) - set(paths.values()))
+    if missing or extra:
+        raise KeyError(f"DSC {cfg.name} params: missing {missing}, unexpected {extra}")
+    sd = {}
+    for key, path in paths.items():
+        v = np.asarray(flat[path])
+        if v.dtype != np.float32:
+            raise TypeError(f"{path}: dtype {v.dtype}, expected float32")
+        if v.ndim == 4:
+            v = hwio_to_oihw(v)
+        if v.shape != tuple(template[key].shape):
+            raise ValueError(f"{path}: shape {v.shape}, expected {tuple(template[key].shape)}")
+        sd[key] = torch.from_numpy(np.array(v, order="C"))
+    return sd
+
+
+def _tree_from(state_dict: Dict[str, torch.Tensor], path_of) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        v = t.detach().to("cpu", torch.float32).numpy()
+        *parents, leaf = path_of(key).split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(oihw_to_hwio(v) if v.ndim == 4 else v)
+    return tree
+
+
+def dsc_params_to_jax(state_dict: Dict[str, torch.Tensor], cfg: DSCConfig) -> Dict[str, Any]:
+    """A port ``DSCStereoModel`` state_dict → the JAX params tree (nested
+    dicts of float32 numpy arrays, HWIO conv weights), the inverse of
+    ``dsc_params_from_jax``."""
+    return _tree_from(state_dict, lambda key: _dsc_flax_path(key, cfg))
+
+
+def load_dsc(path: str, preset: str, device: Optional[str] = None) -> DSCStereoModel:
+    """A ``DSCStereoModel`` of the ``DSC_PRESETS`` entry ``preset`` in eval
+    mode on ``device`` (default ``cuda``), with the weights of a JAX params
+    file or TrainState checkpoint."""
+    dev = resolve_device(device)
+    cfg = DSC_PRESETS[preset]
+    tree = read_checkpoint(path)
+    if "params" in tree and "g_a" not in tree:
+        tree = tree["params"]
+    model = DSCStereoModel(cfg)
+    model.load_state_dict(dsc_params_from_jax(tree, cfg), strict=True)
     return model.to(dev).eval()

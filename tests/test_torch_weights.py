@@ -164,7 +164,9 @@ from iclr_17_compression_tpu_torch.ops.kernels import (
 from iclr_17_compression_tpu_torch.train import weights
 from iclr_17_compression_tpu_torch.train import checkpoint, cli, config, observability, state
 from iclr_17_compression_tpu_torch.data import datasets
-from iclr_17_compression_tpu_torch.eval import kodak
+from iclr_17_compression_tpu_torch.eval import kodak, reg_stage, stereo
+from iclr_17_compression_tpu_torch.models import dsc
+from iclr_17_compression_tpu_torch.nn import blocks
 from iclr_17_compression_tpu_torch.utils import resolve_device
 import chip_smoke
 if torch.cuda.is_available():
