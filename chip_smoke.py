@@ -65,9 +65,35 @@ Phases, one JSON line each:
           profile (device busy, idle share, host coder stages), K2 at each
           DSC shape (splits, times, cuDNN + plain GDN, cuDNN + K1), K1 at
           C = 64, K3 at step 16
-Then the card's name and power limit, one line with every kernel's numbers,
-and last the line {"ok": true, "device": {...}}. Any failed check exits
-non-zero. Imports nothing of JAX.
+  dsc_train  DSC training at full width: temp_0031bpp (n = 128) through the
+          training CLI on examples/dsc_0031bpp.json (batch 2, MS-SSIM), on
+          12 synthetic stereo pairs of KITTI's 375×1242 written as a KITTI
+          layout of PNGs under build/ (crops 315×1215 floored to 288×1184)
+          and a 2-frame test root: 60 steps, then --resume for 12 more, with
+          the launch counters reset just before and read just after; checks:
+          K2 17 launches a step and a validation frame, K3 0 a step and 1 a
+          validation frame, K1 none (DSC's GDNs run fused in K2); every
+          loss finite and the last 10 steps' mean below the first 10's; the gradient of every parameter through K2's
+          Function against the plain path on the card within 4× a floor
+          measured in the same run (the plain path against itself with K2's
+          outputs moved by K2's own error; DSC_GRAD_TOL), and a control at
+          TF32's error (1e-3 relative) beyond that gate; K2 at the training
+          sites (five shapes) and K3 at the validation code against plain;
+          the resume's parameters, Adam moments, LR and plateau state read
+          back bit-equal and its first batch the uninterrupted loop's;
+          best_train.ckpt through load_dsc and the codec CLI with exact
+          symbols; reg_stage for 4 steps over the trained model written as
+          JAX-layout params (K2 28, K3 1 and K1 0 a step, the frozen base
+          bit-unchanged, finite losses); a model moved to the card by hand
+          with TF32 on trains in fp32. Numbers: median step ms and pairs/s,
+          peak memory, a 10-step profile (device busy, idle share, K2
+          forward, K2's backward recompute, cuDNN's convolutions, top
+          kernels), validation ms a frame, K2 at each training shape with
+          cuDNN + plain GDN and cuDNN + K1 and its bound, K3 against its
+          launch floor
+Then the script's seconds, the card's name and power limit, one line with
+every kernel's numbers, and last the line {"ok": true, "device": {...}}.
+Any failed check exits non-zero. Imports nothing of JAX.
 """
 
 import dataclasses
@@ -76,9 +102,12 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import types
+import zlib
 
 import numpy as np
 
@@ -136,6 +165,34 @@ PROFILE_START, PROFILE_STEPS = 40, 10
 # loss's λ = 8192 and the decoder carry into every gradient. 1e-3 leaves a
 # factor of 10 over that; a TF32 path misses it by the decoder's 1e-3.
 GRAD_TOL = 1e-3
+
+# DSC training phase: the flagship (temp_0031bpp, n = 128) trained by the
+# CLI on examples/dsc_0031bpp.json at batch 2 on synthetic KITTI-layout
+# stereo PNGs of KITTI's 375×1242 (crops 315×1215 floored to 288×1184):
+# DSC_TRAIN_FRAMES frames × (_10, _11) = 12 pairs, 6 steps an epoch, 10
+# epochs (60 steps), then --resume for 2 more; a 2-frame test root for the
+# validation pass; REG_STEPS steps of the reg_stage trainer.
+KITTI_H, KITTI_W = 375, 1242
+DSC_TRAIN_FRAMES, DSC_TRAIN_EPOCHS, DSC_RESUME_EPOCHS, REG_STEPS = 6, 10, 2, 4
+# Gradients through K2's Function vs the plain path on the card, per
+# parameter tensor, as a fraction of its largest |gradient|. The backward
+# is the same plain recompute on both sides; the forwards differ by K2's
+# 3xTF32 error (1.3e-5 relative at most at these shapes). Through MS-SSIM's
+# ratios and the leaky ReLUs that error does not stay small: a conv output
+# within it of 0 falls on the other side of its kink in one path, and the
+# gradient of every weight upstream of it moves by up to 0.99 of that
+# element's share; in the small tensors of g_s22 (666 pixels a channel)
+# that is 5e-3 of the largest. So the gate is measured in the same run:
+# the plain path against itself with each K2 output moved by
+# DSC_K2_PERTURB·N(0, 1) relative (K2's error), and the kernel path may
+# stand at most DSC_FLOOR_FACTOR times that floor from plain (never held
+# tighter than DSC_GRAD_TOL). A control shows that the gate separates: the
+# same plain path with each K2 output moved by DSC_CONTROL_PERTURB relative
+# (TF32's error, 100× K2's) must stand beyond the gate, or the phase fails.
+DSC_GRAD_TOL = 1e-3
+DSC_K2_PERTURB = 1e-5
+DSC_FLOOR_FACTOR = 4.0
+DSC_CONTROL_PERTURB = 1e-3
 
 
 def emit(obj) -> None:
@@ -243,7 +300,463 @@ def k1_work(x):
     return 2.0 * p * c * c, 4.0 * p * c, 4.0 * (2 * x.numel() + c * c + c)
 
 
+def write_png(path: str, img: np.ndarray) -> None:
+    """An HWC image in [0, 1] as an 8-bit RGB PNG, with ``zlib`` alone (every
+    row unfiltered)."""
+    u8 = np.clip(np.rint(np.asarray(img, np.float64) * 255.0), 0, 255).astype(np.uint8)
+    h, w = u8.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), u8.reshape(h, w * 3)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_kitti(root: str, frames: int, rng: np.random.Generator, h: int = KITTI_H,
+                w: int = KITTI_W) -> None:
+    """A KITTI-layout root: ``image_2`` / ``image_3`` stereo pairs
+    ``0000NN_10.png`` and ``_11.png`` of ``frames`` frames, h×w."""
+    for side in ("image_2", "image_3"):
+        os.makedirs(os.path.join(root, side), exist_ok=True)
+    for i in range(frames):
+        for t in (10, 11):
+            a = smooth_image(rng, -(-h // 64) * 64, -(-w // 64) * 64)[:h, :w]
+            write_png(os.path.join(root, "image_2", f"{i:06d}_{t}.png"), a)
+            write_png(os.path.join(root, "image_3", f"{i:06d}_{t}.png"), shift_pair(a, rng))
+
+
+def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
+                    train_frames: int = DSC_TRAIN_FRAMES, epochs: int = DSC_TRAIN_EPOCHS,
+                    reg_steps: int = REG_STEPS) -> dict:
+    """DSC training on the card (see the module docstring). ``tools`` holds
+    the harness of ``main``: check, emit, time_ms, call_ms, measure_k2,
+    new_row, bound_ms, floor_ms. Returns the K2 and K3 rows and launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from iclr_17_compression_tpu_torch.coding import codec_cli
+    from iclr_17_compression_tpu_torch.data.datasets import StereoKittiDataset, batch_iterator
+    from iclr_17_compression_tpu_torch.models.dsc import (DSC_PRESETS, DSCStereoModel,
+                                                          quantize_code)
+    from iclr_17_compression_tpu_torch.ops.kernels import conv_gdn_kernel as k2
+    from iclr_17_compression_tpu_torch.ops.kernels import gdn_kernel as k1
+    from iclr_17_compression_tpu_torch.ops.kernels import quant_pack_kernel as k3
+    from iclr_17_compression_tpu_torch.train import cli as train_cli
+    from iclr_17_compression_tpu_torch.train import trainers
+    from iclr_17_compression_tpu_torch.train.checkpoint import load_train_state
+    from iclr_17_compression_tpu_torch.train.config import TrainConfig
+    from iclr_17_compression_tpu_torch.train.schedules import ReduceLROnPlateau
+    from iclr_17_compression_tpu_torch.train.state import (build_model, create_train_state,
+                                                           make_dsc_train_step, step_generator)
+    from iclr_17_compression_tpu_torch.train.weights import (dsc_params_to_jax, load_dsc,
+                                                             msgpack_dumps)
+
+    check, emit = tools.check, tools.emit
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_dsc_train")
+    shutil.rmtree(work, ignore_errors=True)
+    train_dir, test_dir = os.path.join(work, "kitti_train"), os.path.join(work, "kitti_test")
+    rng = np.random.default_rng(3)
+    write_kitti(train_dir, train_frames, rng, h, w)
+    write_kitti(test_dir, 2, rng, h, w)
+    cfg = dataclasses.replace(
+        TrainConfig.from_json(os.path.join(ROOT, "examples", "dsc_0031bpp.json")),
+        tot_epoch=epochs, print_freq=2 * train_frames, tensorboard=False,
+        train_dir=train_dir, test_dir=test_dir, save_root=work)
+    check((cfg.model, cfg.batch_size, cfg.lr_base) == ("dsc:temp_0031bpp", 2, 1e-4),
+          "examples/dsc_0031bpp.json is not the temp_0031bpp, batch 2, lr 1e-4 config")
+    preset = DSC_PRESETS["temp_0031bpp"]
+    per_epoch = 2 * train_frames // cfg.batch_size
+    cfg_path, resume_path = (os.path.join(work, f) for f in ("dsc.json", "resume.json"))
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    with open(resume_path, "w") as f:
+        f.write(dataclasses.replace(cfg, tot_epoch=epochs + DSC_RESUME_EPOCHS).to_json())
+
+    # the loop's own step, timed (host clock around work that ends in a
+    # synchronize) and its K2/K3/K1 launches counted; the rest of each run's
+    # launches are the validation pass's
+    steps, first = [], {}
+    real_make_step = train_cli.make_dsc_train_step
+
+    def counts():
+        return (k2.conv_gdn.launches, k3.quantize_pack.launches, k1.gdn_fused.launches)
+
+    def timed_make_step(*args, **kw):
+        step_fn = real_make_step(*args, **kw)
+
+        def timed_step(state, im1, im2, generator):
+            first.setdefault("step", state.step)
+            first.setdefault("lr", state.schedule(state.step))
+            first.setdefault("batch", (im1.detach().clone(), im2.detach().clone()))
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step_fn(state, im1, im2, generator)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            steps.append((state.step, t0, t1, float(metrics["loss"]),
+                          *(a - b for a, b in zip(counts(), before))))
+            return metrics
+
+        return timed_step
+
+    def reset_launches():
+        k2.conv_gdn.launches = k3.quantize_pack.launches = k1.gdn_fused.launches = 0
+
+    def read_launches():
+        return dict(zip(("conv_gdn", "quantize_pack", "gdn"), counts()))
+
+    train_cli.make_dsc_train_step = timed_make_step
+    try:
+        # run A: epochs 0..epochs-1, the counters around it only
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        state_a = train_cli.main(["--config", cfg_path, "-n", "dsc1"])
+        run_a_s = time.perf_counter() - t0
+        launches_a = read_launches()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        steps_a = list(steps)
+        first.clear()
+
+        # what run A saved, read back into a fresh state, equals what it held
+        run_dir = os.path.join(work, "dsc1")
+        fresh = create_train_state(DSCStereoModel(preset).to(dev), lr=cfg.lr_base)
+        fresh, meta = load_train_state(fresh, os.path.join(run_dir, "latest.ckpt"))
+        saved_opt = state_a.optimizer.state_dict()["state"]
+        read_opt = fresh.optimizer.state_dict()["state"]
+        check(fresh.step == epochs * per_epoch == meta["step"] and meta["next_epoch"] == epochs,
+              f"saved step {fresh.step}, {meta}")
+        check(all(torch.equal(a, b) for a, b in zip(state_a.model.state_dict().values(),
+                                                    fresh.model.state_dict().values())),
+              "resume: parameters read back differ from the saved ones")
+        check(len(saved_opt) == len(read_opt) and all(
+            torch.equal(saved_opt[i][k], read_opt[i][k])
+            for i in saved_opt for k in ("exp_avg", "exp_avg_sq", "step")),
+            "resume: Adam moments read back differ from the saved ones")
+        # the plateau state the sidecar holds is the one run A's epoch losses give
+        plateau = ReduceLROnPlateau(base_lr=cfg.lr_base, patience=cfg.plateau_patience)
+        for e in range(epochs):
+            plateau.step(float(np.mean([s[3] for s in steps_a[e * per_epoch:(e + 1) * per_epoch]])))
+        check((meta["lr"], meta["plateau_best"], meta["plateau_bad"])
+              == (plateau.lr, plateau.best, plateau.bad_epochs) == (
+                  state_a.schedule(state_a.step), plateau.best, plateau.bad_epochs),
+              f"sidecar {meta}: the plateau gives {plateau.lr}, {plateau.best}, "
+              f"{plateau.bad_epochs}")
+
+        # run B: --resume for DSC_RESUME_EPOCHS more epochs
+        reset_launches()
+        state_b = train_cli.main(["--config", resume_path, "-n", "dsc1", "--resume", run_dir])
+        launches_b = read_launches()
+        steps_b = steps[len(steps_a):]
+    finally:
+        train_cli.make_dsc_train_step = real_make_step
+
+    n_a, n_b = len(steps_a), len(steps_b)
+    check(n_a == epochs * per_epoch and n_b == DSC_RESUME_EPOCHS * per_epoch,
+          f"steps run {n_a}, {n_b}")
+    check(first["step"] == epochs * per_epoch and state_b.step == n_a + n_b,
+          f"resume ran steps {first['step']}..{state_b.step}")
+    check(first["lr"] == meta["lr"], f"resume: LR {first['lr']}, saved {meta['lr']}")
+    expected = next(batch_iterator(StereoKittiDataset([train_dir], train=True, seed=cfg.seed),
+                                   cfg.batch_size, seed=cfg.seed, epoch=epochs))
+    check(all(torch.equal(t.cpu(), torch.from_numpy(e)) for t, e in zip(first["batch"], expected)),
+          "resume: the first batch is not the one the uninterrupted loop draws")
+    step_k2 = {s[4] for s in steps_a + steps_b}
+    step_k3 = {s[5] for s in steps_a + steps_b}
+    step_k1 = {s[6] for s in steps_a + steps_b}
+    val_frames = 2 * (epochs + DSC_RESUME_EPOCHS)  # the two *_10 test frames an epoch
+    val_k2 = launches_a["conv_gdn"] + launches_b["conv_gdn"] - 17 * (n_a + n_b)
+    val_k3 = launches_a["quantize_pack"] + launches_b["quantize_pack"]
+    check(step_k2 == {17} and step_k3 == {0} and step_k1 == {0},
+          f"K2/K3/K1 launches a step {step_k2}/{step_k3}/{step_k1}, expected 17/0/0")
+    # DSC's GDNs all run fused in K2: no standalone K1, in the steps or in
+    # the validation frames
+    check(launches_a["gdn"] == launches_b["gdn"] == 0,
+          f"standalone K1 launches in DSC training {launches_a['gdn']}, {launches_b['gdn']}")
+    check(val_k2 == 17 * val_frames and val_k3 == val_frames,
+          f"validation launches K2 {val_k2}, K3 {val_k3} over {val_frames} frames, "
+          "expected 17 and 1 a frame")
+    losses = [s[3] for s in steps_a + steps_b]
+    check(all(np.isfinite(losses)), "a DSC training loss is not finite")
+    first10, last10 = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(last10 < first10, f"DSC loss did not fall: first 10 {first10:.4f}, last 10 {last10:.4f}")
+    step_ms = [1e3 * (t1 - t0) for _, t0, t1, *_ in steps_a[2:]]  # after 2 warm-up steps
+    iter_ms = [1e3 * (b[1] - a[1]) for a, b in zip(steps_a[2:], steps_a[3:])]
+    med_step, med_iter = statistics.median(step_ms), statistics.median(iter_ms)
+    best_meta = json.load(open(os.path.join(run_dir, "best_train.ckpt.json")))
+    val_meta = json.load(open(os.path.join(run_dir, "best_val.ckpt.json")))
+
+    # validation: the eval forward of one 352×1216 test frame (K2 17, K3 1)
+    val_set = StereoKittiDataset([test_dir], train=False, seed=cfg.seed)
+    model = state_b.model
+    v1, v2 = (torch.from_numpy(x[None]).to(dev) for x in val_set[0])
+    val_ms = []
+    with torch.no_grad():
+        for i in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(model(v1, v2)["loss_full"])
+            if i >= 3:
+                val_ms.append(1e3 * (time.perf_counter() - t0))
+
+    # a profile of 10 steps of the train step on run B's first batch
+    im1, im2 = (torch.from_numpy(b).to(dev) for b in expected)
+    prof_state = create_train_state(
+        build_model(cfg.model, device=dev, seed=cfg.seed), lr=cfg.lr_base)
+    step_fn = make_dsc_train_step()
+    for i in range(2):
+        step_fn(prof_state, im1, im2, step_generator(cfg.seed, i, dev))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(PROFILE_STEPS):
+            step_fn(prof_state, im1, im2, step_generator(cfg.seed, i, dev))
+        torch.cuda.synchronize()
+        window_ms = 1e3 * (time.perf_counter() - t0)
+    by_kernel, ranges, top_backward = {}, {}, 0.0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if getattr(evt, "is_user_annotation", False):
+                continue  # a range's span on the device timeline, not a kernel
+            name = evt.name.split("(")[0][:60]
+            by_kernel[name] = by_kernel.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3
+            continue
+        if evt.name.startswith(("train_step/", "iclr17c::conv_gdn_backward")):
+            ranges[evt.name] = ranges.get(evt.name, 0.0) + evt.device_time_total / 1e3
+        if evt.name.startswith("autograd::engine::evaluate_function"):
+            # the backward runs on autograd's thread, outside the step's range
+            parent = evt.cpu_parent
+            while parent is not None and not parent.name.startswith("autograd::engine"):
+                parent = parent.cpu_parent
+            if parent is None:
+                top_backward += evt.device_time_total / 1e3
+    busy = sum(by_kernel.values())
+    k2_forward = sum(v for k, v in by_kernel.items() if "conv_gdn" in k)
+    convs = sum(v for k, v in by_kernel.items() if "conv_gdn" not in k and any(
+        t in k.lower() for t in ("conv", "xmma", "gemm", "cudnn", "winograd", "fft",
+                                 "grad_engine", "wgrad")))
+
+    # gradients on the card: K2's Function against the plain path (the
+    # wrapper swapped for conv_gdn_plain), the same weights, batch and noise;
+    # the floor: the plain path against itself with every K2 output moved by
+    # K2's own relative error (DSC_K2_PERTURB, seeded); and the control: the
+    # same at TF32's relative error (DSC_CONTROL_PERTURB), which must miss
+    # the gate
+    def grads(m, path: str, rel: float = 0.0):
+        real = k2.conv_gdn
+        gen_p = torch.Generator(device=dev).manual_seed(11)
+
+        def perturbed(*args):
+            y = k2.conv_gdn_plain(*args)
+            return y * (1.0 + rel * torch.randn(y.shape, generator=gen_p, device=y.device))
+
+        k2.conv_gdn = {"kernel": real, "plain": k2.conv_gdn_plain, "perturbed": perturbed}[path]
+        try:
+            m.zero_grad(set_to_none=True)
+            out = m(im1, im2, train=True, generator=step_generator(cfg.seed, 7, dev))
+            loss = out["loss_full"] + out["loss"]
+            loss.backward()
+        finally:
+            k2.conv_gdn = real
+        return float(loss.detach()), {k: p.grad.clone() for k, p in m.named_parameters()}
+
+    def gaps(ga, gb):
+        return {k: float((ga[k] - gb[k]).abs().max() / gb[k].abs().max().clamp(min=1e-30))
+                for k in gb}
+
+    def parity_of(m, control: bool = False):
+        """(the largest gap kernel vs plain, the floor's, the gate, the five
+        worst tensors, the control's largest gap or None) of model ``m``."""
+        before = k2.conv_gdn.launches
+        _, g_kernel = grads(m, "kernel")
+        check(k2.conv_gdn.launches - before == 17, "gradient parity: the kernel path ran no K2")
+        _, g_plain = grads(m, "plain")
+        _, g_moved = grads(m, "perturbed", DSC_K2_PERTURB)
+        kp, floor = gaps(g_kernel, g_plain), max(gaps(g_moved, g_plain).values())
+        worst = sorted(((v, k) for k, v in kp.items()), reverse=True)[:5]
+        missed = (max(gaps(grads(m, "perturbed", DSC_CONTROL_PERTURB)[1], g_plain).values())
+                  if control else None)
+        return (max(kp.values()), floor, max(DSC_GRAD_TOL, DSC_FLOOR_FACTOR * floor), worst,
+                missed)
+
+    parity = build_model(cfg.model, device=dev, seed=cfg.seed)
+    parity.load_state_dict(model.state_dict())  # the trained weights
+    gap, floor, gate, worst, control_gap = parity_of(parity, control=True)
+    del parity
+
+    # TF32 on (PyTorch's defaults), a model moved to the card by hand: its
+    # forward turns TF32 off, so it trains in fp32 and matches the plain path
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    tf32_model = DSCStereoModel(preset).cuda()
+    tf32_model.load_state_dict(model.state_dict())
+    flags_before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    tf32_gap, tf32_floor, tf32_gate, _, _ = parity_of(tf32_model)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    del tf32_model
+
+    # K2 at the training shapes: the blocks' own inputs in one train forward
+    sites = [(f"{stack} l{i}", getattr(model, stack)[i])
+             for stack, specs in (("g_a", preset.ga), ("g_a22", preset.ga22),
+                                  ("g_s22", preset.gs22), ("g_s", preset.gs))
+             for i, spec in enumerate(specs) if spec[0] in ("rbs", "rbu")]
+    inputs = {}
+    hooks = [block.register_forward_pre_hook(
+        lambda mod, args, where=where: inputs.setdefault(where, args[0].detach()))
+        for where, block in sites]
+    with torch.no_grad():
+        model(im1, im2, train=True, generator=step_generator(cfg.seed, 9, dev))
+    for hk in hooks:
+        hk.remove()
+    k2_rows = tools.new_row(library=True)
+    from iclr_17_compression_tpu_torch.ops.gdn import gdn_reparam
+
+    with torch.no_grad():
+        for where, block in sites:
+            xin = inputs[where]
+            if hasattr(block, "gdn"):
+                y, conv, gdn = block.act(block.conv1(xin)), block.conv2, block.gdn
+            else:
+                y, conv, gdn = block.act(block.subpel_conv(xin)), block.conv, block.igdn
+            beta, gamma = gdn_reparam(gdn.params())
+            args = (y.contiguous(), conv.weight.permute(2, 3, 1, 0).contiguous(), conv.bias,
+                    gamma.t().contiguous(), beta.contiguous(), 1, 1, gdn.inverse)
+            tools.measure_k2(args, k2_rows, f"K2 DSC training {where}", cudnn_k1=True)
+            k2_rows["shapes"][-1]["where"] = where
+
+        # K3 on the validation frame's code (1×11×38×8, step 16, clip 128)
+        code_pre = model.encode(v1).contiguous()
+        syms, code = quantize_code(code_pre, preset)
+        rsyms, rcode = k3.quantize_pack_plain(code_pre, preset.coarse_step, preset.code_clip)
+        check(torch.equal(syms, rsyms) and torch.equal(code, rcode),
+              "K3 on the validation code: not bit-exact")
+        n3 = code_pre.numel()
+        k3_b_ms, k3_b_by = tools.bound_ms(5.0 * n3, 9.0 * n3)
+        k3_val = {"x": list(code_pre.shape), "step": preset.coarse_step, "bits": 8,
+                  "ms": tools.time_ms(lambda: quantize_code(code_pre, preset)),
+                  "call_ms": tools.call_ms(lambda: quantize_code(code_pre, preset)),
+                  "plain_ms": tools.time_ms(lambda: k3.quantize_pack_plain(
+                      code_pre, preset.coarse_step, preset.code_clip)),
+                  "bound_ms": k3_b_ms, "bound_by": k3_b_by, "launch_floor_ms": tools.floor_ms,
+                  "library_ms": None, "max_abs_err": 0.0}
+
+    # train → codec: best_train.ckpt through load_dsc and the codec CLI
+    best = os.path.join(run_dir, "best_train.ckpt")
+    trained = load_dsc(best, "temp_0031bpp", device="cuda")
+    left = os.path.join(test_dir, "image_2", "000000_10.png")
+    right = os.path.join(test_dir, "image_3", "000000_10.png")
+    icz, rec_path = os.path.join(work, "pair.icz"), os.path.join(work, "pair.ppm")
+    codec_cli.main(["encode", left, icz, "--model", "temp_0031bpp", "--ckpt", best])
+    codec_cli.main(["decode", icz, rec_path, "--ckpt", best, "--si", right])
+    data = open(icz, "rb").read()
+    decoded, name, h0, w0 = codec_cli.read_dsc_code(data)
+    from iclr_17_compression_tpu_torch.data.datasets import _load
+
+    img = _load(left)
+    x = torch.from_numpy(codec_cli.pad_to_multiple(img, preset.code_div)[None]).to(dev)
+    sent, _ = codec_cli.dsc_symbols(x, trained)
+    check(name == "temp_0031bpp" and (h0, w0) == img.shape[:2]
+          and np.array_equal(decoded[0] / preset.coarse_step, sent),
+          "best_train.ckpt through the codec CLI: decoded symbols differ from the encoder's")
+    rec = _load(rec_path)
+    check(rec.shape == img.shape and np.isfinite(rec).all(), "best_train.ckpt: bad recon")
+
+    # reg_stage: a few steps over a frozen base written as JAX-layout params
+    base_path = os.path.join(work, "base_params.msgpack")
+    with open(base_path, "wb") as f:
+        f.write(msgpack_dumps(dsc_params_to_jax(trained.state_dict(), preset)))
+    reg_steps_seen, frozen = [], {}
+    real_reg_step = trainers.make_reg_stage_step
+
+    def counted_reg_step(base):
+        frozen["base"] = base
+        step_fn = real_reg_step(base)
+
+        def step(state, batch, generator):
+            before = counts()
+            metrics = step_fn(state, batch, generator)
+            reg_steps_seen.append((float(metrics["loss"]),
+                                   *(a - b for a, b in zip(counts(), before))))
+            return metrics
+
+        return step
+
+    trainers.make_reg_stage_step = counted_reg_step
+    try:
+        reg_cfg = dataclasses.replace(cfg, model="reg_stage", tot_epoch=1, tot_step=reg_steps)
+        trainers.train_reg_stage(reg_cfg, "reg1", pretrain=base_path)
+    finally:
+        trainers.make_reg_stage_step = real_reg_step
+    check(len(reg_steps_seen) == reg_steps, f"reg_stage ran {len(reg_steps_seen)} steps")
+    check({s[1:] for s in reg_steps_seen} == {(28, 1, 0)},
+          f"reg_stage launches a step {[s[1:] for s in reg_steps_seen]}, "
+          "expected K2 17 + 11, K3 1 and K1 0")
+    check(all(np.isfinite(s[0]) for s in reg_steps_seen), "a reg_stage loss is not finite")
+    saved_base = load_dsc(base_path, "temp_0031bpp", device="cuda").state_dict()
+    check(all(torch.equal(v, saved_base[k]) for k, v in frozen["base"].state_dict().items()),
+          "reg_stage: the frozen base's parameters moved")
+    check(all(not p.requires_grad for p in frozen["base"].parameters()),
+          "reg_stage: the frozen base requires gradients")
+
+    result = {"phase": "dsc_train", "ok": True, "preset": "temp_0031bpp", "n": preset.n,
+              "batch": cfg.batch_size, "crop": [288, 1184], "frames": [h, w],
+              "train_pairs": 2 * train_frames, "epochs": [epochs, epochs + DSC_RESUME_EPOCHS],
+              "steps": [n_a, n_a + n_b],
+              "launches": {k: launches_a[k] + launches_b[k] for k in launches_a},
+              "launches_per_step": {"conv_gdn": 17, "quantize_pack": 0, "gdn": 0},
+              "validation_launches_per_frame": {"conv_gdn": val_k2 / val_frames,
+                                                "quantize_pack": val_k3 / val_frames},
+              "reg_stage_launches_per_step": {"conv_gdn": 28, "quantize_pack": 1, "gdn": 0},
+              "loss_first10": first10, "loss_last10": last10, "loss_every6": losses[::6],
+              "median_step_ms": med_step, "pairs_per_s": cfg.batch_size * 1e3 / med_step,
+              "median_iteration_ms": med_iter, "run_a_s": run_a_s,
+              "peak_memory_gib": peak_bytes / 2 ** 30,
+              "validation_ms_per_frame": statistics.median(val_ms),
+              "best_train": best_meta, "best_val": val_meta,
+              "profile": {"steps": PROFILE_STEPS, "window_ms": window_ms,
+                          "device_idle_share": 1.0 - busy / window_ms,
+                          "per_step_ms": {
+                              "wall": window_ms / PROFILE_STEPS,
+                              "device_busy": busy / PROFILE_STEPS,
+                              "k2_forward_kernels": k2_forward / PROFILE_STEPS,
+                              "k2_backward_recompute": ranges.get(
+                                  "iclr17c::conv_gdn_backward", 0.0) / PROFILE_STEPS,
+                              "cudnn_convolutions": convs / PROFILE_STEPS,
+                              "forward": ranges.get("train_step/forward", 0.0) / PROFILE_STEPS,
+                              "backward": top_backward / PROFILE_STEPS,
+                              "optimizer": ranges.get("train_step/optimizer", 0.0)
+                              / PROFILE_STEPS},
+                          "window_ms_by_kernel": dict(sorted(by_kernel.items(),
+                                                             key=lambda kv: -kv[1])[:15])},
+              "grad_parity": {"tol": DSC_GRAD_TOL, "floor_factor": DSC_FLOOR_FACTOR,
+                              "perturb": DSC_K2_PERTURB, "max_gap": gap, "floor": floor,
+                              "gate": gate, "worst": worst,
+                              "control_perturb": DSC_CONTROL_PERTURB,
+                              "control_gap": control_gap},
+              "tf32_check": {"flags_before": flags_before, "flags_after_forward": flags,
+                             "grad_gap": tf32_gap, "floor": tf32_floor, "gate": tf32_gate},
+              "reg_stage": {"steps": len(reg_steps_seen),
+                            "losses": [s[0] for s in reg_steps_seen]},
+              "k2_training": k2_rows, "k3_validation": k3_val,
+              "seconds": time.perf_counter() - t_phase}
+    emit(result)
+    # the gradient checks come after the numbers, so that a miss shows them
+    check(gap <= gate, f"DSC gradients through K2 vs plain: {gap:.2e} > {gate:.2e}")
+    check(control_gap > gate, f"the gradient gate does not catch a TF32-size error: control "
+          f"{control_gap:.2e} <= gate {gate:.2e}")
+    check(flags_before == (True, True) and flags == (False, False) and tf32_gap <= tf32_gate,
+          f"DSC model moved by hand with TF32 on: flags {flags}, grads {tf32_gap:.2e} > "
+          f"{tf32_gate:.2e}")
+    print(f"dsc_train phase seconds: {result['seconds']:.1f}", flush=True)
+    return result
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1215,6 +1728,12 @@ def main() -> int:
           "k2_dsc": k2_dsc, "k1_c64": k1_c64, "k3_step16": k3_dsc, "seconds": dsc_s})
     print(f"dsc phase seconds: {dsc_s:.1f}", flush=True)
 
+    tools = types.SimpleNamespace(check=check, emit=emit, time_ms=time_ms, call_ms=call_ms,
+                                  measure_k2=measure_k2, new_row=new_row, bound_ms=bound_ms,
+                                  floor_ms=floor_ms)
+    dsc_train = dsc_train_phase(torch, dev, tools)
+    dsc_train_launches = dsc_train["launches"]
+
     kernels = []
     meta = {
         "gdn": ("iclr_17_compression_tpu_torch/ops/kernels/csrc/gdn.cu",
@@ -1228,9 +1747,11 @@ def main() -> int:
         row = rows[name]
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
-                 "launches": launches[name] + train_launches[name] + dsc_launches[name],
+                 "launches": (launches[name] + train_launches[name] + dsc_launches[name]
+                              + dsc_train_launches[name]),
                  "launches_by_path": {"codec": launches[name], "train": train_launches[name],
-                                      "dsc": dsc_launches[name]},
+                                      "dsc": dsc_launches[name],
+                                      "dsc_train": dsc_train_launches[name]},
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -1245,7 +1766,13 @@ def main() -> int:
                 {k: st.get(k) for k in ("x", "ms", "plain_ms", "library_ms", "bound_ms")}
                 for st in train_row["shapes"]]
         if name == "conv_gdn":
-            entry["max_abs_err"] = max(entry["max_abs_err"], k2_dsc["max_abs_err"])
+            k2_tr = dsc_train["k2_training"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], k2_dsc["max_abs_err"],
+                                       k2_tr["max_abs_err"])
+            entry["dsc_training_shapes"] = [
+                {k: st.get(k) for k in ("where", "x", "splits", "ms", "call_ms", "plain_ms",
+                                        "library_ms", "cudnn_k1_ms", "bound_ms", "bound_by")}
+                for st in k2_tr["shapes"]]
             entry["dsc_shapes"] = [
                 {k: st.get(k) for k in ("where", "x", "splits", "ms", "call_ms", "plain_ms",
                                         "library_ms", "cudnn_k1_ms", "bound_ms", "bound_by")}
@@ -1255,8 +1782,10 @@ def main() -> int:
             entry["c64_shapes"] = [{k: st.get(k) for k in ("x", "ms", "plain_ms", "bound_ms")}
                                    for st in k1_c64["shapes"]]
         else:
-            entry.update(launch_floor_ms=row["launch_floor_ms"], dsc_step16=k3_dsc)
+            entry.update(launch_floor_ms=row["launch_floor_ms"], dsc_step16=k3_dsc,
+                         dsc_validation=dsc_train["k3_validation"])
         kernels.append(entry)
+    print(f"chip_smoke seconds: {time.perf_counter() - t_script:.1f}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

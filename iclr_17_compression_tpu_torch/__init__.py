@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of ``iclr_17_compression_tpu`` for NVIDIA H100.
 
 Slices so far: the Ballé-17 file codec (encode → rANS → decode) and Ballé-17
-training, at N=128, with hand-written CUDA kernels for conv+GDN (K2), (I)GDN
-(K1) and quantize-pack (K3); K1 and K2 are autograd Functions. Imports torch
+training at N=128, and the flagship DSC stereo codec (serving, its
+two-stage file, training and the residual stage's trainer) at n=128, with
+hand-written CUDA kernels for conv+GDN (K2), (I)GDN (K1) and quantize-pack
+(K3); K1 and K2 are autograd Functions. Imports torch
 and numpy only; nothing of JAX or of the JAX package. Entry points run on
 the GPU unless given ``device="cpu"``.
 """

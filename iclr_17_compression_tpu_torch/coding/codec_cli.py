@@ -31,8 +31,10 @@ preset's name in the header, then len u8 | the regression preset's name |
 len u32 | base payload | len u32 | regression payload. Decode adds the
 regression stage's unclipped output to the base reconstruction and clips.
 
-Usage (PIL is needed for PNG files only; ``--device cpu`` runs the plain
-path on the CPU):
+Usage (inputs are read as the training loaders read them: PPM and 8-bit
+PNG without Pillow, other formats with it; a ``.ppm`` output is written
+without Pillow; ``--device cpu`` runs the plain path on the CPU; ``--ckpt``
+of a DSC model may also be a train state the port's trainer wrote):
   python -m iclr_17_compression_tpu_torch.coding.codec_cli \
       encode in.png out.icz --ckpt results/ckpts/lam2048_iter_19000.ckpt
   python -m iclr_17_compression_tpu_torch.coding.codec_cli \
@@ -304,19 +306,16 @@ def decode_composite(data: bytes, base_model: DSCStereoModel, reg_model: DSCSter
 
 
 def main(argv=None):
-    from PIL import Image
-
+    from ..data.datasets import _load as load_image
     from ..train.weights import load_balle17, load_dsc
-
-    def load_image(path):
-        return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
 
     ap = argparse.ArgumentParser(prog="codec_cli", description=__doc__.split("\n\n")[0])
     ap.add_argument("cmd", choices=["encode", "decode"])
     ap.add_argument("src")
     ap.add_argument("dst")
     ap.add_argument("--ckpt", required=True,
-                    help="flax msgpack params of a Ballé-17 or DSC model")
+                    help="flax msgpack params of a Ballé-17 or DSC model, or a DSC train "
+                         "state the port's trainer wrote")
     ap.add_argument("--model", default="balle17",
                     help="encode: balle17 or a DSC preset name (decode reads it from the file)")
     ap.add_argument("--si", default="", help="side-information image (DSC decode)")
@@ -357,7 +356,13 @@ def main(argv=None):
     else:
         raise SystemExit(f"kind {kind} ({name!r}): the port decodes Ballé-17 and DSC files")
     u8 = np.clip(rec * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    Image.fromarray(u8).save(args.dst)
+    if args.dst.lower().endswith(".ppm"):
+        with open(args.dst, "wb") as f:
+            f.write(b"P6\n%d %d\n255\n" % (u8.shape[1], u8.shape[0]) + u8.tobytes())
+    else:
+        from PIL import Image
+
+        Image.fromarray(u8).save(args.dst)
 
 
 if __name__ == "__main__":

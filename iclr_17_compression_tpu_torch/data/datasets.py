@@ -1,27 +1,38 @@
 """Training and eval data: NHWC float32 in [0, 1], numpy only.
 
-Counterpart of the single-image parts of
-``iclr_17_compression_tpu/data/datasets.py`` and of its generic stereo
-loader: ``ImageFolderDataset`` (random-resized crop + flips, reference
-``Datasets``), ``KodakDataset`` (whole images floor-cropped to a multiple),
-``StereoPairDataset`` (left/right folders paired in sorted order; the eval
-floor-crop to ×32, the training joint crop and vflip), ``batch_iterator``
-(shuffle, batch, thread prefetch, ``skip`` for an exact mid-epoch resume)
-and their helpers. For the same seed, epoch and index they produce the same crops as
-the JAX package: both draw from Python's ``random`` seeded by
-(seed, epoch, index), and the bilinear resize here is Pillow's 8-bit
-two-pass resampler (``Resample.c``: horizontal then vertical, 22-bit fixed
-point coefficients, rounded and clamped to uint8 between the passes),
-written in numpy, so it gives Pillow's bytes without Pillow.
+Counterpart of the single-image and stereo loaders of
+``iclr_17_compression_tpu/data/datasets.py``: ``ImageFolderDataset``
+(random-resized crop + flips, reference ``Datasets``), ``KodakDataset``
+(whole images floor-cropped to a multiple), ``StereoPairDataset``
+(left/right folders paired in sorted order; the eval floor-crop to ×32, the
+training joint crop and vflip), ``StereoKittiDataset`` (KITTI 2012/2015
+``image_2``/``image_3`` pairs, test split ``*_10.png``, joint crop, vflip and
+one colour jitter for both eyes), ``StereoHoloPixDataset`` (``left`` →
+``right`` path pairs, floor to ×32, optional joint crop), ``batch_iterator``
+(shuffle, batch, thread prefetch, ``skip`` for an exact mid-epoch resume;
+tuple items give a tuple of batches) and their helpers. For the same seed,
+epoch and index they produce the same crops as the JAX package: both draw
+from Python's ``random`` seeded by (seed, epoch, index), and the bilinear
+resize here is Pillow's 8-bit two-pass resampler (``Resample.c``:
+horizontal then vertical, 22-bit fixed point coefficients, rounded and
+clamped to uint8 between the passes), written in numpy, so it gives
+Pillow's bytes without Pillow.
 
-``_load`` reads binary PPM (P6, maxval 255) with numpy and any other file
-with Pillow, imported only then.
+``_load`` reads binary PPM (P6, maxval 255) and 8-bit non-interlaced gray,
+gray+alpha, RGB and RGBA PNG (``zlib`` and the five row filters, as
+Pillow's ``convert("RGB")`` gives them) with numpy and the standard
+library, and any other file with Pillow, imported only then. Decoded files
+are kept, up to ``DECODE_CACHE_BYTES``, as the JAX package keeps them.
 """
 
 import math
 import os
 import random
-from typing import Iterator, List, Optional, Tuple
+import struct
+import threading
+import zlib
+from collections import OrderedDict
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -71,14 +82,92 @@ def write_ppm(path: str, img: np.ndarray) -> None:
         f.write(np.ascontiguousarray(u8).tobytes())
 
 
-def _load(path: str) -> np.ndarray:
-    with open(path, "rb") as f:
-        data = f.read()
-    arr = _read_ppm(data)
-    if arr is None:
-        from PIL import Image
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type → bytes a pixel at depth 8
 
-        arr = np.asarray(Image.open(path).convert("RGB"))
+
+def _read_png(data: bytes) -> Optional[np.ndarray]:
+    """An HWC uint8 RGB array from the bytes of an 8-bit non-interlaced
+    gray, gray+alpha, RGB or RGBA PNG (gray replicated, alpha dropped, as
+    Pillow's ``convert("RGB")``), or None for any other file."""
+    if data[:8] != _PNG_SIGNATURE:
+        return None
+    pos, header, chunks = 8, None, []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length  # length, type, body, CRC
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            chunks.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        return None
+    w, h, depth, colour, _, _, interlace = header
+    if depth != 8 or interlace or colour not in _PNG_CHANNELS:
+        return None
+    bpp = _PNG_CHANNELS[colour]
+    rows = np.frombuffer(zlib.decompress(b"".join(chunks)), np.uint8, count=h * (1 + w * bpp))
+    rows = rows.reshape(h, 1 + w * bpp)
+    img = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, bpp))
+    return np.repeat(img[..., :1], 3, axis=2) if bpp <= 2 else img[..., :3].copy()
+
+
+def _unfilter(types: np.ndarray, filtered: np.ndarray) -> np.ndarray:
+    """Undo PNG's row filters (0 none, 1 sub, 2 up, 3 average, 4 Paeth) of
+    an (h, w, bytes a pixel) image. A pixel depends on its left, upper and
+    upper-left neighbours only, so each anti-diagonal is undone at once."""
+    h, w, bpp = filtered.shape
+    if int(types.max(initial=0)) > 4:
+        raise ValueError(f"PNG row filter {int(types.max())} is not one of 0-4")
+    # r[y + 1, x + 1] is pixel (y, x): row 0 and column 0 are the zeros the
+    # filters see beyond the image
+    r = np.zeros((h + 1, w + 1, bpp), np.int16)
+    f = filtered.astype(np.int16)
+    t = types.astype(np.int16)
+    for d in range(h + w - 1):
+        y = np.arange(max(0, d - w + 1), min(h - 1, d) + 1)
+        x = d - y
+        a, b, c = r[y + 1, x], r[y, x + 1], r[y, x]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        kind = t[y][:, None]
+        pred = np.select([kind == 1, kind == 2, kind == 3, kind == 4],
+                         [a, b, (a + b) >> 1, paeth], 0)
+        r[y + 1, x + 1] = (f[y, x] + pred) & 255
+    return r[1:, 1:].astype(np.uint8)
+
+
+DECODE_CACHE_BYTES = 1 << 30
+_decoded: "OrderedDict[str, np.ndarray]" = OrderedDict()  # path → HWC uint8 RGB
+_decoded_lock = threading.Lock()
+
+
+def _load(path: str) -> np.ndarray:
+    """The image at ``path`` as HWC float32 in [0, 1]. Decoded files are kept
+    (uint8, read only) in a least-recently-used cache of
+    ``DECODE_CACHE_BYTES``."""
+    with _decoded_lock:
+        arr = _decoded.get(path)
+        if arr is not None:
+            _decoded.move_to_end(path)
+    if arr is None:
+        with open(path, "rb") as f:
+            data = f.read()
+        arr = _read_ppm(data)
+        if arr is None:
+            arr = _read_png(data)
+        if arr is None:
+            from PIL import Image
+
+            arr = np.asarray(Image.open(path).convert("RGB"))
+        with _decoded_lock:
+            _decoded[path] = arr
+            while sum(a.nbytes for a in _decoded.values()) > DECODE_CACHE_BYTES:
+                _decoded.popitem(last=False)
     return arr.astype(np.float32) / 255.0
 
 
@@ -294,17 +383,140 @@ class StereoPairDataset(_EpochSeeded):
         rng = self._item_rng(i)
         a, b = _load(self.left[i]), _load(self.right[i])
         if self.train and self.crop is not None:
-            ch, cw = self.crop
-            h, w, a, b = _fit_for_crop(ch, cw, a, b)
-            top = rng.randint(0, h - ch)
-            left = rng.randint(0, w - cw)
-            a = a[top: top + ch, left: left + cw]
-            b = b[top: top + ch, left: left + cw]
+            a, b = _joint_crop(rng, *self.crop, a, b)
             if rng.random() < 0.5:
                 a, b = a[::-1], b[::-1]
         a = floor_to_multiple(a, self.multiple)
         b = floor_to_multiple(b, self.multiple)
         return np.ascontiguousarray(a), np.ascontiguousarray(b)
+
+
+def _color_jitter(img: np.ndarray, rng: random.Random,
+                  brightness=0.1, contrast=0.1, saturation=0.1) -> np.ndarray:
+    """Brightness, contrast and saturation factors drawn from ``rng``; call
+    it with the same ``rng`` state for both eyes so that they get the same
+    transform (reference datasets.py:259-263 stacks the eyes before the
+    jitter)."""
+    b = 1.0 + rng.uniform(-brightness, brightness)
+    c = 1.0 + rng.uniform(-contrast, contrast)
+    s = 1.0 + rng.uniform(-saturation, saturation)
+    img = img * b
+    mean = img.mean(axis=(0, 1), keepdims=True)
+    img = (img - mean) * c + mean
+    gray = img.mean(axis=2, keepdims=True)
+    img = (img - gray) * s + gray
+    return np.clip(img, 0.0, 1.0)
+
+
+def _joint_crop(rng: random.Random, ch: int, cw: int, a: np.ndarray, b: np.ndarray):
+    """The same random (ch, cw) window of both eyes, upscaled first where it
+    does not fit."""
+    h, w, a, b = _fit_for_crop(ch, cw, a, b)
+    top = rng.randint(0, h - ch)
+    left = rng.randint(0, w - cw)
+    return a[top: top + ch, left: left + cw], b[top: top + ch, left: left + cw]
+
+
+class StereoKittiDataset(_EpochSeeded):
+    """KITTI-style pairs ``<root>/image_2/<f>`` and ``<root>/image_3/<f>``
+    over several roots, with the reference's split: train = every frame,
+    test = ``*_10.png`` only (reference datasets.py:221-225). Training: a
+    joint 315×1215 crop, a joint vertical flip half the time and one colour
+    jitter for both eyes; always floor-cropped to ×``multiple``."""
+
+    def __init__(
+        self,
+        roots: Sequence[str],
+        train: bool = True,
+        crop: Optional[Tuple[int, int]] = (315, 1215),
+        multiple: int = 32,
+        jitter: bool = True,
+        seed: int = 1234,
+    ):
+        self.pairs: List[Tuple[str, str]] = []
+        for root in roots:
+            l_dir, r_dir = os.path.join(root, "image_2"), os.path.join(root, "image_3")
+            if not (os.path.isdir(l_dir) and os.path.isdir(r_dir)):
+                continue
+            rights = {os.path.basename(p): p for p in _list_images(r_dir)}
+            for lp in _list_images(l_dir):
+                base = os.path.basename(lp)
+                if (train or base.endswith("_10.png")) and base in rights:
+                    self.pairs.append((lp, rights[base]))
+        if not self.pairs:
+            raise FileNotFoundError(f"no KITTI pairs under {roots}")
+        self.crop = crop
+        self.multiple = multiple
+        self.train = train
+        self.jitter = jitter and train
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        rng = self._item_rng(i)
+        lp, rp = self.pairs[i]
+        a, b = _load(lp), _load(rp)
+        if self.train and self.crop is not None:
+            a, b = _joint_crop(rng, *self.crop, a, b)
+            if rng.random() < 0.5:
+                a, b = a[::-1], b[::-1]
+            if self.jitter:
+                # the same factors for both eyes: a copy of the item's rng state
+                st = rng.getstate()
+                jr = random.Random()
+                jr.setstate(st)
+                a = _color_jitter(a, jr)
+                jr.setstate(st)
+                b = _color_jitter(b, jr)
+        a = floor_to_multiple(a, self.multiple)
+        b = floor_to_multiple(b, self.multiple)
+        return np.ascontiguousarray(a), np.ascontiguousarray(b)
+
+
+class StereoHoloPixDataset(_EpochSeeded):
+    """HoloPix50k pairs: each jpg under ``left_dir`` and the file at its path
+    with ``left`` replaced by ``right``, floor-cropped to ×``multiple``, then
+    with ``random_crop`` a joint random crop (reference
+    StereoDataset_HoloPix50k, datasets.py:147-196)."""
+
+    def __init__(
+        self,
+        left_dir: str,
+        random_crop: bool = False,
+        crop: Tuple[int, int] = (320, 320),
+        multiple: int = 32,
+        seed: int = 1234,
+    ):
+        self.left = [p for p in _list_images(left_dir) if p.lower().endswith((".jpg", ".jpeg"))]
+        if not self.left:
+            raise FileNotFoundError(f"no jpg images under {left_dir}")
+        self.random_crop = random_crop
+        self.crop = crop
+        self.multiple = multiple
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.left)
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        rng = self._item_rng(i)
+        lp = self.left[i]
+        rp = lp.replace("left", "right")
+        if not os.path.exists(rp):
+            raise FileNotFoundError(f"missing right image {rp} (left/right names must match)")
+        a = floor_to_multiple(_load(lp), self.multiple)
+        b = floor_to_multiple(_load(rp), self.multiple)
+        if self.random_crop:
+            a, b = _joint_crop(rng, *self.crop, a, b)
+        return np.ascontiguousarray(a), np.ascontiguousarray(b)
+
+
+def _assemble_batch(items):
+    if isinstance(items[0], tuple):
+        return tuple(np.stack([it[j] for it in items]) for j in range(len(items[0])))
+    return np.stack(items)
 
 
 def batch_iterator(
@@ -318,7 +530,8 @@ def batch_iterator(
     epoch: Optional[int] = None,
     skip: int = 0,
 ) -> Iterator[np.ndarray]:
-    """DataLoader replacement: yields stacked numpy batches.
+    """DataLoader replacement: yields stacked numpy batches (for items that
+    are tuples, a tuple of stacked arrays).
 
     ``num_workers > 0`` loads items on a thread pool and keeps ``prefetch``
     batches in flight; batch order and contents are those of the synchronous
@@ -344,7 +557,7 @@ def batch_iterator(
 
     if num_workers <= 0:
         for chunk in chunks:
-            yield np.stack([dataset[i] for i in chunk])
+            yield _assemble_batch([dataset[i] for i in chunk])
         return
 
     import collections
@@ -362,6 +575,6 @@ def batch_iterator(
             nxt = next(it, None)
             if nxt is not None:
                 pending.append([ex.submit(dataset.__getitem__, i) for i in nxt])
-            yield np.stack([f.result() for f in futs])
+            yield _assemble_batch([f.result() for f in futs])
     finally:
         ex.shutdown(wait=False, cancel_futures=True)

@@ -16,10 +16,15 @@ the CPU, giving exactly the JAX package's ``clip(round(x/step)·step, ±clip)``
 and the coder's symbols in one pass. Every ResidualBlockWithStride and
 ResidualBlockUpsample runs its 3×3 conv + (I)GDN as one K2 call.
 
-Not ported yet: training (``train=True``, ROADMAP item 15) and the fusion
-modules of ``fusion_pre="fif"`` and ``fusion_post`` in ("bot_att",
-"patch_att", "pam") (``models/enhance.py``, ``attention.py``, ``passr.py``;
-ROADMAP item 17). They raise ``NotImplementedError``.
+Training (``train=True``) replaces both quantizers by additive uniform
+noise drawn from one explicit generator in a fixed order, the counterpart
+of ``jax.random.split(rng, 3)``: the code (± ``coarse_noise``, then the
+clamp), then the base branch's ``z1`` and ``z2`` (± ``fine_noise``).
+
+Not ported yet: the fusion modules of ``fusion_pre="fif"`` and
+``fusion_post`` in ("bot_att", "patch_att", "pam") (``models/enhance.py``,
+``attention.py``, ``passr.py``; ROADMAP item 17). They raise
+``NotImplementedError``.
 """
 
 from dataclasses import dataclass
@@ -31,6 +36,7 @@ from torch import nn
 from ..nn.blocks import (AttentionBlock, ResidualBlock, ResidualBlockUpsample,
                          ResidualBlockWithStride, SubpelConv, init_dsc_)
 from ..nn.layers import TorchConv
+from ..ops import quant
 from ..ops.kernels.quant_pack_kernel import quantize_pack
 from ..ops.metrics import ms_ssim
 from ..utils.device import no_tf32
@@ -232,8 +238,8 @@ def _fp32_on_cuda(x: torch.Tensor) -> None:
 class DSCStereoModel(nn.Module):
     """Two-branch DSC codec; behaviour set by ``config``.
 
-    ``forward(im1, im2, train=False, mask_channels=None)`` (NHWC in [0, 1])
-    returns the JAX model's dict:
+    ``forward(im1, im2, train=False, mask_channels=None, generator=None)``
+    (NHWC in [0, 1]) returns the JAX model's dict:
       recon      SI-assisted reconstruction of im1, clipped to [0, 1]
       recon_raw  the same, unclipped
       code       the quantized and clamped transmitted code
@@ -241,7 +247,8 @@ class DSCStereoModel(nn.Module):
       im1_hat, im2_hat  aux-branch recons (if ``base_branch``)
       loss, loss_full, loss_z  the reference's loss triplet
     ``mask_channels``: optional (code_channels,) mask zeroing code channels
-    before quantization.
+    before quantization. ``train``: the noise quantizers, drawn from
+    ``generator`` (the default generator if None).
     """
 
     def __init__(self, config: DSCConfig):
@@ -275,10 +282,9 @@ class DSCStereoModel(nn.Module):
         return self.g_a22(self.g_a(im1))
 
     def forward(self, im1: torch.Tensor, im2: torch.Tensor, train: bool = False,
-                mask_channels: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                mask_channels: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         cfg = self.config
-        if train:
-            raise NotImplementedError("DSC training is not ported yet (ROADMAP item 15)")
         _fp32_on_cuda(im1)
         z1 = self.g_a(im1)
         z2 = _si_encoder(self)(im2)
@@ -286,7 +292,12 @@ class DSCStereoModel(nn.Module):
         code_pre = self.g_a22(z1)
         if mask_channels is not None:
             code_pre = code_pre * (1.0 - mask_channels.to(code_pre.dtype))
-        _, code = quantize_code(code_pre, cfg)
+        if train:
+            code = quant.add_uniform_noise(code_pre, generator, cfg.coarse_noise)
+            if cfg.code_clip is not None:
+                code = torch.clamp(code, -cfg.code_clip, cfg.code_clip)
+        else:
+            _, code = quantize_code(code_pre, cfg)
         out["code"] = code
         z1_hat = self.g_s22(code)
         out["z1_hat"] = z1_hat
@@ -298,8 +309,13 @@ class DSCStereoModel(nn.Module):
         out["recon"] = clipped
 
         if cfg.base_branch:
-            out["im1_hat"] = torch.clamp(self.g_s(torch.round(z1)), 0.0, 1.0)
-            out["im2_hat"] = torch.clamp(self.g_s(torch.round(z2)), 0.0, 1.0)
+            if train:
+                cz1 = quant.add_uniform_noise(z1, generator, cfg.fine_noise)
+                cz2 = quant.add_uniform_noise(z2, generator, cfg.fine_noise)
+            else:
+                cz1, cz2 = torch.round(z1), torch.round(z2)
+            out["im1_hat"] = torch.clamp(self.g_s(cz1), 0.0, 1.0)
+            out["im2_hat"] = torch.clamp(self.g_s(cz2), 0.0, 1.0)
 
         zero = torch.zeros((), device=im1.device)
         if cfg.loss == "l1":

@@ -36,9 +36,27 @@ from ..ops.kernels.conv_gdn_kernel import conv_gdn_module
 from .layers import GDN, TorchConv, torch_default_init_
 
 
+class _LeakyReLU(torch.autograd.Function):
+    """``F.leaky_relu`` whose derivative at 0 is 1, as ``jax.nn.leaky_relu``'s
+    (``where(x >= 0, x, s·x)``); torch's own is the slope there. A conv
+    output lands on exactly 0 now and then in fp32, and there the two
+    packages' gradients would differ by 0.99 of the upstream gradient."""
+
+    @staticmethod
+    def forward(ctx, x, slope):
+        ctx.save_for_backward(x)
+        ctx.slope = slope
+        return F.leaky_relu(x, slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, g * ctx.slope), None
+
+
 def _act(name: str) -> Callable:
     if name == "leaky_relu":
-        return lambda x: F.leaky_relu(x, 0.01)
+        return lambda x: _LeakyReLU.apply(x, 0.01)
     if name == "relu":
         return F.relu
     if name == "gelu":

@@ -48,8 +48,14 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, *, stride: int = 1,
            padding: int = 0) -> torch.Tensor:
-    """NHWC conv with ``nn.Conv2d`` semantics; ``w`` is OIHW."""
-    return nhwc(F.conv2d(nchw(x), w, b, stride=stride, padding=padding))
+    """NHWC conv with ``nn.Conv2d`` semantics; ``w`` is OIHW. On the CPU the
+    input is made contiguous NCHW first: oneDNN's backward of convolutions
+    on channels-last views corrupts the heap on the DSC stacks (torch 2.13
+    CPU, oneDNN 3.12), and the CPU path is the reference, not the fast one."""
+    xc = nchw(x)
+    if x.device.type == "cpu":
+        xc = xc.contiguous()
+    return nhwc(F.conv2d(xc, w, b, stride=stride, padding=padding))
 
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor, b=None, *, stride: int = 1,

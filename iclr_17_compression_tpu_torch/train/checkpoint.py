@@ -2,36 +2,47 @@
 
 Counterpart of ``iclr_17_compression_tpu/train/checkpoint.py``:
 
-- ``save_params`` / ``load_params`` / ``load_params_partial``: bare
-  parameter snapshots ``iter_<step>.ckpt`` in the JAX package's layout, a
-  flax msgpack of the JAX Ballé-17 param tree (``train/weights.py``). A
-  model trained by the port loads in the JAX package and through the port's
-  ``load_balle17``; a JAX checkpoint loads in the port.
+- ``save_params`` / ``load_params``: bare parameter snapshots
+  ``iter_<step>.ckpt`` in the JAX package's layout, a flax msgpack of the
+  JAX Ballé-17 param tree (``train/weights.py``). A model trained by the
+  port loads in the JAX package and through the port's ``load_balle17``; a
+  JAX checkpoint loads in the port.
+- ``load_params_partial``: the leaves of a JAX-layout file (Ballé-17 or
+  DSC tree, bare or a TrainState's ``params``) or of the port's train-state
+  file whose key and shape match the model's.
 - ``save_train_state`` / ``load_train_state``: the port's own full state, a
   ``torch.save`` of the model's and the optimizer's state dicts and the
   step, with the JAX package's JSON sidecar (epoch, loss, step and extras
   such as ``batch_in_epoch``). Read back with ``weights_only=True``.
+  ``snapshot_train_state`` copies a state to be saved later (JAX keeps a
+  reference to its immutable arrays; a torch model trains on in place).
 - ``step_from_filename``, ``latest_checkpoint``, ``resolve_resume``.
 
 Files are written to a temporary name and renamed, so a reader never sees
 a truncated file.
 """
 
+import copy
 import json
 import os
 import re
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
+from ..models.dsc import DSCStereoModel
+from ..ops.conv import hwio_to_oihw
 from .state import TrainState
 from .weights import (
+    _dsc_flax_path,
     _flatten,
     _leaf_to_port,
     msgpack_dumps,
     params_from_jax,
     params_to_jax,
     read_checkpoint,
+    read_port_state,
 )
 
 
@@ -58,33 +69,67 @@ def load_params(model: torch.nn.Module, path: str) -> torch.nn.Module:
     return model
 
 
+def _jax_leaves(model: torch.nn.Module, tree: Dict[str, Any]):
+    """(port key, tensor in the port's layout) for each leaf of a JAX param
+    tree that names one of ``model``'s keys."""
+    flat = _flatten(tree)
+    if not isinstance(model, DSCStereoModel):
+        leaves = (_leaf_to_port(jpath, v) for jpath, v in flat.items())
+        yield from (leaf for leaf in leaves if leaf is not None)
+        return
+    for key in model.state_dict():
+        v = flat.get(_dsc_flax_path(key, model.config))
+        if v is not None:
+            v = np.asarray(v)
+            yield key, torch.from_numpy(np.array(hwio_to_oihw(v) if v.ndim == 4 else v,
+                                                 order="C"))
+
+
 def load_params_partial(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Load only the leaves of a JAX-layout param file whose key and shape
-    match the model's (the reference's partial state_dict load, model.py:26-27);
-    every other parameter keeps its value."""
-    tree = read_checkpoint(path)
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    """Load only the leaves of a JAX-layout param file (a Ballé-17 or DSC
+    tree, bare or under ``params``), or of the port's train-state file, whose
+    key and shape match the model's (the reference's partial state_dict
+    load, model.py:26-27); every other parameter keeps its value."""
+    sd = read_port_state(path)
+    if sd is not None:
+        leaves = sd.items()
+    else:
+        tree = read_checkpoint(path)
+        if isinstance(tree.get("params"), dict):
+            tree = tree["params"]
+        leaves = _jax_leaves(model, tree)
     own = model.state_dict()
     with torch.no_grad():
-        for jpath, v in _flatten(tree).items():
-            leaf = _leaf_to_port(jpath, v)
-            if leaf is not None and leaf[0] in own and own[leaf[0]].shape == leaf[1].shape:
-                own[leaf[0]].copy_(leaf[1])
+        for key, v in leaves:
+            if key in own and own[key].shape == v.shape:
+                own[key].copy_(v)
     return model
 
 
-def save_train_state(state: TrainState, directory: str, name: str, epoch: int = 0,
-                     loss: float = 0.0, extra: Optional[Dict[str, Any]] = None) -> str:
-    """Write ``<directory>/<name>.ckpt`` (model, optimizer, step) and its
-    JSON sidecar ``<name>.ckpt.json``."""
+def snapshot_train_state(state: TrainState) -> Dict[str, Any]:
+    """A copy of what ``save_train_state`` writes (model, optimizer, step),
+    which later updates of ``state`` leave as it is."""
+    return copy.deepcopy(_train_state_dict(state))
+
+
+def _train_state_dict(state: TrainState) -> Dict[str, Any]:
+    return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+            "step": state.step}
+
+
+def save_train_state(state: Union[TrainState, Dict[str, Any]], directory: str, name: str,
+                     epoch: int = 0, loss: float = 0.0,
+                     extra: Optional[Dict[str, Any]] = None) -> str:
+    """Write ``<directory>/<name>.ckpt`` (model, optimizer, step) of a train
+    state or of its ``snapshot_train_state``, and its JSON sidecar
+    ``<name>.ckpt.json``."""
+    blob = state if isinstance(state, dict) else _train_state_dict(state)
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"{name}.ckpt")
     tmp = path + ".tmp"
-    torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                "step": state.step}, tmp)
+    torch.save(blob, tmp)
     os.replace(tmp, path)
-    meta = {"epoch": epoch, "loss": loss, "step": state.step}
+    meta = {"epoch": epoch, "loss": loss, "step": blob["step"]}
     if extra:
         meta.update(extra)
     _atomic_write(path + ".json", json.dumps(meta).encode())

@@ -1,28 +1,37 @@
-"""Training CLI for Ballé-17 on one card.
+"""Training CLI on one card: Ballé-17, the DSC stereo codecs and the
+residual rate-regression stage.
 
-Counterpart of ``main`` and ``train_single_image`` in
-``iclr_17_compression_tpu/train/cli.py``:
+Counterpart of ``iclr_17_compression_tpu/train/cli.py`` (``main``,
+``train_single_image``, ``train_dsc``, ``_restore``; its
+``make_stereo_dataset`` lives in ``train/trainers.py`` beside the
+auxiliary trainers' source):
 
   python -m iclr_17_compression_tpu_torch.train.cli \
       --config examples/balle17.json -n run1 [--pretrain ckpt] [--resume dir]
+  python -m iclr_17_compression_tpu_torch.train.cli --config examples/dsc_0031bpp.json
 
 Reference parity: the flags -n/-p/--config/--seed (train.py:30-39), the
 JSON config schema (train.py:41-66), step-decay LR + warmup
 (train.py:69-81), rd_loss = λ·d + bpp (train.py:100-102), the elementwise
 gradient clamp ±5 (train.py:106-111), periodic Kodak eval and checkpoints
-(train.py:150-153), windowed meters and logging (train.py:114-149).
+(train.py:150-153), windowed meters and logging (train.py:114-149). DSC
+presets (``model: "dsc:<preset>"``) train in the train_2StepsNet loop shape
+(per-epoch plateau LR, a validation pass, best-train / best-val / latest
+checkpoints, train_2StepsNet.py:112-256); ``model: "reg_stage"`` runs the
+residual stage's trainer (``train/trainers.py``).
 
-Runs on CUDA (``resolve_device``: it raises without a card) unless
-``train_single_image`` is given ``device="cpu"``. One card: the JAX
-package's data×tile mesh has no counterpart yet (ROADMAP item 20), so
-``mesh_data`` must be None or 1 and ``mesh_tile`` 1.
+Runs on CUDA (``resolve_device``: it raises without a card) unless a loop
+is given ``device="cpu"``. One card: the JAX package's data×tile mesh has
+no counterpart yet (ROADMAP item 20), so ``mesh_data`` must be None or 1
+and ``mesh_tile`` 1.
 
 Resume: ``--resume <dir-or-ckpt>`` restores the model, the Adam moments and
-the step, and the epoch and mid-epoch batch offset from the sidecar. The
-step's noise comes from a generator seeded by (seed, global step) — the
-counterpart of ``fold_in(rng, global_step)`` — and the crops are a pure
-function of (seed, epoch, index), so a resumed run draws the batches and
-the noise the uninterrupted one would.
+the step, and from the sidecar the epoch and mid-epoch batch offset
+(Ballé-17) or the next epoch, LR and plateau state (DSC). The step's noise
+comes from a generator seeded by (seed, global step) — the counterpart of
+``fold_in(rng, global_step)`` — and the crops are a pure function of
+(seed, epoch, index), so a resumed run draws the batches and the noise the
+uninterrupted one would.
 """
 
 import argparse
@@ -35,9 +44,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data.datasets import ImageFolderDataset, KodakDataset, batch_iterator
+from ..data.datasets import ImageFolderDataset, KodakDataset, StereoKittiDataset, batch_iterator
 from ..eval.kodak import eval_kodak
-from ..models.balle17 import Balle17Compressor
+from ..models.dsc import DSC_PRESETS
 from ..utils.device import resolve_device
 from .checkpoint import (
     load_params_partial,
@@ -50,12 +59,11 @@ from .config import TrainConfig
 from .meters import AverageMeter
 from .observability import MetricsLogger, ProfileWindow
 from .schedules import step_decay_schedule
-from .state import TrainState, create_train_state, make_balle17_train_step
+from .state import (TrainState, build_model, create_train_state, make_balle17_train_step,
+                    make_dsc_train_step, step_generator)
+from .trainers import TRAINERS, EpochTail, make_stereo_dataset
 
 logger = logging.getLogger("iclr17c_torch")
-
-# the ROADMAP item that ports each model family the JAX trainer also runs
-_NOT_PORTED = {"hyperprior": 16, "joint": 16, "dsc:": 15}
 
 
 def setup_logging(name: str, save_dir: str) -> None:
@@ -72,22 +80,34 @@ def setup_logging(name: str, save_dir: str) -> None:
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise for what the port does not train yet, naming its ROADMAP item."""
-    if cfg.model != "balle17":
-        item = next((i for k, i in _NOT_PORTED.items() if cfg.model.startswith(k)), None)
-        where = f"ROADMAP item {item}" if item else "no ROADMAP item"
-        raise NotImplementedError(
-            f"model {cfg.model!r}: the port trains balle17 only ({where} ports it)")
+    """Raise for what the port does not train yet, naming its ROADMAP item:
+    the hyperprior and joint models (16), the DSC fusion modules (17), the
+    auxiliary trainers other than ``reg_stage`` (18), a mesh (20)."""
+    if cfg.model in ("hyperprior", "joint"):
+        raise NotImplementedError(f"model {cfg.model!r}: not ported yet (ROADMAP item 16)")
+    if cfg.model.startswith("dsc:"):
+        preset = DSC_PRESETS[cfg.model.split(":", 1)[1]]
+        if preset.fusion_pre != "none" or preset.fusion_post != "none":
+            raise NotImplementedError(
+                f"model {cfg.model!r}: its fusion modules are not ported yet (ROADMAP item 17)")
+    elif cfg.model in TRAINERS and cfg.model != "reg_stage":
+        raise NotImplementedError(f"trainer {cfg.model!r}: not ported yet (ROADMAP item 18)")
+    elif cfg.model not in ("balle17", "reg_stage"):
+        raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.mesh_data not in (None, 1) or cfg.mesh_tile != 1:
         raise NotImplementedError(
             f"mesh_data={cfg.mesh_data}, mesh_tile={cfg.mesh_tile}: the port trains on one "
             "card (data and tile parallelism are ROADMAP item 20)")
 
 
-def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
-    """The training noise of global step ``step``: a generator on ``device``
-    seeded by (seed, step), the counterpart of ``fold_in(rng, step)``."""
-    return torch.Generator(device=device).manual_seed((seed << 32) + step)
+def _restore(state: TrainState, resume: str):
+    """Resolve and load a full train-state checkpoint: (state, sidecar)."""
+    path = resolve_resume(resume)
+    if path is None:
+        raise FileNotFoundError(f"--resume {resume!r}: no checkpoint found")
+    state, meta = load_train_state(state, path)
+    logger.info("resumed %s at step %d (meta=%s)", path, state.step, meta)
+    return state, meta
 
 
 def train_single_image(cfg: TrainConfig, name: str, pretrain: str = "", resume: str = "",
@@ -96,22 +116,20 @@ def train_single_image(cfg: TrainConfig, name: str, pretrain: str = "", resume: 
     (default ``cuda``). Returns the final train state."""
     dev = resolve_device(device)
     check_supported(cfg)
+    if cfg.model != "balle17":
+        raise ValueError(f"train_single_image trains balle17, not {cfg.model!r}")
     save_dir = os.path.join(cfg.save_root, name)
     setup_logging(name, save_dir)
 
-    model = Balle17Compressor(cfg.out_channel_n, quant=cfg.quant)
-    model.init_(torch.Generator().manual_seed(cfg.seed)).to(dev)
+    model = build_model("balle17", device=dev, seed=cfg.seed, out_channel_n=cfg.out_channel_n,
+                        quant=cfg.quant)
     lr = step_decay_schedule(cfg.lr_base, cfg.lr_decay, cfg.lr_decay_interval, cfg.warmup_step)
     state = create_train_state(model, lr=lr, grad_clip=cfg.grad_clip)
     start_epoch, start_skip = 0, 0
     if resume:
-        path = resolve_resume(resume)
-        if path is None:
-            raise FileNotFoundError(f"--resume {resume!r}: no checkpoint found")
-        state, meta = load_train_state(state, path)
+        state, meta = _restore(state, resume)
         start_epoch = int(meta.get("epoch", 0))
         start_skip = int(meta.get("batch_in_epoch", 0))
-        logger.info("resumed %s at step %d (meta=%s)", path, state.step, meta)
     elif pretrain:
         load_params_partial(model, pretrain)
         logger.info("loaded pretrain %s", pretrain)
@@ -174,8 +192,92 @@ def train_single_image(cfg: TrainConfig, name: str, pretrain: str = "", resume: 
         mlog.close()
 
 
+def train_dsc(cfg: TrainConfig, name: str, pretrain: str = "", resume: str = "",
+              device: Optional[str] = None) -> TrainState:
+    """The DSC stereo training loop (reference train_2StepsNet.py shape) on
+    ``device`` (default ``cuda``): per epoch, the mean training loss into
+    the plateau LR, ``best_train`` (the best epoch's state, written on the
+    next ``save_epoch_freq`` epoch or at the end), a validation pass over
+    ``test_dir`` (``*_10.png`` KITTI frames, batch 1, ``loss_full`` of the
+    eval forward) with ``best_val``, ``epoch_<n>`` every
+    10·``save_epoch_freq`` epochs and ``latest`` with what a resume needs.
+    Stops on ``tot_epoch``, as the JAX loop does. Returns the train state."""
+    dev = resolve_device(device)
+    check_supported(cfg)
+    if not cfg.model.startswith("dsc:"):
+        raise ValueError(f"train_dsc trains dsc:<preset> models, not {cfg.model!r}")
+    save_dir = os.path.join(cfg.save_root, name)
+    setup_logging(name, save_dir)
+
+    model = build_model(cfg.model, device=dev, seed=cfg.seed, loss=cfg.loss)
+    state = create_train_state(model, lr=cfg.lr_base, grad_clip=cfg.grad_clip)
+    tail = EpochTail(cfg, save_dir, best_every=cfg.save_epoch_freq,
+                     periodic_every=10 * cfg.save_epoch_freq)
+    start_epoch = 0
+    if resume:
+        state, meta = _restore(state, resume)
+        start_epoch = int(meta.get("next_epoch", meta.get("epoch", 0)))
+        tail.restore(state, meta)
+    elif pretrain:
+        load_params_partial(model, pretrain)
+        logger.info("loaded pretrain %s", pretrain)
+    logger.info("device: %s", torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu")
+
+    step_fn = make_dsc_train_step()
+    dataset = make_stereo_dataset(cfg)
+    # reference train_2StepsNet.py:221-256: a validation pass each epoch and
+    # a best-val checkpoint beside the best-train one
+    val_set = (StereoKittiDataset(cfg.test_dir.split(","), train=False, seed=cfg.seed)
+               if cfg.test_dir else None)
+
+    def val_loss_of(im1: np.ndarray, im2: np.ndarray) -> float:
+        with torch.no_grad():
+            out = model(torch.from_numpy(im1).to(dev), torch.from_numpy(im2).to(dev))
+        return float(out["loss_full"])
+
+    best_val = float("inf")
+    mlog = MetricsLogger(save_dir, tensorboard=cfg.tensorboard)
+    prof = ProfileWindow(cfg.profile_dir, cfg.profile_start_step, cfg.profile_num_steps)
+    try:
+        for epoch in range(start_epoch, cfg.tot_epoch):
+            epoch_loss, n_batches = 0.0, 0
+            for im1, im2 in batch_iterator(dataset, cfg.batch_size, seed=cfg.seed, epoch=epoch,
+                                           num_workers=cfg.num_workers):
+                prof.tick(state.step)
+                metrics = step_fn(state, torch.from_numpy(im1).to(dev, non_blocking=True),
+                                  torch.from_numpy(im2).to(dev, non_blocking=True),
+                                  step_generator(cfg.seed, state.step, dev))
+                epoch_loss += float(metrics["loss"])
+                n_batches += 1
+                if state.step % cfg.print_freq == 0:
+                    logger.info("epoch %d step %d | %s", epoch, state.step,
+                                " ".join(f"{k}={float(v):.5f}" for k, v in metrics.items()))
+                    mlog.log(state.step, {k: float(v) for k, v in metrics.items()})
+            epoch_loss /= max(n_batches, 1)
+            tail.end_epoch(state, epoch, epoch_loss)
+            if val_set is not None:
+                losses = [val_loss_of(v1, v2) for v1, v2 in batch_iterator(
+                    val_set, 1, shuffle=False, seed=0, drop_last=False)]
+                val_loss = sum(losses) / max(len(losses), 1)
+                mlog.log(state.step, {"val_loss": val_loss}, prefix="epoch/")
+                if val_loss < best_val:
+                    best_val = val_loss
+                    save_train_state(state, save_dir, "best_val", epoch, val_loss)
+                logger.info("epoch %d val: loss=%.5f (best %.5f)", epoch, val_loss, best_val)
+            if epoch % cfg.save_epoch_freq == 0 or epoch == cfg.tot_epoch - 1:
+                save_train_state(state, save_dir, "latest", epoch, epoch_loss,
+                                 extra={"next_epoch": epoch + 1, **tail.sidecar()})
+            logger.info("epoch %d done: loss=%.5f lr=%.2e", epoch, epoch_loss, tail.lr)
+            mlog.log(state.step, {"epoch_loss": epoch_loss, "lr": tail.lr}, prefix="epoch/")
+        tail.finish()  # an off-cycle best still waiting at the end
+        return state
+    finally:
+        prof.close()
+        mlog.close()
+
+
 def main(argv=None) -> TrainState:
-    ap = argparse.ArgumentParser(description="Ballé-17 trainer (PyTorch, one CUDA card)")
+    ap = argparse.ArgumentParser(description="codec trainer (PyTorch, one CUDA card)")
     ap.add_argument("-n", "--name", default="run", help="experiment name")
     ap.add_argument("-p", "--pretrain", default="", help="pretrained ckpt path")
     ap.add_argument("--resume", default="", help="run dir or .ckpt to resume from")
@@ -187,6 +289,7 @@ def main(argv=None) -> TrainState:
     cfg = TrainConfig.from_json(args.config) if args.config else TrainConfig()
     if args.seed is not None:
         cfg = dataclasses.replace(cfg, seed=args.seed)
+    check_supported(cfg)
     np.random.seed(cfg.seed)
     torch.autograd.set_detect_anomaly(cfg.debug_nans)
 
@@ -195,6 +298,11 @@ def main(argv=None) -> TrainState:
     os.makedirs(save_dir, exist_ok=True)
     with open(os.path.join(save_dir, "config.json"), "w") as f:
         f.write(cfg.to_json())
+    if cfg.model in TRAINERS:
+        setup_logging(args.name, save_dir)
+        return TRAINERS[cfg.model](cfg, args.name, args.pretrain)
+    if cfg.model.startswith("dsc:"):
+        return train_dsc(cfg, args.name, args.pretrain, args.resume)
     return train_single_image(cfg, args.name, args.pretrain, args.resume)
 
 

@@ -6,7 +6,8 @@ fields, so one JSON file configures either package. The reference parses
 train.py:41-66, schema keys: tot_epoch, tot_step, train_lambda, batch_size,
 print_freq, save_model_freq, cal_step, lr{base,decay, decay_interval}).
 Here the same keys load into one frozen dataclass. The port trains
-``balle17`` on one card: ``train/cli.py`` refuses other models and meshes.
+``balle17``, ``dsc:<preset>`` and ``reg_stage`` on one card:
+``train/cli.py`` refuses other models and meshes.
 """
 
 import dataclasses

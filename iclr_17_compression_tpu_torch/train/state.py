@@ -1,7 +1,8 @@
-"""Train state and the Ballé-17 train step.
+"""Train state, the train steps and the model factory.
 
 Counterpart of ``iclr_17_compression_tpu/train/state.py`` (``TrainState``,
-``_make_optimizer``, ``make_balle17_train_step``). JAX's pure
+``_make_optimizer``, ``make_balle17_train_step``, ``make_dsc_train_step``,
+``build_model``). JAX's pure
 ``(state, batch, rng) -> (state, metrics)`` becomes a step that updates the
 model and optimizer in place and returns the metrics.
 
@@ -13,12 +14,14 @@ update k (from 0) is ``schedule(k)``, as optax evaluates a schedule at its
 update count.
 """
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
 
 from ..ops.metrics import ms_ssim
+from ..utils.device import resolve_device
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -61,6 +64,12 @@ def apply_gradients(state: TrainState) -> None:
     state.step += 1
 
 
+def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The training noise of global step ``step``: a generator on ``device``
+    seeded by (seed, step), the counterpart of ``fold_in(rng, step)``."""
+    return torch.Generator(device=device).manual_seed((seed << 32) + step)
+
+
 def msssim_window(batch: torch.Tensor) -> int:
     """Window 11 needs ≥ 176 px for 5 scales; smaller crops use the
     reference's small-image window 7."""
@@ -99,3 +108,53 @@ def make_balle17_train_step(train_lambda: float = 8192.0, distortion: str = "mse
         }
 
     return train_step
+
+
+def make_dsc_train_step(w_full: float = 1.0, w_base: float = 1.0, w_z: float = 0.0):
+    """``train_step(state, im1, im2, generator)`` for a ``DSCStereoModel``:
+    loss = w_full·loss_full + w_base·loss (the base branch's) [+ w_z·loss_z]
+    (reference train_2StepsNet.py:190, train_new.py:177); one update; the
+    metrics ``loss``, ``loss_full``, ``loss_base`` and ``loss_z`` (detached
+    tensors)."""
+
+    def train_step(state: TrainState, im1: torch.Tensor, im2: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        with torch.profiler.record_function("train_step/forward"):
+            out = state.model(im1, im2, train=True, generator=generator)
+            loss = w_full * out["loss_full"] + w_base * out["loss"]
+            if w_z:
+                loss = loss + w_z * out["loss_z"]
+        with torch.profiler.record_function("train_step/backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with torch.profiler.record_function("train_step/optimizer"):
+            apply_gradients(state)
+        return {"loss": loss.detach(), "loss_full": out["loss_full"].detach(),
+                "loss_base": out["loss"].detach(), "loss_z": out["loss_z"].detach()}
+
+    return train_step
+
+
+def build_model(name: str, device: Optional[str] = None, seed: int = 0, **kw) -> torch.nn.Module:
+    """Model factory: ``balle17`` (``out_channel_n``, ``quant``) or
+    ``dsc:<preset>`` (``loss`` overrides the preset's), drawn from the JAX
+    package's init with a generator seeded by ``seed``, on ``device``
+    (default ``cuda``). ``hyperprior`` and ``joint`` are ROADMAP item 16."""
+    from ..models.balle17 import Balle17Compressor
+    from ..models.dsc import DSC_PRESETS, DSCStereoModel
+
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    if name == "balle17":
+        model = Balle17Compressor(kw.get("out_channel_n", 128),
+                                  quant=kw.get("quant", "noise-round"))
+    elif name.startswith("dsc:"):
+        cfg = DSC_PRESETS[name.split(":", 1)[1]]
+        if kw.get("loss"):
+            cfg = dataclasses.replace(cfg, loss=kw["loss"])
+        model = DSCStereoModel(cfg)
+    elif name in ("hyperprior", "joint"):
+        raise NotImplementedError(f"model {name!r} is not ported yet (ROADMAP item 16)")
+    else:
+        raise ValueError(f"unknown model {name!r}")
+    return model.init_(gen).to(dev)

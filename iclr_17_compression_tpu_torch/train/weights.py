@@ -22,12 +22,16 @@ JAX model's key order.
 of a given ``DSCConfig`` (the inverse of ``import_dsc``): the flax tree
 ``g_a/l1_rbs/conv1/weight`` (HWIO) is the port's ``g_a.1.conv1.weight``
 (OIHW), ``…/l4_att/a_ru0/conv_in`` is ``….4.conv_a.0.conv.0``,
-``…/l2_rbu/subpel_conv/conv`` is ``….2.subpel_conv.0``. ``load_dsc`` reads a
-bare params file (the archived ``results/ckpts/dsc_*_params.msgpack``) or a
-TrainState dict with ``params``.
+``…/l2_rbu/subpel_conv/conv`` is ``….2.subpel_conv.0``. ``load_dsc`` and
+``load_dsc_weights`` read a bare params file (the archived
+``results/ckpts/dsc_*_params.msgpack``), a JAX TrainState dict with
+``params``, or the port's own train-state file (``train/checkpoint.py``'s
+``save_train_state``: a ``torch.save`` zip whose ``model`` is the state_dict,
+read with ``weights_only=True``).
 """
 
 import struct
+import zipfile
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -422,15 +426,32 @@ def dsc_params_to_jax(state_dict: Dict[str, torch.Tensor], cfg: DSCConfig) -> Di
     return _tree_from(state_dict, lambda key: _dsc_flax_path(key, cfg))
 
 
+def read_port_state(path: str) -> Optional[Dict[str, torch.Tensor]]:
+    """The model state_dict of the port's own train-state file, on the CPU,
+    or None for a file of another format (a flax msgpack)."""
+    if not zipfile.is_zipfile(path):
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True)["model"]
+
+
+def load_dsc_weights(model: DSCStereoModel, path: str) -> DSCStereoModel:
+    """Load every weight of ``model`` from a JAX params file or TrainState
+    checkpoint, or from the port's train-state file (strict: no key missing
+    or extra)."""
+    sd = read_port_state(path)
+    if sd is None:
+        tree = read_checkpoint(path)
+        if "params" in tree and "g_a" not in tree:
+            tree = tree["params"]
+        sd = dsc_params_from_jax(tree, model.config)
+    own = model.state_dict()
+    model.load_state_dict({k: v.to(own[k].device) for k, v in sd.items()}, strict=True)
+    return model
+
+
 def load_dsc(path: str, preset: str, device: Optional[str] = None) -> DSCStereoModel:
     """A ``DSCStereoModel`` of the ``DSC_PRESETS`` entry ``preset`` in eval
     mode on ``device`` (default ``cuda``), with the weights of a JAX params
-    file or TrainState checkpoint."""
+    file or TrainState checkpoint, or of the port's train-state file."""
     dev = resolve_device(device)
-    cfg = DSC_PRESETS[preset]
-    tree = read_checkpoint(path)
-    if "params" in tree and "g_a" not in tree:
-        tree = tree["params"]
-    model = DSCStereoModel(cfg)
-    model.load_state_dict(dsc_params_from_jax(tree, cfg), strict=True)
-    return model.to(dev).eval()
+    return load_dsc_weights(DSCStereoModel(DSC_PRESETS[preset]), path).to(dev).eval()

@@ -164,8 +164,8 @@ def test_train_single_image_end_to_end(data_dirs, tmp_path):
 
 
 def test_cli_refuses_what_it_does_not_train(data_dirs, tmp_path):
-    for kw, item in (({"model": "hyperprior"}, "item 16"), ({"model": "dsc:temp_0031bpp"},
-                                                             "item 15"),
+    for kw, item in (({"model": "hyperprior"}, "item 16"), ({"model": "dsc:fif_0031bpp"},
+                                                             "item 17"),
                      ({"mesh_data": 2}, "item 20"), ({"mesh_tile": 2}, "item 20")):
         with pytest.raises(NotImplementedError, match=item):
             cli.train_single_image(_cfg(data_dirs, tmp_path, tot_step=1, **kw), "x",

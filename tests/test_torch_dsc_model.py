@@ -160,8 +160,6 @@ def test_model_and_decoder_match_jax(preset):
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        port_model("tiny")(torch.zeros(1, 64, 64, 3), torch.zeros(1, 64, 64, 3), train=True)
     for preset in ("fif_0031bpp", "att_0031bpp", "bottleneck_att_1bpp", "pam_0031bpp"):
         with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
             DSCStereoModel(DSC_PRESETS[preset])
