@@ -91,6 +91,26 @@ Phases, one JSON line each:
           kernels), validation ms a frame, K2 at each training shape with
           cuDNN + plain GDN and cuDNN + K1 and its bound, K3 against its
           launch floor
+  hyper   the scale-hyperprior (both quantizers) and joint-AR codecs at
+          N = 192, M = 320 (the codec CLI's defaults) on the port's seeded
+          init, every GDN off the identity and the analysis and
+          hyper-analysis outputs spread over many symbols, on 2 synthetic
+          768×512 images: encode_image → bytes → decode_image, with the launch
+          counters reset just before and read just after (per image: the
+          hyperprior encode K2 3, decode K1 3; joint encode K2 3, decode K2 3;
+          K1 0 on joint); checks: ŷ and ẑ round-trip exactly (joint: the
+          decoder's ŷ bit-equal to the encoder's), each file equal to a second
+          encode, the hyperprior's decoded recon within 1e-4 of its eval
+          forward's, recon finite in [0, 1], the eval forwards' launches (K2
+          3 + K1 3, K2 6), cuDNN not benchmarking; σ's scale-index flips
+          between the card and the CPU for the same ẑ, and the CPU decode of
+          the card's file of a crop where they are 0; the native host AR
+          against numpy front by front and a numpy-backend file round trip.
+          Numbers: encode / decode ms, rANS bpp against the estimate, the
+          symbols' spread, host AR ms (native, numpy), one joint encode +
+          decode profiled, peak memory, K2 at the six C = 192 shapes (5×5 s2
+          and 3×3 s1 GDN / IGDN; S, partial bytes, cuDNN + plain GDN, cuDNN +
+          K1) and K1 at the three IGDN shapes against plain
 Then the script's seconds, the card's name and power limit, one line with
 every kernel's numbers, and last the line {"ok": true, "device": {...}}.
 Any failed check exits non-zero. Imports nothing of JAX.
@@ -193,6 +213,24 @@ DSC_GRAD_TOL = 1e-3
 DSC_K2_PERTURB = 1e-5
 DSC_FLOOR_FACTOR = 4.0
 DSC_CONTROL_PERTURB = 1e-3
+
+# Hyperprior / joint-AR phase: hyperprior, hyperprior-sigma and joint at
+# N = 192, M = 320 (the codec CLI's defaults) on the port's seeded init, two
+# synthetic 768×512 images; every GDN and IGDN moved off the identity (the
+# dsc phase's law), each channel of the analysis transform's last conv
+# centred and scaled to a std of HYPER_Y_STD, and of the hyper-analysis'
+# last conv to HYPER_Z_STD, on the first image, so that y and z spread over
+# many symbols. The card's file of a 128×192 crop is decoded on the CPU
+# where no σ changes its scale index between the devices.
+HYPER_SEED, N_HYPER_IMAGES, HYPER_N, HYPER_M = 4321, 2, 192, 320
+HYPER_Y_STD, HYPER_Z_STD = 3.0, 2.0
+HYPER_CROP = (128, 192)
+# ŷ of the card's file decoded on the CPU: the symbols are equal and the
+# CPU's σ (σ-normalized) or μ (joint) differs in the last bits.
+Y_HAT_TOL = 1e-5
+# The native AR library against the numpy path, front by front (the JAX
+# package's test tolerance, rtol = atol).
+AR_TOL = 2e-4
 
 
 def emit(obj) -> None:
@@ -327,6 +365,21 @@ def write_kitti(root: str, frames: int, rng: np.random.Generator, h: int = KITTI
             a = smooth_image(rng, -(-h // 64) * 64, -(-w // 64) * 64)[:h, :w]
             write_png(os.path.join(root, "image_2", f"{i:06d}_{t}.png"), a)
             write_png(os.path.join(root, "image_3", f"{i:06d}_{t}.png"), shift_pair(a, rng))
+
+
+def gdn_off_identity_(torch, model, gen):
+    """Every GDN and IGDN of ``model`` off its identity init, drawn from
+    ``gen``: β in 0.7-1.3, γ = 0.3·I + 0.1·U (full, neither diagonal nor
+    symmetric)."""
+    from iclr_17_compression_tpu_torch.nn.layers import GDN
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, GDN):
+                c = mod.beta.shape[0]
+                mod.beta.copy_(0.7 + 0.6 * torch.rand(c, generator=gen))
+                mod.gamma.copy_(0.3 * torch.eye(c) + 0.1 * torch.rand((c, c), generator=gen))
+    return model
 
 
 def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
@@ -755,6 +808,437 @@ def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
     return result
 
 
+def hyper_phase(torch, dev, tools, h: int = IMG_H, w: int = IMG_W,
+                n_images: int = N_HYPER_IMAGES, crop=HYPER_CROP, n: int = HYPER_N,
+                m: int = HYPER_M) -> dict:
+    """The hyperprior and joint-AR codecs on the card (see the module
+    docstring). ``tools`` holds the harness of ``main``: check, emit,
+    time_ms, measure_k2, measure_k1, new_row. Returns the K2 and K1 rows and
+    the launches of the main path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from iclr_17_compression_tpu_torch.coding import codec_cli
+    from iclr_17_compression_tpu_torch.coding.api import decode_latent
+    from iclr_17_compression_tpu_torch.coding.gaussian import default_scale_table, scale_indices
+    from iclr_17_compression_tpu_torch.models import cheng2020, hyperprior
+    from iclr_17_compression_tpu_torch.models.cheng2020 import JointAutoregressive
+    from iclr_17_compression_tpu_torch.models.hyperprior import ScaleHyperprior
+    from iclr_17_compression_tpu_torch.ops.gdn import gdn_reparam
+    from iclr_17_compression_tpu_torch.ops.kernels import conv_gdn_kernel as k2
+    from iclr_17_compression_tpu_torch.ops.kernels import gdn_kernel as k1
+    from iclr_17_compression_tpu_torch.ops.kernels import quant_pack_kernel as k3
+
+    check, emit = tools.check, tools.emit
+    t_phase = time.perf_counter()
+    laps, t_lap = {}, [t_phase]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    device = str(dev)
+    # the encoder and the decoder compute σ from the same ẑ with the same
+    # cuDNN algorithms only if cuDNN does not pick them by timing
+    check(not torch.backends.cudnn.benchmark, "cudnn.benchmark is on")
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(5)
+    images = [smooth_image(rng, h, w) for _ in range(n_images)]
+    gen = torch.Generator().manual_seed(HYPER_SEED)
+    table = default_scale_table()
+
+    def tensor(img):
+        return torch.from_numpy(codec_cli.pad_to_multiple(img, 64)[None]).to(dev)
+
+    def off_identity(model):
+        return gdn_off_identity_(torch, model, gen)
+
+    def spread(conv, run, std, mean=0.0):
+        """Set each output channel of ``conv`` to the mean ``mean`` and the
+        std ``std`` (scalars or one a channel) on what ``run()`` feeds it."""
+        seen = {}
+        hook = conv.register_forward_hook(lambda mod, a, out: seen.setdefault("y", out))
+        with torch.no_grad():
+            run()
+            hook.remove()
+            y = seen["y"].flatten(0, 2)
+            scale = torch.as_tensor(std, device=y.device) / y.std(dim=0)
+            deconv = isinstance(conv, torch.nn.ConvTranspose2d)  # weight (Cin, Cout, k, k)
+            conv.weight.mul_(scale.view((1, -1, 1, 1) if deconv else (-1, 1, 1, 1)))
+            conv.bias.copy_(scale * (conv.bias - y.mean(dim=0)) + mean)
+
+    # the spread of y and z, σ in a trained model's range (hyperprior
+    # σ = exp(N(log 2, 0.5²)), joint σ ≈ N(2, 0.5²), μ ≈ N(0, 0.5²)), and
+    # each decoder stage at a unit scale with the recon near [0, 1] (the
+    # random IGDNs square their input, so a raw 5×5 decoder reaches 1e6)
+    x0 = tensor(images[0])
+    hp = off_identity(ScaleHyperprior(n, m).init_(gen)).to(dev).eval()
+    spread(hp.Encoder.conv4, lambda: hp.Encoder(x0), HYPER_Y_STD)
+    spread(hp.priorEncoder.conv3, lambda: hp.priorEncoder(hp.Encoder(x0)), HYPER_Z_STD)
+    spread(hp.priorDecoder.deconv3, lambda: hp.priorDecoder(
+        torch.round(hp.priorEncoder(hp.Encoder(x0)))), 0.5, float(np.log(2.0)))
+    for i, deconv in enumerate((hp.Decoder.deconv1, hp.Decoder.deconv2, hp.Decoder.deconv3,
+                                hp.Decoder.deconv4)):
+        spread(deconv, lambda: hp.Decoder(torch.round(hp.Encoder(x0))),
+               *((0.2, 0.5) if i == 3 else (1.0,)))
+    hps = ScaleHyperprior(n, m, quant="sigma-norm").to(dev).eval()
+    hps.load_state_dict(hp.state_dict())
+    jm = off_identity(JointAutoregressive(n).init_(gen)).to(dev).eval()
+    spread(jm.g_a[6], lambda: jm.g_a(x0), HYPER_Y_STD)
+    spread(jm.h_a[8], lambda: jm.h_a(jm.g_a(x0)), HYPER_Z_STD)
+    ep_mean = torch.cat([torch.full((n,), 2.0), torch.zeros(n)]).to(dev)
+    spread(jm.entropy_parameters[4], lambda: jm(x0), 0.5, ep_mean)
+    spread(jm.g_s[7][0], lambda: jm.g_s(torch.round(jm.g_a(x0))), 0.2, 0.5)
+    models = {"hyperprior": hp, "hyperprior-sigma": hps, "joint": jm}
+
+    def counts():
+        return {"conv_gdn": k2.conv_gdn.launches, "gdn": k1.gdn_fused.launches,
+                "quantize_pack": k3.quantize_pack.launches}
+
+    def reset():
+        k2.conv_gdn.launches = k1.gdn_fused.launches = k3.quantize_pack.launches = 0
+
+    def add(total, before):
+        for k, v in counts().items():
+            total[k] += v - before[k]
+
+    # the codecs' σ and hyper paths give the same bits call after call (the
+    # hyperprior's σ under deterministic cuDNN, the joint's forward convs)
+    with torch.no_grad():
+        z_hp = np.round(hp.priorEncoder(hp.Encoder(x0))[0].cpu().numpy())
+        z_jm = np.round(jm.h_a(jm.g_a(x0))[0].cpu().numpy())
+    for what, fn in (("hyperprior σ", lambda: hyperprior.sigma_of(hp, z_hp)),
+                     ("joint hyper", lambda: cheng2020._hyper(jm, z_jm, dev))):
+        first = fn()
+        check(all(np.array_equal(first, fn()) for _ in range(3)),
+              f"{what}: not the same bits on a second call")
+
+    lap("set_up")
+
+    # ---- the main path: each model's file codec on the images, the
+    # counters set to 0 just before and read just after
+    expected = {"hyperprior": ({"conv_gdn": 3, "gdn": 0}, {"conv_gdn": 0, "gdn": 3}),
+                "hyperprior-sigma": ({"conv_gdn": 3, "gdn": 0}, {"conv_gdn": 0, "gdn": 3}),
+                "joint": ({"conv_gdn": 3, "gdn": 0}, {"conv_gdn": 3, "gdn": 0})}
+    launches, per_model, files = {}, {}, {}
+    for name, model in models.items():
+        reset()
+        enc_l = dict.fromkeys(counts(), 0)
+        dec_l = dict.fromkeys(counts(), 0)
+        enc_ms, dec_ms, recons = [], [], []
+        for img in images:
+            torch.cuda.synchronize()
+            before = counts()
+            t0 = time.perf_counter()
+            data = codec_cli.encode_image(img, model, device=device)
+            t1 = time.perf_counter()
+            add(enc_l, before)
+            before = counts()
+            t2 = time.perf_counter()
+            rec = codec_cli.decode_image(data, model, device=device)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            add(dec_l, before)
+            files.setdefault(name, []).append(data)
+            recons.append(rec)
+            enc_ms.append(1e3 * (t1 - t0))
+            dec_ms.append(1e3 * (t3 - t2))
+        launches[name] = {"encode": enc_l, "decode": dec_l}
+        for direction, got, want in (("encode", enc_l, expected[name][0]),
+                                     ("decode", dec_l, expected[name][1])):
+            want = {**want, "quantize_pack": 0}
+            check(got == {k: v * n_images for k, v in want.items()},
+                  f"{name} {direction} launches {got}, expected {want} an image")
+        per_model[name] = {"encode_ms": enc_ms, "decode_ms": dec_ms, "recons": recons}
+    path_launches = {k: sum(launches[nm][d][k] for nm in launches for d in ("encode", "decode"))
+                     for k in counts()}
+
+    lap("main_path")
+
+    # ---- checks on the files, outside the counted run
+    results = {}
+    for name, model in models.items():
+        per_image = []
+        for i, (img, data) in enumerate(zip(images, files[name])):
+            x = tensor(img)
+            rec = per_model[name]["recons"][i]
+            check(rec.shape == img.shape and np.isfinite(rec).all() and rec.min() >= 0.0
+                  and rec.max() <= 1.0, f"{name} image {i}: recon not finite in [0, 1]")
+            if name == "joint":
+                comp, y_enc = cheng2020.compress(model, x, return_y_hat=True)
+                file_comp = codec_cli.read_joint(data)[0]
+                _, y_dec = cheng2020.decompress(model, file_comp, return_y_hat=True)
+                reset()
+                with torch.no_grad():
+                    out = model(x)
+                fwd = counts()
+                check(fwd["conv_gdn"] == 6 and fwd["gdn"] == 0,
+                      f"joint eval forward launches {fwd}, expected K2 6")
+            else:
+                comp, y_enc = hyperprior.compress(model, x, return_y_hat=True)
+                file_comp = codec_cli.read_hyperprior(data)[0]
+                _, y_dec = hyperprior.decompress(model, file_comp, return_y_hat=True)
+                reset()
+                with torch.no_grad():
+                    out = model(x)
+                fwd = counts()
+                check(fwd["conv_gdn"] == 3 and fwd["gdn"] == 3,
+                      f"{name} eval forward launches {fwd}, expected K2 3 + K1 3")
+                check(np.array_equal(out["latent"][0].cpu().numpy(), y_enc),
+                      f"{name} image {i}: the codec's ŷ differs from the eval forward's")
+                err = float(np.abs(rec - out["recon"][0].cpu().numpy()).max())
+                check(err <= DECODE_ATOL, f"{name} image {i}: decoded recon {err:.2e} from "
+                                          "the eval forward's")
+            check(file_comp == comp, f"{name} image {i}: the file's streams differ from a "
+                                     "second encode")
+            check(np.array_equal(y_dec, y_enc), f"{name} image {i}: decoded ŷ differs from "
+                                                "the encoder's")
+            with torch.no_grad():
+                y_t = model.g_a(x) if name == "joint" else model.Encoder(x)
+                z_t = model.h_a(y_t) if name == "joint" else model.priorEncoder(y_t)
+            z_enc = np.round(z_t[0].cpu().numpy())
+            z_dec = decode_latent(hyperprior.z_codec(model, file_comp.z_min, file_comp.z_max),
+                                  file_comp.z_stream, file_comp.z_shape)
+            check(np.array_equal(z_dec, z_enc), f"{name} image {i}: decoded ẑ differs")
+            if name == "hyperprior":
+                check(np.array_equal(y_enc, np.round(y_t[0].cpu().numpy())),
+                      f"hyperprior image {i}: ŷ is not round(y)")
+            if name == "joint":
+                host = cheng2020._HostARContext(model)
+                hyper = cheng2020._hyper(model, z_enc.astype(np.float32), dev)
+                _, _, _, tids = cheng2020.ar_encode(host, y_t[0].cpu().numpy(), hyper,
+                                                    model.scale_bound)
+                syms = cheng2020.default_gaussian_codec(file_comp.max_sym).decode(
+                    file_comp.y_stream, tids)
+            elif name == "hyperprior":
+                syms = y_enc
+            else:
+                syms = np.round(y_enc / hyperprior.sigma_of(model, z_enc.astype(np.float32)))
+            bpp = 8.0 * len(data) / (h * w)
+            per_image.append({
+                "bytes": len(data), "bpp_rans": bpp, "bpp_est": float(out["bpp"]),
+                "bpp_y_est": float(out["bpp_y"]), "bpp_z_est": float(out["bpp_z"]),
+                "y_symbols": {"used": int(np.unique(syms).size), "min": int(syms.min()),
+                              "max": int(syms.max()), "std": float(np.std(syms))},
+                "z_symbols": {"used": int(np.unique(z_enc).size), "min": int(z_enc.min()),
+                              "max": int(z_enc.max())},
+                "encode_ms": per_model[name]["encode_ms"][i],
+                "decode_ms": per_model[name]["decode_ms"][i]})
+            check(np.isfinite(bpp) and bpp > 0 and np.isfinite(per_image[-1]["bpp_est"]),
+                  f"{name} image {i}: bpp {bpp} / estimate {per_image[-1]['bpp_est']}")
+        results[name] = {"per_image": per_image,
+                         "encode_ms_median": statistics.median(per_model[name]["encode_ms"]),
+                         "decode_ms_median": statistics.median(per_model[name]["decode_ms"])}
+
+    lap("checks")
+
+    # ---- the same ẑ on the card and on the CPU: σ's scale-index flips,
+    # on every image and on a crop; the crop's card file is decoded on the
+    # CPU where its count is 0
+    cpu_models = {}
+    for name, model in models.items():
+        cpu = (JointAutoregressive(n) if name == "joint"
+               else ScaleHyperprior(n, m, quant=model.quant))
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        cpu_models[name] = cpu.eval()
+
+    def flips(name, img):
+        """(σ scale-index flips between the card and the CPU for the card's
+        ẑ of ``img``, the elements compared). The joint codec's σ also
+        depends on ŷ: the CPU's σ is taken along the trajectory the CPU
+        decoder of the card's file follows (the card's symbols, the CPU's
+        μ)."""
+        model, cpu = models[name], cpu_models[name]
+        with torch.no_grad():
+            y_t = model.g_a(tensor(img)) if name == "joint" else model.Encoder(tensor(img))
+            z = np.round((model.h_a(y_t) if name == "joint" else model.priorEncoder(y_t))[0]
+                         .cpu().numpy())
+        if name != "joint":
+            tids = [scale_indices(hyperprior.sigma_of(mod, z), table) for mod in (model, cpu)]
+            return int((tids[0] != tids[1]).sum()), int(tids[0].size)
+        host = cheng2020._HostARContext(model)
+        y = y_t[0].cpu().numpy()
+        stream, max_sym, _, tids = cheng2020.ar_encode(host, y, cheng2020._hyper(model, z, dev),
+                                                       model.scale_bound)
+        syms = cheng2020.default_gaussian_codec(max_sym).decode(stream, tids)
+        base = host.prep(cheng2020._hyper(cpu, z, torch.device("cpu")))
+        lh, lw, _ = y.shape
+        pad = host.kh // 2
+        y_hat_pad = np.zeros((lh + 2 * pad, lw + 2 * pad, n), np.float32)
+        at = count = 0
+        for ii, jj in cheng2020._wavefronts(lh, lw):
+            mu, sigma = host.mu_sigma_batch(y_hat_pad, base, ii, jj, model.scale_bound)
+            k = mu.size
+            count += int((scale_indices(sigma, table).reshape(-1) != tids[at: at + k]).sum())
+            y_hat_pad[ii + pad, jj + pad] = syms[at: at + k].reshape(mu.shape) + mu
+            at += k
+        return count, int(tids.size)
+
+    cross = {}
+    crop_img = np.ascontiguousarray(images[0][: crop[0], : crop[1]])
+    for name, model in models.items():
+        counted = [flips(name, img) for img in images]
+        entry = {"sigma_flips": [c[0] for c in counted], "elements": [c[1] for c in counted]}
+        if name == "hyperprior-sigma":
+            entry["note"] = "one unit-Laplace row: no scale index to flip"
+        crop_flips, _ = flips(name, crop_img)
+        entry["crop_sigma_flips"] = crop_flips
+        if name == "hyperprior-sigma" or crop_flips == 0:
+            data = codec_cli.encode_image(crop_img, model, device=device)
+            rec_dev = codec_cli.decode_image(data, model, device=device)
+            rec_cpu = codec_cli.decode_image(data, cpu_models[name], device="cpu")
+            if name == "joint":
+                comp = codec_cli.read_joint(data)[0]
+                _, y_dev = cheng2020.decompress(model, comp, return_y_hat=True)
+                _, y_cpu = cheng2020.decompress(cpu_models[name], comp, return_y_hat=True)
+            else:
+                comp = codec_cli.read_hyperprior(data)[0]
+                _, y_dev = hyperprior.decompress(model, comp, return_y_hat=True)
+                _, y_cpu = hyperprior.decompress(cpu_models[name], comp, return_y_hat=True)
+            y_err = float(np.abs(y_dev - y_cpu).max())
+            rec_err = float(np.abs(rec_dev - rec_cpu).max())
+            y_ok = bool(np.all(np.abs(y_dev - y_cpu) <= Y_HAT_TOL * (1.0 + np.abs(y_dev))))
+            check(y_ok, f"{name}: the card's file decoded on the CPU: ŷ {y_err:.2e} from the "
+                        "card's")
+            check(rec_err <= DECODE_ATOL, f"{name}: the card's file decoded on the CPU: "
+                                          f"recon {rec_err:.2e} from the card's")
+            entry.update(cpu_decode={"y_hat_max_abs_err": y_err, "recon_max_abs_err": rec_err})
+        else:
+            entry["cpu_decode"] = None  # σ crosses a table edge: the decode would desync
+        cross[name] = entry
+
+    lap("cpu_reference")
+
+    # ---- the host AR pass on the card's host: native against numpy front
+    # by front on the first image's own data, both timed on every image,
+    # and a file encoded and decoded by numpy
+    host_n = cheng2020._HostARContext(jm, "native")
+    host_p = cheng2020._HostARContext(jm, "numpy")
+    with torch.no_grad():
+        y_t = jm.g_a(x0)
+        z0 = np.round(jm.h_a(y_t)[0].cpu().numpy())
+    y0, hyper0 = y_t[0].cpu().numpy(), cheng2020._hyper(jm, z0, dev)
+    lh, lw, _ = y0.shape
+    pad = host_n.kh // 2
+    y_hat_pad = np.zeros((lh + 2 * pad, lw + 2 * pad, n), np.float32)
+    base = host_n.prep(hyper0)
+    check(np.array_equal(base, host_p.prep(hyper0)), "AR prep differs between the backends")
+    ar_gap = 0.0
+    for ii, jj in cheng2020._wavefronts(lh, lw):
+        mu_n, sg_n = host_n.mu_sigma_batch(y_hat_pad, base, ii, jj, jm.scale_bound)
+        mu_p, sg_p = host_p.mu_sigma_batch(y_hat_pad, base, ii, jj, jm.scale_bound)
+        for a, b in ((mu_n, mu_p), (sg_n, sg_p)):
+            ar_gap = max(ar_gap, float((np.abs(a - b) / (AR_TOL + AR_TOL * np.abs(b))).max()))
+        y_hat_pad[ii + pad, jj + pad] = np.round(y0[ii, jj] - mu_n) + mu_n
+    check(ar_gap <= 1.0, f"native AR vs numpy: {ar_gap:.2f}× the tolerance {AR_TOL}")
+    ar_ms = {}
+    for backend, host in (("native", host_n), ("numpy", host_p)):
+        times = []
+        for img in images:
+            with torch.no_grad():
+                y_t = jm.g_a(tensor(img))
+                z = np.round(jm.h_a(y_t)[0].cpu().numpy())
+            y, hyper = y_t[0].cpu().numpy(), cheng2020._hyper(jm, z, dev)
+            t0 = time.perf_counter()
+            cheng2020.ar_encode(host, y, hyper, jm.scale_bound)
+            times.append(1e3 * (time.perf_counter() - t0))
+        ar_ms[backend] = times
+    comp_np, y_np = cheng2020.compress(jm, x0, return_y_hat=True, backend="numpy")
+    _, y_np_dec = cheng2020.decompress(jm, comp_np, return_y_hat=True, backend="numpy")
+    check(np.array_equal(y_np, y_np_dec), "joint: a numpy-backend file does not round-trip")
+
+    lap("host_ar")
+
+    # ---- one joint encode + decode under the profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codec_cli.decode_image(codec_cli.encode_image(images[0], jm, device=device), jm,
+                               device=device)
+        torch.cuda.synchronize()
+        prof_wall = 1e3 * (time.perf_counter() - t0)
+    by_kernel, n_kernels = {}, 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                evt, "is_user_annotation", False):
+            key = evt.name.split("(")[0][:60]
+            by_kernel[key] = by_kernel.get(key, 0.0) + evt.time_range.elapsed_us() / 1e3
+            n_kernels += 1
+    busy = sum(by_kernel.values())
+    peak = torch.cuda.max_memory_allocated()
+
+    lap("profile")
+
+    # ---- K2 at the six C = 192 shapes and K1 at the three IGDN shapes,
+    # from the models' own activations of the first image
+    k2_row, k1_row = tools.new_row(library=True), tools.new_row(library=False)
+    with torch.no_grad():
+        xs, enc = x0, hp.Encoder
+        for i, (conv, gdn_m) in enumerate(((enc.conv1, enc.gdn1), (enc.conv2, enc.gdn2),
+                                           (enc.conv3, enc.gdn3))):
+            beta, gamma = gdn_reparam(gdn_m.params())
+            args = (xs.contiguous(), conv.weight.permute(2, 3, 1, 0).contiguous(), conv.bias,
+                    gamma.t().contiguous(), beta.contiguous(), 2, 2, False)
+            tools.measure_k2(args, k2_row, f"K2 Analysis18 conv{i + 1}", cudnn_k1=True)
+            k2_row["shapes"][-1]["where"] = f"hyperprior g_a conv{i + 1}+gdn{i + 1}"
+            xs = k2.conv_gdn_plain(*args)
+        sites = [("joint g_a.0", jm.g_a[0]), ("joint g_a.2", jm.g_a[2]),
+                 ("joint g_a.4", jm.g_a[4]), ("joint g_s.1", jm.g_s[1]),
+                 ("joint g_s.3", jm.g_s[3]), ("joint g_s.5", jm.g_s[5])]
+        inputs = {}
+        hooks = [blk.register_forward_pre_hook(
+            lambda mod, a, where=where: inputs.setdefault(where, a[0])) for where, blk in sites]
+        igdn_in = {}
+        hooks += [dc.register_forward_hook(
+            lambda mod, a, out, i=i: igdn_in.setdefault(i, out))
+            for i, dc in enumerate((hp.Decoder.deconv1, hp.Decoder.deconv2, hp.Decoder.deconv3))]
+        jm(x0)
+        hp(x0)
+        for hk in hooks:
+            hk.remove()
+        for where, blk in sites:
+            xin = inputs[where]
+            if where.startswith("joint g_a"):
+                y, conv, gdn_m = blk.act(blk.conv1(xin)), blk.conv2, blk.gdn
+            else:
+                y, conv, gdn_m = blk.act(blk.subpel_conv(xin)), blk.conv, blk.igdn
+            beta, gamma = gdn_reparam(gdn_m.params())
+            args = (y.contiguous(), conv.weight.permute(2, 3, 1, 0).contiguous(), conv.bias,
+                    gamma.t().contiguous(), beta.contiguous(), 1, 1, gdn_m.inverse)
+            tools.measure_k2(args, k2_row, f"K2 {where}", cudnn_k1=True)
+            k2_row["shapes"][-1]["where"] = where
+        for shape in k2_row["shapes"]:
+            nb, hh, ww, _ = shape["x"]
+            shape["pixels"] = nb * (hh // shape["stride"]) * (ww // shape["stride"])
+            shape["partial_bytes"] = (4 * shape["splits"] * shape["pixels"] * shape["w"][3]
+                                      if shape["splits"] > 1 else 0)
+        for i, igdn in enumerate((hp.Decoder.igdn1, hp.Decoder.igdn2, hp.Decoder.igdn3)):
+            tools.measure_k1(igdn_in[i].contiguous(), igdn, k1_row, f"K1 Synthesis18 igdn{i + 1}")
+            k1_row["shapes"][-1]["where"] = f"hyperprior g_s igdn{i + 1}"
+
+    lap("kernels")
+    seconds = time.perf_counter() - t_phase
+    summary = {name: {k: results[name][k] for k in ("encode_ms_median", "decode_ms_median")}
+               for name in results}
+    emit({"phase": "hyper", "ok": True, "n": n, "m": m, "seed": HYPER_SEED, "images": n_images,
+          "shape": [h, w, 3], "y_std": HYPER_Y_STD, "z_std": HYPER_Z_STD,
+          "launches": launches, "launches_total": path_launches,
+          "per_model": {name: results[name] for name in results}, "ms": summary,
+          "sigma_flips": cross,
+          "host_ar": {"native_ms": ar_ms["native"], "numpy_ms": ar_ms["numpy"],
+                      "native_vs_numpy_gap_of_tol": ar_gap, "tol": AR_TOL,
+                      "fronts": len(cheng2020._wavefronts(lh, lw)), "latent": [lh, lw, n]},
+          "profile_joint": {"wall_ms": prof_wall, "device_busy_ms": busy,
+                            "device_idle_share": 1.0 - busy / prof_wall if prof_wall else None,
+                            "device_kernels": n_kernels,
+                            "device_ms_by_kernel": dict(sorted(by_kernel.items(),
+                                                               key=lambda kv: -kv[1])[:12])},
+          "peak_memory_gib": peak / 2 ** 30,
+          "k2_c192": k2_row, "k1_c192": k1_row, "seconds": seconds, "section_s": laps})
+    print(f"hyper phase seconds: {seconds:.1f}", flush=True)
+    return {"launches": path_launches, "k2": k2_row, "k1": k1_row}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -806,10 +1290,17 @@ def main() -> int:
     def time_ms(fn, warmup: int = 3, reps: int = 20, batch: int = 10) -> float:
         """Device time of one call: CUDA events around ``batch`` calls queued
         behind a sleep kernel, so that the host's enqueue time (the Python
-        wrapper) is hidden; median over ``reps`` after ``warmup`` calls."""
+        wrapper) is hidden; median over ``reps`` after ``warmup`` calls. A
+        call of over 10 ms (cuDNN's fp32 path at some C = 192 shapes takes
+        190 ms) is timed alone, 5 times."""
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 > 0.010:
+            reps, batch = 5, 1
         times = []
         for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
@@ -1491,22 +1982,14 @@ def main() -> int:
                                                           DSCStereoModel, quantize_code)
     from iclr_17_compression_tpu_torch.nn.blocks import (ResidualBlockUpsample,
                                                          ResidualBlockWithStride)
-    from iclr_17_compression_tpu_torch.nn.layers import GDN
 
     def dsc_model(preset: str, seed: int) -> DSCStereoModel:
         """The port's seeded init of ``preset`` on the card, every GDN and
-        IGDN moved off its identity (β in 0.7-1.3, γ = 0.3·I + 0.1·U: neither
-        diagonal nor symmetric), so that K2's epilogue and reduce body are
-        held with the norm pool's cross-channel terms and γᵀ."""
+        IGDN moved off its identity, so that K2's epilogue and reduce body
+        are held with the norm pool's cross-channel terms and γᵀ."""
         gen_m = torch.Generator().manual_seed(seed)
         model = DSCStereoModel(DSC_PRESETS[preset]).init_(gen_m)
-        with torch.no_grad():
-            for m in model.modules():
-                if isinstance(m, GDN):
-                    c = m.beta.shape[0]
-                    m.beta.copy_(0.7 + 0.6 * torch.rand(c, generator=gen_m))
-                    m.gamma.copy_(0.3 * torch.eye(c) + 0.1 * torch.rand((c, c), generator=gen_m))
-        return model.to(dev).eval()
+        return gdn_off_identity_(torch, model, gen_m).to(dev).eval()
 
     def padded(img):
         return torch.from_numpy(codec_cli.pad_to_multiple(img, cfg_dsc.code_div)[None]).to(dev)
@@ -1729,10 +2212,12 @@ def main() -> int:
     print(f"dsc phase seconds: {dsc_s:.1f}", flush=True)
 
     tools = types.SimpleNamespace(check=check, emit=emit, time_ms=time_ms, call_ms=call_ms,
-                                  measure_k2=measure_k2, new_row=new_row, bound_ms=bound_ms,
-                                  floor_ms=floor_ms)
+                                  measure_k2=measure_k2, measure_k1=measure_k1, new_row=new_row,
+                                  bound_ms=bound_ms, floor_ms=floor_ms)
     dsc_train = dsc_train_phase(torch, dev, tools)
     dsc_train_launches = dsc_train["launches"]
+    hyper = hyper_phase(torch, dev, tools)
+    hyper_launches = hyper["launches"]
 
     kernels = []
     meta = {
@@ -1748,10 +2233,11 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
                  "launches": (launches[name] + train_launches[name] + dsc_launches[name]
-                              + dsc_train_launches[name]),
+                              + dsc_train_launches[name] + hyper_launches[name]),
                  "launches_by_path": {"codec": launches[name], "train": train_launches[name],
                                       "dsc": dsc_launches[name],
-                                      "dsc_train": dsc_train_launches[name]},
+                                      "dsc_train": dsc_train_launches[name],
+                                      "hyper": hyper_launches[name]},
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -1765,6 +2251,14 @@ def main() -> int:
             entry["training_shapes"] = [
                 {k: st.get(k) for k in ("x", "ms", "plain_ms", "library_ms", "bound_ms")}
                 for st in train_row["shapes"]]
+        hyper_row = {"conv_gdn": hyper["k2"], "gdn": hyper["k1"]}.get(name)
+        if hyper_row is not None:
+            entry["max_abs_err"] = max(entry["max_abs_err"], hyper_row["max_abs_err"])
+            entry["c192_shapes"] = [
+                {k: st.get(k) for k in ("where", "x", "splits", "partial_bytes", "ms", "call_ms",
+                                        "plain_ms", "library_ms", "cudnn_k1_ms", "bound_ms",
+                                        "bound_by")}
+                for st in hyper_row["shapes"]]
         if name == "conv_gdn":
             k2_tr = dsc_train["k2_training"]
             entry["max_abs_err"] = max(entry["max_abs_err"], k2_dsc["max_abs_err"],

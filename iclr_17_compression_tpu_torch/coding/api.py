@@ -3,7 +3,8 @@
 Counterpart of ``iclr_17_compression_tpu/coding/api.py`` for the factorized
 prior and the DSC code: ``_quantize_pmf``, ``RansCodec``,
 ``build_cdf_tables_from_bit_estimator``, ``build_cdf_tables_from_histogram``
-(the DSC code's in-band tables), ``encode_latent``, ``decode_latent`` and
+(the DSC code's in-band tables), ``encode_latent``, ``decode_latent``,
+``StreamingDecoder`` (the joint-AR codec's symbol-by-symbol decode) and
 ``gzip_bpp`` (the reference's rate proxy). The coder is the port's own copy of
 ``rans.cc`` (``coding/src/``), built with g++ into the port's build directory
 on first use (``ops/kernels/_build.py``).
@@ -44,6 +45,14 @@ def _get_lib() -> ctypes.CDLL:
         _u8p, ctypes.c_int64, _i32p, ctypes.c_int64, _u32p, _u32p,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _i32p,
     ]
+    lib.rans_dec_create.restype = ctypes.c_void_p
+    lib.rans_dec_create.argtypes = [
+        _u8p, ctypes.c_int64, _u32p, _u32p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+    ]
+    lib.rans_dec_step.restype = ctypes.c_int
+    lib.rans_dec_step.argtypes = [ctypes.c_void_p, _i32p, ctypes.c_int64, _i32p]
+    lib.rans_dec_free.restype = None
+    lib.rans_dec_free.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -126,6 +135,49 @@ class RansCodec:
         if rc != 0:
             raise RuntimeError("rANS decode failed")
         return sym + self.offset
+
+
+class StreamingDecoder:
+    """A stateful rANS decoder over a codec's tables, for a stream whose
+    table ids are not known up front (the joint-AR codec: symbol i's scale
+    index comes from the symbols before it). ``step(table_ids)`` decodes the
+    next ``len(table_ids)`` symbols in forward order. A context manager;
+    ``close`` frees the native decoder."""
+
+    def __init__(self, codec: RansCodec, stream: bytes):
+        self._lib = _get_lib()
+        self._codec = codec
+        buf = np.frombuffer(stream, np.uint8)
+        self._handle = self._lib.rans_dec_create(
+            buf.ctypes.data_as(_u8p), buf.size, codec.freqs.ctypes.data_as(_u32p),
+            codec.cums.ctypes.data_as(_u32p), codec.nsym, codec.ntables, codec.scale_bits,
+        )
+        if not self._handle:
+            raise RuntimeError("rANS streaming decoder: create failed")
+
+    def step(self, table_ids: np.ndarray) -> np.ndarray:
+        if not self._handle:
+            raise RuntimeError("rANS streaming decoder: closed")
+        tid = np.ascontiguousarray(np.asarray(table_ids).reshape(-1), np.int32)
+        sym = np.empty(tid.size, np.int32)
+        if self._lib.rans_dec_step(self._handle, tid.ctypes.data_as(_i32p), tid.size,
+                                   sym.ctypes.data_as(_i32p)) != 0:
+            raise RuntimeError("rANS streaming decode failed")
+        return sym + self._codec.offset
+
+    def close(self) -> None:
+        if getattr(self, "_handle", None):
+            self._lib.rans_dec_free(self._handle)
+            self._handle = None
+
+    def __enter__(self) -> "StreamingDecoder":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self):
+        self.close()
 
 
 def _cpu_params(params: BitEstimatorParams) -> BitEstimatorParams:

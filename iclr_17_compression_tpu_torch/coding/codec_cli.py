@@ -1,7 +1,8 @@
 """File-level image codec: HWC image → ``.icz`` bytes → image.
 
-Counterpart of the Ballé-17 and DSC parts of
-``iclr_17_compression_tpu/coding/codec_cli.py``; the byte layouts are the
+Counterpart of ``iclr_17_compression_tpu/coding/codec_cli.py`` (the
+Ballé-17, hyperprior, joint-AR and DSC kinds, ``build_model`` and the
+``encode`` / ``decode`` / ``roundtrip`` commands); the byte layouts are the
 same containers. Common header:
 
   b"ICZ1" | kind u8 | len(name) u8 | name | N u16 | H u32 | W u32
@@ -13,6 +14,19 @@ latent the header's i16 zmin/zmax can describe, as the JAX codec codes)
 turns the latent into symbols on the device and only those cross to the
 host, then the CDF tables and rANS. Decode: rANS, then the decoder (deconvs
 with a K1 IGDN after each of the first two), clipped to [0, 1].
+
+``KIND_HYPERPRIOR`` (5), the scale hyperprior (header name ``hyperprior``
+or ``hyperprior-sigma``, the quantizer): M u16 | y h, w, c u16 | z h, w, c
+u16 | max_sym u32 | zmin i16 | zmax i16 | len u32 | y rANS | len u32 | z
+rANS. ``KIND_JOINT`` (6), the joint-AR codec (name ``joint``): y h, w, c u16
+| z h, w, c u16 | max_sym u16 | zmin i16 | zmax i16 | the two streams. Both
+pad to a multiple of 64. Encode on CUDA: the analysis transform (three K2
+launches for either model), the hyper path and, for ``joint``, the host AR
+context pass over wavefronts (``--ar-backend``, ``native`` by default, or
+``numpy``: a file decodes only with the backend that encoded it). Decode:
+the z stream, σ from the hyper decoder, the y stream (for ``joint``
+symbol by symbol through the AR context), then the synthesis (three K1
+IGDNs for the hyperprior, three K2 launches for ``joint``).
 
 ``KIND_DSC`` (7), the DSC stereo codec: the transmitted coarse code alone,
 as ``serialize_dsc_code`` writes it (code h, w, c u16 | step f32 | offset
@@ -45,17 +59,31 @@ of a DSC model may also be a train state the port's trainer wrote):
       decode out.icz rec.png --ckpt flagship.msgpack --si right.png
   (add --reg-ckpt reg.msgpack [--reg-model reg_0_0625] to both for the
   two-stage file)
+  python -m iclr_17_compression_tpu_torch.coding.codec_cli \
+      encode in.png out.icz --model joint --ckpt joint.msgpack
+  python -m iclr_17_compression_tpu_torch.coding.codec_cli \
+      decode out.icz rec.png --ckpt joint.msgpack
+  python -m iclr_17_compression_tpu_torch.coding.codec_cli \
+      roundtrip in.png --model hyperprior --ckpt hyperprior.msgpack
+(``--model hyperprior-sigma`` for σ-normalized symbols; ``--n`` / ``--m``
+give the widths the checkpoint was trained at, 0 for the defaults 192 /
+320; ``roundtrip`` prints the file's bytes and bpp and the decode's PSNR.)
 """
 
 import argparse
+import json
 import struct
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..models import cheng2020, hyperprior
+from ..models.balle17 import Balle17Compressor
+from ..models.cheng2020 import JointAutoregressive
 from ..models.dsc import (DSC_PRESETS, UNCLIPPED_LIM, DSCDecoder, DSCStereoModel, code_symbols,
                           quantize_code)
+from ..models.hyperprior import ScaleHyperprior
 from ..ops.kernels.quant_pack_kernel import quantize_pack
 from ..utils.device import resolve_device
 from .api import (RansCodec, build_cdf_tables_from_bit_estimator,
@@ -63,9 +91,12 @@ from .api import (RansCodec, build_cdf_tables_from_bit_estimator,
 
 MAGIC = b"ICZ1"
 KIND_BALLE17 = 1
+KIND_HYPERPRIOR = 5  # scale hyperprior: factorized z + Laplace(0, sigma) y
+KIND_JOINT = 6  # joint-AR, wavefront symbol order
 KIND_DSC = 7  # DSC coarse code, uint16 freq tables
 KIND_DSC_COMPOSITE = 8  # base DSC code + rate-regression residual code
 PAD_MULTIPLE = 16
+HYPER_PAD_MULTIPLE = 64  # hyperprior and joint: ÷16 latent, ÷4 again for z
 SYMBOL_LIM = UNCLIPPED_LIM  # K3 at step 1, 16 bits: symbols 0..65534 stand for latents ±32767
 
 
@@ -76,6 +107,29 @@ def pad_to_multiple(img: np.ndarray, m: int) -> np.ndarray:
     if ph == 0 and pw == 0:
         return img
     return np.pad(img, ((0, ph), (0, pw), (0, 0)), mode="edge")
+
+
+def build_model(spec: str, n: int = 0, m: int = 0):
+    """(kind, a model of ``spec`` with the port's default weights, pad
+    multiple). ``n`` / ``m`` 0 are the model's defaults: Ballé-17 N 128,
+    hyperprior and joint N 192, hyperprior M 320."""
+    if spec == "balle17":
+        return KIND_BALLE17, Balle17Compressor(n or 128), PAD_MULTIPLE
+    if spec == "joint":
+        return KIND_JOINT, JointAutoregressive(n or 192), HYPER_PAD_MULTIPLE
+    if spec in ("hyperprior", "hyperprior-sigma"):
+        quant = "sigma-norm" if spec.endswith("-sigma") else "round"
+        return (KIND_HYPERPRIOR, ScaleHyperprior(n or 192, m or 320, quant=quant),
+                HYPER_PAD_MULTIPLE)
+    if spec in DSC_PRESETS:
+        cfg = DSC_PRESETS[spec]
+        return KIND_DSC, DSCStereoModel(cfg), cfg.code_div
+    raise ValueError(f"unknown model {spec!r}; choose balle17, hyperprior, hyperprior-sigma, "
+                     f"joint or one of {sorted(DSC_PRESETS)}")
+
+
+def _hyper_name(model: ScaleHyperprior) -> str:
+    return "hyperprior-sigma" if model.quant == "sigma-norm" else "hyperprior"
 
 
 def _pack_bytes(b: bytes) -> bytes:
@@ -120,13 +174,28 @@ def _image_tensor(image: np.ndarray, mult: int, dev: torch.device) -> torch.Tens
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
 
 
-def encode_image(image: np.ndarray, model, device: Optional[str] = None) -> bytes:
+def encode_image(image: np.ndarray, model, device: Optional[str] = None,
+                 ar_backend: str = "native") -> bytes:
     """image: HWC float in [0, 1] → ICZ1 bytes. ``model`` is a
-    ``Balle17Compressor`` or a ``DSCStereoModel``; it is moved to ``device``
-    (default ``cuda``)."""
+    ``Balle17Compressor``, ``ScaleHyperprior``, ``JointAutoregressive`` or
+    ``DSCStereoModel``; it is moved to ``device`` (default ``cuda``).
+    ``ar_backend`` is the joint-AR codec's host backend."""
     dev = resolve_device(device)
     model = model.to(dev)
     h0, w0 = image.shape[:2]
+    if isinstance(model, ScaleHyperprior):
+        comp = hyperprior.compress(model, _image_tensor(image, HYPER_PAD_MULTIPLE, dev))
+        return (_header(KIND_HYPERPRIOR, _hyper_name(model), model.out_channel_n, h0, w0)
+                + struct.pack("<HHHHHHHIhh", model.out_channel_m, *comp.y_shape, *comp.z_shape,
+                              comp.max_sym, comp.z_min, comp.z_max)
+                + _pack_bytes(comp.y_stream) + _pack_bytes(comp.z_stream))
+    if isinstance(model, JointAutoregressive):
+        comp = cheng2020.compress(model, _image_tensor(image, HYPER_PAD_MULTIPLE, dev),
+                                  backend=ar_backend)
+        return (_header(KIND_JOINT, "joint", model.n, h0, w0)
+                + struct.pack("<HHHHHHHhh", *comp.y_shape, *comp.z_shape, comp.max_sym,
+                              comp.z_min, comp.z_max)
+                + _pack_bytes(comp.y_stream) + _pack_bytes(comp.z_stream))
     if isinstance(model, DSCStereoModel):
         cfg = model.config
         return (_header(KIND_DSC, cfg.name, 0, h0, w0)
@@ -164,6 +233,34 @@ def read_latent(data: bytes, model) -> Tuple[np.ndarray, int, int]:
     stream = r.take_bytes()
     codec = build_cdf_tables_from_bit_estimator(model.bitEstimator.params(), zmin, zmax)
     return decode_latent(codec, stream, (lh, lw, lc)), h0, w0
+
+
+def read_hyperprior(data: bytes) -> Tuple[hyperprior.CompressedHyper, str, int, int, int, int]:
+    """Parse a kind-5 file: (its streams, model name, N, M, image height,
+    image width)."""
+    r = _Reader(data)
+    kind, name, n, h0, w0 = _read_header(r)
+    if kind != KIND_HYPERPRIOR:
+        raise ValueError(f"kind {kind} ({name!r}) is not a hyperprior file")
+    m, *vals = r.take("HHHHHHHIhh")
+    comp = hyperprior.CompressedHyper(
+        y_stream=r.take_bytes(), z_stream=r.take_bytes(), y_shape=tuple(vals[:3]),
+        z_shape=tuple(vals[3:6]), max_sym=vals[6], z_min=vals[7], z_max=vals[8],
+        quant="sigma-norm" if name.endswith("-sigma") else "round")
+    return comp, name, n, m, h0, w0
+
+
+def read_joint(data: bytes) -> Tuple[cheng2020.CompressedImage, int, int, int]:
+    """Parse a kind-6 file: (its streams, N, image height, image width)."""
+    r = _Reader(data)
+    kind, name, n, h0, w0 = _read_header(r)
+    if kind != KIND_JOINT:
+        raise ValueError(f"kind {kind} ({name!r}) is not a joint-AR file")
+    vals = r.take("HHHHHHHhh")
+    comp = cheng2020.CompressedImage(
+        y_stream=r.take_bytes(), z_stream=r.take_bytes(), y_shape=tuple(vals[:3]),
+        z_shape=tuple(vals[3:6]), max_sym=vals[6], z_min=vals[7], z_max=vals[8])
+    return comp, n, h0, w0
 
 
 def serialize_dsc_code(syms: np.ndarray, step: float, code_clip) -> bytes:
@@ -253,14 +350,27 @@ def _decode_dsc(model: DSCStereoModel, code: np.ndarray, si: torch.Tensor,
 
 
 def decode_image(data: bytes, model, device: Optional[str] = None,
-                 si_image: Optional[np.ndarray] = None) -> np.ndarray:
+                 si_image: Optional[np.ndarray] = None, ar_backend: str = "native") -> np.ndarray:
     """ICZ1 bytes → HWC float reconstruction in [0, 1]. ``model`` is the
-    ``Balle17Compressor`` or ``DSCStereoModel`` the file was coded with; it
-    is moved to ``device`` (default ``cuda``). A DSC file also needs the
-    receiver's side-information image ``si_image`` (HWC in [0, 1])."""
+    model the file was coded with; it is moved to ``device`` (default
+    ``cuda``). A DSC file also needs the receiver's side-information image
+    ``si_image`` (HWC in [0, 1]); a joint-AR file the ``ar_backend`` that
+    encoded it."""
     dev = resolve_device(device)
     model = model.to(dev)
-    if _read_header(_Reader(data))[0] == KIND_DSC:
+    kind = _read_header(_Reader(data))[0]
+    if kind == KIND_HYPERPRIOR:
+        comp, name, n, m, h0, w0 = read_hyperprior(data)
+        if not isinstance(model, ScaleHyperprior) or (_hyper_name(model), model.out_channel_n,
+                                                      model.out_channel_m) != (name, n, m):
+            raise ValueError(f"the file is coded with {name} N={n} M={m}, not this model")
+        return hyperprior.decompress(model, comp)[0, :h0, :w0]
+    if kind == KIND_JOINT:
+        comp, n, h0, w0 = read_joint(data)
+        if not isinstance(model, JointAutoregressive) or model.n != n:
+            raise ValueError(f"the file is coded with the joint-AR model at N={n}, not this model")
+        return cheng2020.decompress(model, comp, backend=ar_backend)[0, :h0, :w0]
+    if kind == KIND_DSC:
         code, name, h0, w0 = read_dsc_code(data)
         _check_preset(model, name)
         if si_image is None:
@@ -305,64 +415,108 @@ def decode_composite(data: bytes, base_model: DSCStereoModel, reg_model: DSCSter
     return final[0, :h0, :w0].cpu().numpy()
 
 
+def _load_model(spec: str, ckpt: str, dev: Optional[str], n: int = 0, m: int = 0):
+    """The model ``spec`` with the weights of ``ckpt``, in eval mode on
+    ``dev``. Ballé-17 and DSC take their widths from the checkpoint; the
+    hyperprior and joint models are built at ``n`` / ``m`` (0: 192 / 320)
+    and the checkpoint must match them."""
+    from ..train.weights import (load_balle17, load_dsc, load_hyperprior_weights,
+                                 load_joint_weights)
+
+    if spec == "balle17":
+        return load_balle17(ckpt, device=dev)
+    if spec in DSC_PRESETS:
+        return load_dsc(ckpt, spec, dev)
+    dev = resolve_device(dev)
+    _, model, _ = build_model(spec, n, m)
+    load = load_joint_weights if spec == "joint" else load_hyperprior_weights
+    return load(model, ckpt).to(dev).eval()
+
+
+def _decode_file(data: bytes, args, si: Optional[np.ndarray], reg_model=None, model=None):
+    """Decode a file as the CLI's ``decode`` does, loading the model the
+    header names unless one is given."""
+    dev = args.device
+    kind, name, n, _, _ = _read_header(_Reader(data))
+    if kind == KIND_DSC_COMPOSITE:
+        if si is None or not args.reg_ckpt:
+            raise SystemExit("a two-stage file needs --si and --reg-ckpt")
+        reg_name = read_dsc_composite(data)[1]
+        return decode_composite(data, model or _load_model(name, args.ckpt, dev),
+                                reg_model or _load_model(reg_name, args.reg_ckpt, dev), si,
+                                device=dev)
+    if kind == KIND_HYPERPRIOR:
+        spec, m = name, read_hyperprior(data)[3]
+    elif kind == KIND_JOINT:
+        spec, m = "joint", 0
+    elif kind == KIND_BALLE17 or (kind == KIND_DSC and name in DSC_PRESETS):
+        spec = "balle17" if kind == KIND_BALLE17 else name
+    else:
+        raise SystemExit(f"kind {kind} ({name!r}): the port decodes the Ballé-17, hyperprior, "
+                         "joint-AR and DSC files")
+    if model is None:
+        model = (_load_model(spec, args.ckpt, dev, n, m) if kind in (KIND_HYPERPRIOR, KIND_JOINT)
+                 else _load_model(spec, args.ckpt, dev))
+    return decode_image(data, model, device=dev, si_image=si, ar_backend=args.ar_backend)
+
+
 def main(argv=None):
     from ..data.datasets import _load as load_image
-    from ..train.weights import load_balle17, load_dsc
 
     ap = argparse.ArgumentParser(prog="codec_cli", description=__doc__.split("\n\n")[0])
-    ap.add_argument("cmd", choices=["encode", "decode"])
+    ap.add_argument("cmd", choices=["encode", "decode", "roundtrip"])
     ap.add_argument("src")
-    ap.add_argument("dst")
+    ap.add_argument("dst", nargs="?", help="the output file (encode, decode)")
     ap.add_argument("--ckpt", required=True,
-                    help="flax msgpack params of a Ballé-17 or DSC model, or a DSC train "
-                         "state the port's trainer wrote")
+                    help="flax msgpack params of a Ballé-17, hyperprior, joint-AR or DSC model, "
+                         "or a DSC train state the port's trainer wrote")
     ap.add_argument("--model", default="balle17",
-                    help="encode: balle17 or a DSC preset name (decode reads it from the file)")
+                    help="encode / roundtrip: balle17, hyperprior, hyperprior-sigma, joint or a "
+                         "DSC preset name (decode reads it from the file)")
+    ap.add_argument("--n", type=int, default=0, help="hyperprior / joint N (0: 192)")
+    ap.add_argument("--m", type=int, default=0, help="hyperprior M (0: 320)")
+    ap.add_argument("--ar-backend", default="native", choices=["native", "numpy"],
+                    help="the joint-AR host backend; a file decodes only with its encoder's")
     ap.add_argument("--si", default="", help="side-information image (DSC decode)")
     ap.add_argument("--reg-ckpt", default="",
                     help="rate-regression stage params: a two-stage file (0.0625 bpp)")
     ap.add_argument("--reg-model", default="reg_0_0625", help="regression-stage DSC preset")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.cmd != "roundtrip" and args.dst is None:
+        ap.error(f"{args.cmd} needs an output file")
     dev = args.device
-    if args.cmd == "encode":
-        img = load_image(args.src)
-        if args.model == "balle17":
-            data = encode_image(img, load_balle17(args.ckpt, device=dev), device=dev)
-        elif args.reg_ckpt:
-            data = encode_composite(img, load_dsc(args.ckpt, args.model, dev),
-                                    load_dsc(args.reg_ckpt, args.reg_model, dev), device=dev)
+    si = load_image(args.si) if args.si else None
+    if args.cmd == "decode":
+        with open(args.src, "rb") as f:
+            rec = _decode_file(f.read(), args, si)
+        u8 = np.clip(rec * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        if args.dst.lower().endswith(".ppm"):
+            with open(args.dst, "wb") as f:
+                f.write(b"P6\n%d %d\n255\n" % (u8.shape[1], u8.shape[0]) + u8.tobytes())
         else:
-            data = encode_image(img, load_dsc(args.ckpt, args.model, dev), device=dev)
+            from PIL import Image
+
+            Image.fromarray(u8).save(args.dst)
+        return
+    img = load_image(args.src)
+    model = _load_model(args.model, args.ckpt, dev, args.n, args.m)
+    reg_model = None
+    if args.reg_ckpt:
+        reg_model = _load_model(args.reg_model, args.reg_ckpt, dev)
+        data = encode_composite(img, model, reg_model, device=dev)
+    else:
+        data = encode_image(img, model, device=dev, ar_backend=args.ar_backend)
+    bpp = 8.0 * len(data) / (img.shape[0] * img.shape[1])
+    if args.cmd == "encode":
         with open(args.dst, "wb") as f:
             f.write(data)
-        print(f"{args.dst}: {len(data)} bytes, "
-              f"{8 * len(data) / (img.shape[0] * img.shape[1]):.4f} bpp")
+        print(f"{args.dst}: {len(data)} bytes, {bpp:.4f} bpp")
         return
-    with open(args.src, "rb") as f:
-        data = f.read()
-    kind, name, _, _, _ = _read_header(_Reader(data))
-    si = load_image(args.si) if args.si else None
-    if kind == KIND_BALLE17:
-        rec = decode_image(data, load_balle17(args.ckpt, device=dev), device=dev)
-    elif kind == KIND_DSC_COMPOSITE:
-        if si is None or not args.reg_ckpt:
-            raise SystemExit("a two-stage file needs --si and --reg-ckpt")
-        reg_name = read_dsc_composite(data)[1]
-        rec = decode_composite(data, load_dsc(args.ckpt, name, dev),
-                               load_dsc(args.reg_ckpt, reg_name, dev), si, device=dev)
-    elif kind == KIND_DSC and name in DSC_PRESETS:
-        rec = decode_image(data, load_dsc(args.ckpt, name, dev), device=dev, si_image=si)
-    else:
-        raise SystemExit(f"kind {kind} ({name!r}): the port decodes Ballé-17 and DSC files")
-    u8 = np.clip(rec * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    if args.dst.lower().endswith(".ppm"):
-        with open(args.dst, "wb") as f:
-            f.write(b"P6\n%d %d\n255\n" % (u8.shape[1], u8.shape[0]) + u8.tobytes())
-    else:
-        from PIL import Image
-
-        Image.fromarray(u8).save(args.dst)
+    rec = _decode_file(data, args, si, reg_model=reg_model, model=model)
+    mse = float(np.mean((rec - img) ** 2))
+    print(json.dumps({"bytes": len(data), "bpp": round(bpp, 5),
+                      "psnr": round(10.0 * np.log10(1.0 / max(mse, 1e-12)), 3)}))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Base modules with torch-reference parameter layouts, NHWC activations.
 
 Counterpart of ``iclr_17_compression_tpu/nn/layers.py`` (``TorchConv``,
-``TorchConvTranspose``, ``GDN``, ``BitEstimator``). Parameters keep the
+``TorchConvTranspose``, ``MaskedConv``, ``GDN``, ``BitEstimator``). Parameters keep the
 reference PyTorch layouts and names, so a port model's ``state_dict()`` has
 the reference keys that ``iclr_17_compression_tpu.train.torch_import`` maps:
 conv weight OIHW, deconv weight (Cin, Cout, kh, kw), GDN ``beta``/``gamma``
@@ -87,6 +87,33 @@ class TorchConvTranspose(_JaxInit, nn.ConvTranspose2d):
             x, self.weight, self.bias, stride=self.stride, padding=self.padding,
             output_padding=self.output_padding,
         )
+
+
+class MaskedConv(TorchConv):
+    """PixelCNN-style masked conv, NHWC: mask A hides the centre tap and
+    everything after it in raster order, mask B everything after the
+    centre. The mask multiplies the OIHW weight at call time (a buffer
+    outside the state_dict), so the stored weight is the reference's
+    ``context_prediction.weight``. ``init_`` is torch's default U(±1/√fan_in),
+    as the JAX ``MaskedConv`` draws it."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, mask_type: str = "A",
+                 stride: int = 1, padding: int = 0):
+        if mask_type not in ("A", "B"):
+            raise ValueError(f"bad mask_type {mask_type!r}")
+        super().__init__(cin, cout, kernel_size, stride=stride, padding=padding)
+        kh, kw = self.kernel_size
+        mask = torch.ones(kh, kw)
+        mask[kh // 2, kw // 2 + (mask_type == "B"):] = 0.0
+        mask[kh // 2 + 1:] = 0.0
+        self.register_buffer("mask", mask, persistent=False)
+
+    def init_(self, generator: torch.Generator) -> None:
+        torch_default_init_(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ops_conv.conv2d(x, self.weight * self.mask, self.bias, stride=self.stride,
+                               padding=self.padding)
 
 
 class GDN(nn.Module):

@@ -1,12 +1,16 @@
 """Build and load the port's native libraries.
 
-Two shared libraries with a plain C interface, loaded with ctypes:
+Three shared libraries with a plain C interface, loaded with ctypes:
 
 - ``libiclr17c_kernels.so``: every ``csrc/*.cu`` in one ``nvcc`` call for
   ``sm_90a`` (H100). No source includes PyTorch's or CUTLASS's headers, so
   the build takes seconds, not the minutes of ``torch.utils.cpp_extension``.
 - ``librans.so``: the port's copy of the rANS coder
-  (``coding/src/rans.cc``), built with ``g++``. The CPU path needs only this.
+  (``coding/src/rans.cc``), built with ``g++``. The CPU path needs only this
+  and the next.
+- ``libarctx.so``: the port's copy of the joint-AR host context library
+  (``coding/src/ar_ctx.cc``), built with ``g++``; it finds its BLAS at run
+  time (``coding/ar_native.py``).
 
 Both go to ``build/iclr17c_torch/`` at the root of the checkout on first use.
 A build is keyed by a hash of its sources and command, so an edited source
@@ -32,6 +36,7 @@ _PKG = Path(__file__).resolve().parents[2]
 BUILD_DIR = _PKG.parent / "build" / "iclr17c_torch"
 CSRC = Path(__file__).resolve().parent / "csrc"
 RANS_SRC = _PKG / "coding" / "src" / "rans.cc"
+AR_CTX_SRC = _PKG / "coding" / "src" / "ar_ctx.cc"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -119,6 +124,13 @@ def kernels() -> ctypes.CDLL:
 def rans() -> ctypes.CDLL:
     """The host rANS coder (built on first call)."""
     path, _ = build("librans.so", "g++", GXX_FLAGS, [RANS_SRC])
+    return ctypes.CDLL(str(path))
+
+
+@functools.lru_cache(maxsize=None)
+def ar_ctx() -> ctypes.CDLL:
+    """The joint-AR host context library (built on first call)."""
+    path, _ = build("libarctx.so", "g++", GXX_FLAGS + ["-ldl"], [AR_CTX_SRC])
     return ctypes.CDLL(str(path))
 
 

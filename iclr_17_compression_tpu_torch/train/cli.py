@@ -81,10 +81,10 @@ def setup_logging(name: str, save_dir: str) -> None:
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise for what the port does not train yet, naming its ROADMAP item:
-    the hyperprior and joint models (16), the DSC fusion modules (17), the
+    the hyperprior and joint models (16b), the DSC fusion modules (17), the
     auxiliary trainers other than ``reg_stage`` (18), a mesh (20)."""
     if cfg.model in ("hyperprior", "joint"):
-        raise NotImplementedError(f"model {cfg.model!r}: not ported yet (ROADMAP item 16)")
+        raise NotImplementedError(f"model {cfg.model!r}: not ported yet (ROADMAP item 16b)")
     if cfg.model.startswith("dsc:"):
         preset = DSC_PRESETS[cfg.model.split(":", 1)[1]]
         if preset.fusion_pre != "none" or preset.fusion_post != "none":

@@ -139,7 +139,7 @@ def build_model(name: str, device: Optional[str] = None, seed: int = 0, **kw) ->
     """Model factory: ``balle17`` (``out_channel_n``, ``quant``) or
     ``dsc:<preset>`` (``loss`` overrides the preset's), drawn from the JAX
     package's init with a generator seeded by ``seed``, on ``device``
-    (default ``cuda``). ``hyperprior`` and ``joint`` are ROADMAP item 16."""
+    (default ``cuda``). ``hyperprior`` and ``joint`` are ROADMAP item 16b."""
     from ..models.balle17 import Balle17Compressor
     from ..models.dsc import DSC_PRESETS, DSCStereoModel
 
@@ -154,7 +154,7 @@ def build_model(name: str, device: Optional[str] = None, seed: int = 0, **kw) ->
             cfg = dataclasses.replace(cfg, loss=kw["loss"])
         model = DSCStereoModel(cfg)
     elif name in ("hyperprior", "joint"):
-        raise NotImplementedError(f"model {name!r} is not ported yet (ROADMAP item 16)")
+        raise NotImplementedError(f"model {name!r} is not ported yet (ROADMAP item 16b)")
     else:
         raise ValueError(f"unknown model {name!r}")
     return model.init_(gen).to(dev)

@@ -28,6 +28,16 @@ of a given ``DSCConfig`` (the inverse of ``import_dsc``): the flax tree
 ``params``, or the port's own train-state file (``train/checkpoint.py``'s
 ``save_train_state``: a ``torch.save`` zip whose ``model`` is the state_dict,
 read with ``weights_only=True``).
+
+``hyperprior_params_{from,to}_jax`` and ``joint_params_{from,to}_jax`` do the
+same for the scale hyperprior (the inverse of ``import_hyperprior``: flax
+``g_a/conv1`` is the port's ``Encoder.conv1``, ``h_s/deconv1``
+``priorDecoder.deconv1``, ``bit_estimator_z/f1_h`` ``bitEstimator_z.f1.h``)
+and the joint-AR model (the flax names ``g_a/rbs0``, ``h_s/subpel1/conv``,
+``entropy_parameters/conv2`` are the CompressAI indices ``g_a.0``,
+``h_s.2.0``, ``entropy_parameters.4``, as ``import_joint`` maps them).
+``load_hyperprior`` and ``load_joint`` read a JAX params file or TrainState
+checkpoint.
 """
 
 import struct
@@ -38,7 +48,9 @@ import numpy as np
 import torch
 
 from ..models.balle17 import Balle17Compressor
+from ..models.cheng2020 import JointAutoregressive
 from ..models.dsc import DSC_PRESETS, GREC_SPECS, DSCConfig, DSCStereoModel
+from ..models.hyperprior import ScaleHyperprior
 from ..ops.conv import deconv_hwio_to_torch, hwio_to_oihw, oihw_to_hwio
 from ..utils.device import resolve_device
 
@@ -385,38 +397,55 @@ def dsc_params_from_jax(tree: Dict[str, Any], cfg: DSCConfig) -> Dict[str, torch
     """JAX ``DSCStereoModel`` params of ``cfg`` (nested dicts of arrays, bare
     or under "params") → the port's ``DSCStereoModel`` state_dict. Every leaf
     is checked: shape, float32, none missing, none extra."""
+    return _state_from(tree, _dsc_template(cfg), lambda key: _dsc_flax_path(key, cfg),
+                       f"DSC {cfg.name}")
+
+
+def _tree_from(state_dict: Dict[str, torch.Tensor], path_of, is_deconv=None) -> Dict[str, Any]:
+    """A port state_dict → a JAX params tree: ``path_of(key)`` names each
+    leaf; 4-D weights go to HWIO, or, where ``is_deconv(path)``, to the JAX
+    pre-flipped deconv layout."""
+    tree: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        v = t.detach().to("cpu", torch.float32).numpy()
+        path = path_of(key)
+        if v.ndim == 4 and is_deconv is not None and is_deconv(path):
+            v = np.flip(v, axis=(2, 3)).transpose(2, 3, 0, 1)  # deconv_hwio_to_torch⁻¹
+        elif v.ndim == 4:
+            v = oihw_to_hwio(v)
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(v)
+    return tree
+
+
+def _state_from(tree: Dict[str, Any], template: Dict[str, torch.Tensor], path_of, what: str,
+                is_deconv=None) -> Dict[str, torch.Tensor]:
+    """A JAX params tree (bare or under "params") → a port state_dict of
+    ``template``'s keys and shapes: ``_tree_from``'s inverse. Every leaf is
+    checked: shape, float32, none missing, none extra."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     flat = _flatten(tree)
-    template = _dsc_template(cfg)
-    paths = {key: _dsc_flax_path(key, cfg) for key in template}
+    paths = {key: path_of(key) for key in template}
     missing = sorted(set(paths.values()) - set(flat))
     extra = sorted(set(flat) - set(paths.values()))
     if missing or extra:
-        raise KeyError(f"DSC {cfg.name} params: missing {missing}, unexpected {extra}")
+        raise KeyError(f"{what} params: missing {missing}, unexpected {extra}")
     sd = {}
     for key, path in paths.items():
         v = np.asarray(flat[path])
         if v.dtype != np.float32:
             raise TypeError(f"{path}: dtype {v.dtype}, expected float32")
         if v.ndim == 4:
-            v = hwio_to_oihw(v)
+            v = deconv_hwio_to_torch(v) if is_deconv is not None and is_deconv(path) \
+                else hwio_to_oihw(v)
         if v.shape != tuple(template[key].shape):
             raise ValueError(f"{path}: shape {v.shape}, expected {tuple(template[key].shape)}")
         sd[key] = torch.from_numpy(np.array(v, order="C"))
     return sd
-
-
-def _tree_from(state_dict: Dict[str, torch.Tensor], path_of) -> Dict[str, Any]:
-    tree: Dict[str, Any] = {}
-    for key, t in state_dict.items():
-        v = t.detach().to("cpu", torch.float32).numpy()
-        *parents, leaf = path_of(key).split("/")
-        node = tree
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = np.ascontiguousarray(oihw_to_hwio(v) if v.ndim == 4 else v)
-    return tree
 
 
 def dsc_params_to_jax(state_dict: Dict[str, torch.Tensor], cfg: DSCConfig) -> Dict[str, Any]:
@@ -424,6 +453,147 @@ def dsc_params_to_jax(state_dict: Dict[str, torch.Tensor], cfg: DSCConfig) -> Di
     dicts of float32 numpy arrays, HWIO conv weights), the inverse of
     ``dsc_params_from_jax``."""
     return _tree_from(state_dict, lambda key: _dsc_flax_path(key, cfg))
+
+
+_HYPER_TOPS = {"Encoder": "g_a", "Decoder": "g_s", "priorEncoder": "h_a", "priorDecoder": "h_s"}
+
+
+def _bit_estimator_path(flax_top: str, rest: str) -> str:
+    f, leaf = rest.split(".")
+    return f"{flax_top}/{f}_{leaf}"
+
+
+def _hyperprior_flax_path(key: str) -> str:
+    """A port ``ScaleHyperprior`` state_dict key → its JAX leaf path."""
+    top, rest = key.split(".", 1)
+    if top == "bitEstimator_z":
+        return _bit_estimator_path("bit_estimator_z", rest)
+    return f"{_HYPER_TOPS[top]}/" + rest.replace(".", "/")
+
+
+def _is_deconv(path: str) -> bool:
+    return path.split("/")[-2].startswith("deconv")
+
+
+def _hyperprior_template(n: int, m: int) -> Dict[str, torch.Tensor]:
+    with torch.device("meta"):
+        return ScaleHyperprior(n, m).state_dict()
+
+
+def hyperprior_params_from_jax(tree: Dict[str, Any], n: int, m: int) -> Dict[str, torch.Tensor]:
+    """JAX ``ScaleHyperprior`` params of widths (n, m) → the port's
+    ``ScaleHyperprior`` state_dict (either quantizer: they share weights)."""
+    return _state_from(tree, _hyperprior_template(n, m), _hyperprior_flax_path, "hyperprior",
+                       _is_deconv)
+
+
+def hyperprior_params_to_jax(state_dict: Dict[str, torch.Tensor], n: int, m: int
+                             ) -> Dict[str, Any]:
+    """A port ``ScaleHyperprior`` state_dict → the JAX params tree, the
+    inverse of ``hyperprior_params_from_jax``."""
+    template = _hyperprior_template(n, m)
+    if set(state_dict) != set(template):
+        raise KeyError(f"not a hyperprior state_dict of n={n}, m={m}")
+    return _tree_from(state_dict, _hyperprior_flax_path, _is_deconv)
+
+
+# The flax name of each indexed block of the joint-AR stacks (the
+# CompressAI index → ``models/cheng2020.py``'s submodule name).
+_JOINT_NAMES = {
+    "g_a": ("rbs0", "rb1", "rbs2", "rb3", "rbs4", "rb5", "conv6"),
+    "h_a": {0: "conv0", 2: "conv1", 4: "conv2", 6: "conv3", 8: "conv4"},
+    "h_s": {0: "conv0", 2: "subpel1", 4: "conv2", 6: "subpel3", 8: "conv4"},
+    "g_s": ("rb0", "rbu1", "rb2", "rbu3", "rb4", "rbu5", "rb6", "subpel7"),
+    "entropy_parameters": {0: "conv0", 2: "conv1", 4: "conv2"},
+}
+
+
+def _joint_flax_path(key: str) -> str:
+    """A port ``JointAutoregressive`` state_dict key → its JAX leaf path."""
+    top, rest = key.split(".", 1)
+    if top == "bitEstimator_z":
+        return _bit_estimator_path("bit_estimator_z", rest)
+    if top == "context_prediction":
+        return f"context_prediction/{rest}"
+    idx, *mods, leaf = rest.split(".")
+    name = _JOINT_NAMES[top][int(idx)]
+    if name.startswith("subpel"):  # Sequential(conv, PixelShuffle): "0.weight"
+        inner = ["conv"]
+    elif name.startswith("rbu") and mods[0] in ("subpel_conv", "upsample"):
+        inner = [mods[0], "conv"]
+    else:
+        inner = mods
+    return "/".join([top, name] + inner + [leaf])
+
+
+def _joint_template(n: int) -> Dict[str, torch.Tensor]:
+    with torch.device("meta"):
+        return JointAutoregressive(n).state_dict()
+
+
+def joint_params_from_jax(tree: Dict[str, Any], n: int) -> Dict[str, torch.Tensor]:
+    """JAX ``JointAutoregressive`` params of width n → the port's
+    ``JointAutoregressive`` state_dict."""
+    return _state_from(tree, _joint_template(n), _joint_flax_path, "joint")
+
+
+def joint_params_to_jax(state_dict: Dict[str, torch.Tensor], n: int) -> Dict[str, Any]:
+    """A port ``JointAutoregressive`` state_dict → the JAX params tree, the
+    inverse of ``joint_params_from_jax``."""
+    if set(state_dict) != set(_joint_template(n)):
+        raise KeyError(f"not a joint-AR state_dict of n={n}")
+    return _tree_from(state_dict, _joint_flax_path)
+
+
+def _params_tree(path: str, top: str) -> Dict[str, Any]:
+    """The params subtree of a JAX params file, variables dict or TrainState
+    checkpoint: the first level that holds ``top``."""
+    tree = read_checkpoint(path)
+    while top not in tree and isinstance(tree.get("params"), dict):
+        tree = tree["params"]
+    if top not in tree:
+        raise KeyError(f"{path}: no {top!r} in the checkpoint's params")
+    return tree
+
+
+def load_hyperprior_weights(model: ScaleHyperprior, path: str) -> ScaleHyperprior:
+    """Load every weight of ``model`` from a JAX params file or TrainState
+    checkpoint (strict: the widths must match)."""
+    sd = hyperprior_params_from_jax(_params_tree(path, "g_a"), model.out_channel_n,
+                                    model.out_channel_m)
+    model.load_state_dict({k: v.to(model.Encoder.conv1.weight.device) for k, v in sd.items()},
+                          strict=True)
+    return model
+
+
+def load_joint_weights(model: JointAutoregressive, path: str) -> JointAutoregressive:
+    """Load every weight of ``model`` from a JAX params file or TrainState
+    checkpoint (strict: the width must match)."""
+    sd = joint_params_from_jax(_params_tree(path, "g_a"), model.n)
+    model.load_state_dict({k: v.to(model.g_a[0].conv1.weight.device) for k, v in sd.items()},
+                          strict=True)
+    return model
+
+
+def load_hyperprior(path: str, quant: str = "round", device: Optional[str] = None
+                    ) -> ScaleHyperprior:
+    """A ``ScaleHyperprior`` with quantizer ``quant`` in eval mode on
+    ``device`` (default ``cuda``), with the weights of a JAX checkpoint or
+    params file; N and M come from its shapes."""
+    dev = resolve_device(device)
+    g_a = _params_tree(path, "g_a")["g_a"]
+    model = ScaleHyperprior(int(np.shape(g_a["conv1"]["weight"])[-1]),
+                            int(np.shape(g_a["conv4"]["weight"])[-1]), quant=quant)
+    return load_hyperprior_weights(model, path).to(dev).eval()
+
+
+def load_joint(path: str, device: Optional[str] = None) -> JointAutoregressive:
+    """A ``JointAutoregressive`` in eval mode on ``device`` (default
+    ``cuda``), with the weights of a JAX checkpoint or params file; N comes
+    from its shapes."""
+    dev = resolve_device(device)
+    n = int(np.shape(_params_tree(path, "g_a")["g_a"]["rbs0"]["conv1"]["weight"])[-1])
+    return load_joint_weights(JointAutoregressive(n), path).to(dev).eval()
 
 
 def read_port_state(path: str) -> Optional[Dict[str, torch.Tensor]]:

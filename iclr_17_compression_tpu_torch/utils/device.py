@@ -12,8 +12,17 @@ calls it, and so does every port model's forward on a CUDA tensor. The flags
 are global on purpose: autograd runs a model's cuDNN backward after its
 forward has returned, under whatever flags hold then, so a context manager
 around the forward alone would leave the backward in TF32.
+
+``cudnn_deterministic`` is a context manager for a computation whose
+encoder and decoder must give the same floats (the hyperprior's σ): cuDNN
+may otherwise run a transposed conv through an algorithm that sums with
+atomics, whose result changes from call to call in the last bits. It is
+not for the large 3×3 convs: cuDNN's deterministic choice there is an FFT
+and GEMV path 100× slower with 18 GiB of workspace (H100, cuDNN of
+torch 2.11).
 """
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -38,3 +47,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN restricted to deterministic algorithms, and not choosing them
+    by timing, for the enclosed calls; the flags are restored after."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
