@@ -111,11 +111,46 @@ Phases, one JSON line each:
           decode profiled, peak memory, K2 at the six C = 192 shapes (5×5 s2
           and 3×3 s1 GDN / IGDN; S, partial bytes, cuDNN + plain GDN, cuDNN +
           K1) and K1 at the three IGDN shapes against plain
+  hyper_train  hyperprior and joint-AR training at N = 192, M = 320 (the
+          training settings of examples/balle17.json: batch 4, 256×256 crops,
+          λ 8192, lr 1e-4) through the training CLI on 8 synthetic 512×512
+          PPMs and a 768×512 test image: 30 steps of each, then --resume to
+          40, and 4 steps of the sigma-norm quantizer, with the launch
+          counters reset just before and read just after (hyperprior K2 3 +
+          K1 3 a step, joint K2 6; the eval's apart); checks: the resume's
+          parameters and Adam moments read back bit-equal and its first batch
+          the uninterrupted loop's, every rd_loss finite and the last 10
+          steps' mean below the first 10's, the gradient of every parameter
+          through K2's and K1's Functions against the plain path within 4× a
+          floor measured in the same run, for the largest tensor's gap and
+          for the median tensor's, with a TF32-size control beyond that gate,
+          the trained checkpoints (the JAX-layout iter file and the
+          train-state file) through the codec CLI (kinds 5 and 6) with the
+          same file from both and exact symbols. Numbers: median step ms and
+          images/s (the joint's loop under cuDNN autotuning), a step under
+          cuDNN's defaults and autotuned, a 10-step profile of each model
+          (device busy, idle share), peak memory, K2 at the six and K1 at
+          the three C = 192 training shapes against plain and cuDNN (S,
+          partial bytes)
+  dsc_fusion  the four DSC fusion presets (att_0031bpp, bottleneck_att_1bpp
+          with its 32-channel code, fif_0031bpp, pam_0031bpp) at n = 128 on
+          the dsc phase's seeded weights, one synthetic 320×1216 pair each
+          through the file codec, the counters around it only (K2 4 + 7 and
+          K3 1 an image); checks: the symbols and K3's code round-trip
+          exactly, the recon finite in [0, 1], the CPU decode of the same
+          file within 1e-4, K3 bit-exact; then train_dsc (batch 2, 288×1184
+          crops) of att_0031bpp, bottleneck_att_1bpp and pam_0031bpp for 4
+          steps each on synthetic KITTI frames: every loss finite, K2 17 a
+          step. Numbers: encode / decode ms, serving ms and device busy ms
+          an image (one profiled), K2
+          at the bottleneck preset's sites and K3 on each preset's code
+          against plain, step ms
 Then the script's seconds, the card's name and power limit, one line with
 every kernel's numbers, and last the line {"ok": true, "device": {...}}.
 Any failed check exits non-zero. Imports nothing of JAX.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -231,6 +266,31 @@ Y_HAT_TOL = 1e-5
 # The native AR library against the numpy path, front by front (the JAX
 # package's test tolerance, rtol = atol).
 AR_TOL = 2e-4
+
+# Hyperprior / joint-AR training phase: both models through the training
+# CLI at the JAX TrainConfig's training settings (examples/balle17.json:
+# batch 4, 256×256 crops, λ 8192, lr 1e-4) at N = 192, M = 320, on
+# N_HT_IMAGES synthetic 512×512 PPMs and one 768×512 test image; HT_STEPS
+# steps, then --resume to HT_RESUME_STEPS; HT_SIGMA_STEPS steps of the
+# sigma-norm quantizer; HT_CUDNN_STEPS steps under each cuDNN setting. The
+# gradient gate is the dsc_train phase's (a floor measured in the same run,
+# DSC_FLOOR_FACTOR, DSC_K2_PERTURB, the DSC_CONTROL_PERTURB control), with
+# K1's outputs moved as K2's, on two statistics: the largest tensor's gap
+# and the median tensor's. The first alone cannot tell a TF32-size error
+# from K2's own in the hyperprior (on an H100: floor 1.26e-2, control
+# 2.95e-2, in h_s), where the ReLU kinks of the hyper transforms' small
+# tensors flip under any perturbation; the median scales with it.
+HT_STEPS, HT_RESUME_STEPS, HT_SIGMA_STEPS, HT_CUDNN_STEPS = 30, 40, 4, 3
+N_HT_IMAGES, HT_IMG = 8, 512
+
+# DSC fusion phase: the four fusion presets at n = 128 on the dsc phase's
+# seeded weights (GDNs off the identity, the code spread to CODE_SPREAD,
+# the receiver taking it in steps), one 320×1216 pair each through the file
+# codec; then FUSION_TRAIN_EPOCHS epochs of train_dsc (batch 2, 288×1184
+# crops) of each trainable preset on FUSION_FRAMES synthetic KITTI frames.
+FUSION_PRESETS = ("att_0031bpp", "bottleneck_att_1bpp", "fif_0031bpp", "pam_0031bpp")
+FUSION_TRAINABLE = ("att_0031bpp", "bottleneck_att_1bpp", "pam_0031bpp")
+FUSION_SEED, FUSION_FRAMES, FUSION_TRAIN_EPOCHS = 2468, 2, 2
 
 
 def emit(obj) -> None:
@@ -380,6 +440,58 @@ def gdn_off_identity_(torch, model, gen):
                 mod.beta.copy_(0.7 + 0.6 * torch.rand(c, generator=gen))
                 mod.gamma.copy_(0.3 * torch.eye(c) + 0.1 * torch.rand((c, c), generator=gen))
     return model
+
+
+def device_ms_by_kernel(torch, prof) -> dict:
+    """Device milliseconds by kernel name (the first 60 characters) of a
+    ``torch.profiler`` run, the ranges' own device spans left out."""
+    by_kernel = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                evt, "is_user_annotation", False):
+            key = evt.name.split("(")[0][:60]
+            by_kernel[key] = by_kernel.get(key, 0.0) + evt.time_range.elapsed_us() / 1e3
+    return by_kernel
+
+
+def block_k2_args(block, xin) -> tuple:
+    """The K2 call of a ResidualBlockWithStride (conv2 + GDN) or a
+    ResidualBlockUpsample (conv + IGDN) on the block's input ``xin``:
+    (x, w HWIO, b, γᵀ, β, stride 1, pad 1, inverse)."""
+    from iclr_17_compression_tpu_torch.ops.gdn import gdn_reparam
+
+    if hasattr(block, "gdn"):
+        y, conv, gdn = block.act(block.conv1(xin)), block.conv2, block.gdn
+    else:
+        y, conv, gdn = block.act(block.subpel_conv(xin)), block.conv, block.igdn
+    beta, gamma = gdn_reparam(gdn.params())
+    return (y.contiguous(), conv.weight.permute(2, 3, 1, 0).contiguous(), conv.bias,
+            gamma.t().contiguous(), beta.contiguous(), 1, 1, gdn.inverse)
+
+
+def add_pixels_and_partials(row: dict) -> None:
+    """Each K2 shape's output pixels and its split-K partials' bytes
+    (S × P × Cout × 4, 0 unsplit)."""
+    for shape in row["shapes"]:
+        nb, hh, ww, _ = shape["x"]
+        shape["pixels"] = nb * (hh // shape["stride"]) * (ww // shape["stride"])
+        shape["partial_bytes"] = (4 * shape["splits"] * shape["pixels"] * shape["w"][3]
+                                  if shape["splits"] > 1 else 0)
+
+
+def spread_channels_(torch, conv, run, std, mean=0.0) -> None:
+    """Set each output channel of ``conv`` to the mean ``mean`` and the std
+    ``std`` (scalars or one a channel) on what ``run()`` feeds it."""
+    seen = {}
+    hook = conv.register_forward_hook(lambda mod, a, out: seen.setdefault("y", out))
+    with torch.no_grad():
+        run()
+        hook.remove()
+        y = seen["y"].flatten(0, 2)
+        scale = torch.as_tensor(std, device=y.device) / y.std(dim=0)
+        deconv = isinstance(conv, torch.nn.ConvTranspose2d)  # weight (Cin, Cout, k, k)
+        conv.weight.mul_(scale.view((1, -1, 1, 1) if deconv else (-1, 1, 1, 1)))
+        conv.bias.copy_(scale * (conv.bias - y.mean(dim=0)) + mean)
 
 
 def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
@@ -666,19 +778,10 @@ def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
     for hk in hooks:
         hk.remove()
     k2_rows = tools.new_row(library=True)
-    from iclr_17_compression_tpu_torch.ops.gdn import gdn_reparam
-
     with torch.no_grad():
         for where, block in sites:
-            xin = inputs[where]
-            if hasattr(block, "gdn"):
-                y, conv, gdn = block.act(block.conv1(xin)), block.conv2, block.gdn
-            else:
-                y, conv, gdn = block.act(block.subpel_conv(xin)), block.conv, block.igdn
-            beta, gamma = gdn_reparam(gdn.params())
-            args = (y.contiguous(), conv.weight.permute(2, 3, 1, 0).contiguous(), conv.bias,
-                    gamma.t().contiguous(), beta.contiguous(), 1, 1, gdn.inverse)
-            tools.measure_k2(args, k2_rows, f"K2 DSC training {where}", cudnn_k1=True)
+            tools.measure_k2(block_k2_args(block, inputs[where]), k2_rows,
+                             f"K2 DSC training {where}", cudnn_k1=True)
             k2_rows["shapes"][-1]["where"] = where
 
         # K3 on the validation frame's code (1×11×38×8, step 16, clip 128)
@@ -853,19 +956,6 @@ def hyper_phase(torch, dev, tools, h: int = IMG_H, w: int = IMG_W,
     def off_identity(model):
         return gdn_off_identity_(torch, model, gen)
 
-    def spread(conv, run, std, mean=0.0):
-        """Set each output channel of ``conv`` to the mean ``mean`` and the
-        std ``std`` (scalars or one a channel) on what ``run()`` feeds it."""
-        seen = {}
-        hook = conv.register_forward_hook(lambda mod, a, out: seen.setdefault("y", out))
-        with torch.no_grad():
-            run()
-            hook.remove()
-            y = seen["y"].flatten(0, 2)
-            scale = torch.as_tensor(std, device=y.device) / y.std(dim=0)
-            deconv = isinstance(conv, torch.nn.ConvTranspose2d)  # weight (Cin, Cout, k, k)
-            conv.weight.mul_(scale.view((1, -1, 1, 1) if deconv else (-1, 1, 1, 1)))
-            conv.bias.copy_(scale * (conv.bias - y.mean(dim=0)) + mean)
 
     # the spread of y and z, σ in a trained model's range (hyperprior
     # σ = exp(N(log 2, 0.5²)), joint σ ≈ N(2, 0.5²), μ ≈ N(0, 0.5²)), and
@@ -873,22 +963,23 @@ def hyper_phase(torch, dev, tools, h: int = IMG_H, w: int = IMG_W,
     # random IGDNs square their input, so a raw 5×5 decoder reaches 1e6)
     x0 = tensor(images[0])
     hp = off_identity(ScaleHyperprior(n, m).init_(gen)).to(dev).eval()
-    spread(hp.Encoder.conv4, lambda: hp.Encoder(x0), HYPER_Y_STD)
-    spread(hp.priorEncoder.conv3, lambda: hp.priorEncoder(hp.Encoder(x0)), HYPER_Z_STD)
-    spread(hp.priorDecoder.deconv3, lambda: hp.priorDecoder(
+    spread_channels_(torch, hp.Encoder.conv4, lambda: hp.Encoder(x0), HYPER_Y_STD)
+    spread_channels_(torch, hp.priorEncoder.conv3, lambda: hp.priorEncoder(hp.Encoder(x0)),
+                     HYPER_Z_STD)
+    spread_channels_(torch, hp.priorDecoder.deconv3, lambda: hp.priorDecoder(
         torch.round(hp.priorEncoder(hp.Encoder(x0)))), 0.5, float(np.log(2.0)))
     for i, deconv in enumerate((hp.Decoder.deconv1, hp.Decoder.deconv2, hp.Decoder.deconv3,
                                 hp.Decoder.deconv4)):
-        spread(deconv, lambda: hp.Decoder(torch.round(hp.Encoder(x0))),
-               *((0.2, 0.5) if i == 3 else (1.0,)))
+        spread_channels_(torch, deconv, lambda: hp.Decoder(torch.round(hp.Encoder(x0))),
+                         *((0.2, 0.5) if i == 3 else (1.0,)))
     hps = ScaleHyperprior(n, m, quant="sigma-norm").to(dev).eval()
     hps.load_state_dict(hp.state_dict())
     jm = off_identity(JointAutoregressive(n).init_(gen)).to(dev).eval()
-    spread(jm.g_a[6], lambda: jm.g_a(x0), HYPER_Y_STD)
-    spread(jm.h_a[8], lambda: jm.h_a(jm.g_a(x0)), HYPER_Z_STD)
+    spread_channels_(torch, jm.g_a[6], lambda: jm.g_a(x0), HYPER_Y_STD)
+    spread_channels_(torch, jm.h_a[8], lambda: jm.h_a(jm.g_a(x0)), HYPER_Z_STD)
     ep_mean = torch.cat([torch.full((n,), 2.0), torch.zeros(n)]).to(dev)
-    spread(jm.entropy_parameters[4], lambda: jm(x0), 0.5, ep_mean)
-    spread(jm.g_s[7][0], lambda: jm.g_s(torch.round(jm.g_a(x0))), 0.2, 0.5)
+    spread_channels_(torch, jm.entropy_parameters[4], lambda: jm(x0), 0.5, ep_mean)
+    spread_channels_(torch, jm.g_s[7][0], lambda: jm.g_s(torch.round(jm.g_a(x0))), 0.2, 0.5)
     models = {"hyperprior": hp, "hyperprior-sigma": hps, "joint": jm}
 
     def counts():
@@ -1197,21 +1288,10 @@ def hyper_phase(torch, dev, tools, h: int = IMG_H, w: int = IMG_W,
         for hk in hooks:
             hk.remove()
         for where, blk in sites:
-            xin = inputs[where]
-            if where.startswith("joint g_a"):
-                y, conv, gdn_m = blk.act(blk.conv1(xin)), blk.conv2, blk.gdn
-            else:
-                y, conv, gdn_m = blk.act(blk.subpel_conv(xin)), blk.conv, blk.igdn
-            beta, gamma = gdn_reparam(gdn_m.params())
-            args = (y.contiguous(), conv.weight.permute(2, 3, 1, 0).contiguous(), conv.bias,
-                    gamma.t().contiguous(), beta.contiguous(), 1, 1, gdn_m.inverse)
-            tools.measure_k2(args, k2_row, f"K2 {where}", cudnn_k1=True)
+            tools.measure_k2(block_k2_args(blk, inputs[where]), k2_row, f"K2 {where}",
+                             cudnn_k1=True)
             k2_row["shapes"][-1]["where"] = where
-        for shape in k2_row["shapes"]:
-            nb, hh, ww, _ = shape["x"]
-            shape["pixels"] = nb * (hh // shape["stride"]) * (ww // shape["stride"])
-            shape["partial_bytes"] = (4 * shape["splits"] * shape["pixels"] * shape["w"][3]
-                                      if shape["splits"] > 1 else 0)
+        add_pixels_and_partials(k2_row)
         for i, igdn in enumerate((hp.Decoder.igdn1, hp.Decoder.igdn2, hp.Decoder.igdn3)):
             tools.measure_k1(igdn_in[i].contiguous(), igdn, k1_row, f"K1 Synthesis18 igdn{i + 1}")
             k1_row["shapes"][-1]["where"] = f"hyperprior g_s igdn{i + 1}"
@@ -1237,6 +1317,665 @@ def hyper_phase(torch, dev, tools, h: int = IMG_H, w: int = IMG_W,
           "k2_c192": k2_row, "k1_c192": k1_row, "seconds": seconds, "section_s": laps})
     print(f"hyper phase seconds: {seconds:.1f}", flush=True)
     return {"launches": path_launches, "k2": k2_row, "k1": k1_row}
+
+
+def hyper_train_phase(torch, dev, tools, steps: int = HT_STEPS,
+                      resume_steps: int = HT_RESUME_STEPS, sigma_steps: int = HT_SIGMA_STEPS,
+                      n_images: int = N_HT_IMAGES, img: int = HT_IMG, test_hw=(IMG_H, IMG_W),
+                      n: int = HYPER_N, m: int = HYPER_M, crop: int = 0) -> dict:
+    """Hyperprior and joint-AR training on the card (see the module
+    docstring). ``tools`` holds the harness of ``main``: check, emit,
+    time_ms, measure_k2, measure_k1, new_row. Returns the K2 and K1 rows and
+    the launches of the main path. ``crop`` (0: the config's) is for a
+    rehearsal on the CPU at a small size."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from iclr_17_compression_tpu_torch.coding import codec_cli
+    from iclr_17_compression_tpu_torch.data.datasets import (ImageFolderDataset, batch_iterator,
+                                                             write_ppm)
+    from iclr_17_compression_tpu_torch.models import cheng2020, hyperprior
+    from iclr_17_compression_tpu_torch.ops import gdn as ops_gdn
+    from iclr_17_compression_tpu_torch.ops.gdn import gdn_reparam
+    from iclr_17_compression_tpu_torch.ops.kernels import conv_gdn_kernel as k2
+    from iclr_17_compression_tpu_torch.ops.kernels import gdn_kernel as k1
+    from iclr_17_compression_tpu_torch.ops.kernels import quant_pack_kernel as k3
+    from iclr_17_compression_tpu_torch.train import cli as train_cli
+    from iclr_17_compression_tpu_torch.train.checkpoint import load_train_state
+    from iclr_17_compression_tpu_torch.train.config import TrainConfig
+    from iclr_17_compression_tpu_torch.train.state import (build_model, create_train_state,
+                                                           make_hyperprior_train_step,
+                                                           step_generator)
+    from iclr_17_compression_tpu_torch.train.weights import load_hyperprior, load_joint
+    from iclr_17_compression_tpu_torch.utils.device import cudnn_autotune
+
+    check, emit = tools.check, tools.emit
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_hyper_train")
+    shutil.rmtree(work, ignore_errors=True)
+    train_dir, test_dir = os.path.join(work, "train"), os.path.join(work, "test")
+    os.makedirs(train_dir)
+    os.makedirs(test_dir)
+    rng = np.random.default_rng(6)
+    for i in range(n_images):
+        write_ppm(os.path.join(train_dir, f"{i:02d}.ppm"), smooth_image(rng, img, img))
+    test_image = smooth_image(rng, *test_hw)
+    write_ppm(os.path.join(test_dir, "0.ppm"), test_image)
+    base = dataclasses.replace(
+        TrainConfig.from_json(os.path.join(ROOT, "examples", "balle17.json")),
+        out_channel_n=n, out_channel_m=m, joint_n=n, tot_step=steps, save_model_freq=steps,
+        print_freq=10, cal_step=1, tensorboard=False, train_dir=train_dir, test_dir=test_dir,
+        save_root=work)
+    check((base.batch_size, base.image_size, base.train_lambda, base.lr_base, base.grad_clip)
+          == (4, 256, 8192, 1e-4, 5.0),
+          "examples/balle17.json is not the batch 4, 256 px, λ 8192, lr 1e-4 config")
+    base = dataclasses.replace(base, image_size=crop or base.image_size)
+    lam = base.train_lambda
+
+    def counts():
+        return {"conv_gdn": k2.conv_gdn.launches, "gdn": k1.gdn_fused.launches,
+                "quantize_pack": k3.quantize_pack.launches}
+
+    def reset():
+        k2.conv_gdn.launches = k1.gdn_fused.launches = k3.quantize_pack.launches = 0
+
+    # the loop's own step, timed (host clock around work that ends in a
+    # synchronize), its launches counted, its first batch kept; the eval's
+    # launches apart
+    steps_seen, first, evals = [], {}, []
+    real_make_step, real_eval = train_cli.make_hyperprior_train_step, train_cli.eval_kodak
+
+    def timed_make_step(*args, **kw):
+        step_fn = real_make_step(*args, **kw)
+
+        def timed_step(state, x, generator):
+            first.setdefault("step", state.step)
+            first.setdefault("x", x.detach().clone())
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step_fn(state, x, generator)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            steps_seen.append((state.step, t0, t1, float(metrics["rd_loss"]),
+                               {k: v - before[k] for k, v in counts().items()}))
+            return metrics
+
+        return timed_step
+
+    def counted_eval(*args, **kw):
+        before = counts()
+        res = real_eval(*args, **kw)
+        evals.append((res, {k: v - before[k] for k, v in counts().items()}))
+        return res
+
+    per_step = {"hyperprior": {"conv_gdn": 3, "gdn": 3, "quantize_pack": 0},
+                "joint": {"conv_gdn": 6, "gdn": 0, "quantize_pack": 0}}
+    runs, states, trained, launches_total = {}, {}, {}, dict.fromkeys(counts(), 0)
+    train_cli.make_hyperprior_train_step, train_cli.eval_kodak = timed_make_step, counted_eval
+    try:
+        for name in ("hyperprior", "joint"):
+            cfg = dataclasses.replace(base, model=name)
+            run_dir = os.path.join(work, name)
+            paths = [os.path.join(work, f"{name}_{s}.json") for s in ("a", "b")]
+            for path, c in zip(paths, (cfg, dataclasses.replace(cfg, tot_step=resume_steps))):
+                with open(path, "w") as f:
+                    f.write(c.to_json())
+            # run A: steps 0..steps-1, the counters around it only
+            steps_seen.clear()
+            evals.clear()
+            first.clear()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            t0 = time.perf_counter()
+            state_a = train_cli.main(["--config", paths[0], "-n", name])
+            run_a_s = time.perf_counter() - t0
+            launches_a = counts()
+            peak = torch.cuda.max_memory_allocated()
+            steps_a, evals_a = list(steps_seen), list(evals)
+            first.clear()
+
+            # what run A saved, read back into a fresh state, equals what it held
+            fresh = create_train_state(build_model(name, device=dev, out_channel_n=n,
+                                                   out_channel_m=m, n=n), lr=cfg.lr_base)
+            fresh, meta = load_train_state(fresh, os.path.join(run_dir, "latest.ckpt"))
+            saved_opt = state_a.optimizer.state_dict()["state"]
+            read_opt = fresh.optimizer.state_dict()["state"]
+            check(fresh.step == steps == meta["step"], f"{name}: saved step {fresh.step}, {meta}")
+            check(all(torch.equal(a, b) for a, b in zip(state_a.model.state_dict().values(),
+                                                        fresh.model.state_dict().values())),
+                  f"{name} resume: parameters read back differ from the saved ones")
+            check(len(saved_opt) == len(read_opt) and all(
+                torch.equal(saved_opt[i][k], read_opt[i][k])
+                for i in saved_opt for k in ("exp_avg", "exp_avg_sq", "step")),
+                f"{name} resume: Adam moments read back differ from the saved ones")
+            del fresh
+
+            # run B: --resume to resume_steps
+            steps_seen.clear()
+            evals.clear()
+            reset()
+            state_b = train_cli.main(["--config", paths[1], "-n", name, "--resume", run_dir])
+            launches_b = counts()
+            steps_b, evals_b = list(steps_seen), list(evals)
+            per_epoch = n_images // cfg.batch_size
+            epoch, skip = divmod(steps, per_epoch)
+            expected = next(batch_iterator(ImageFolderDataset(train_dir, cfg.image_size,
+                                                              cfg.seed),
+                                           cfg.batch_size, seed=cfg.seed, epoch=epoch,
+                                           skip=skip))
+            check(first["step"] == steps and state_b.step == resume_steps,
+                  f"{name} resume ran steps {first['step']}..{state_b.step}")
+            check(torch.equal(first["x"].cpu(), torch.from_numpy(expected)),
+                  f"{name} resume: the first batch is not the one the uninterrupted loop draws")
+            both = steps_a + steps_b
+            check(len(steps_a) == steps and len(steps_b) == resume_steps - steps,
+                  f"{name}: steps run {len(steps_a)}, {len(steps_b)}")
+            check(all(s[4] == per_step[name] for s in both),
+                  f"{name}: launches a step {sorted({str(s[4]) for s in both})}, expected "
+                  f"{per_step[name]}")
+            eval_l = [e[1] for e in evals_a + evals_b]
+            want_eval = {"conv_gdn": per_step[name]["conv_gdn"], "gdn": per_step[name]["gdn"],
+                         "quantize_pack": 0}
+            check(len(evals_a) == 1 and not evals_b and eval_l == [want_eval],
+                  f"{name}: eval launches {eval_l}, expected {want_eval} once, at step {steps}")
+            for got, whole, ev in ((steps_a, launches_a, evals_a), (steps_b, launches_b, evals_b)):
+                run_l = {k: sum(s[4][k] for s in got) + sum(e[1][k] for e in ev) for k in whole}
+                check(run_l == whole, f"{name}: the run's launches {whole} are not its steps' "
+                                      f"and evals' {run_l}")
+            for k in launches_total:
+                launches_total[k] += sum(s[4][k] for s in both)
+            losses = [s[3] for s in both]
+            check(all(np.isfinite(losses)), f"{name}: an rd_loss is not finite")
+            first10, last10 = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+            check(last10 < first10,
+                  f"{name}: rd_loss did not fall: first 10 {first10:.2f}, last 10 {last10:.2f}")
+            ev = evals_a[0][0]
+            check(all(np.isfinite([ev[k] for k in ("bpp", "psnr", "ms_ssim")])),
+                  f"{name}: eval metrics not finite: {ev}")
+            step_ms = [1e3 * (t1 - t0) for _, t0, t1, *_ in steps_a[2:]]  # after 2 warm-ups
+            runs[name] = {
+                "steps": [steps, resume_steps], "launches_per_step": per_step[name],
+                "eval_launches": want_eval, "rd_loss_first10": first10,
+                "rd_loss_last10": last10, "rd_loss_every5": losses[::5],
+                "first_step_ms": 1e3 * (steps_a[0][2] - steps_a[0][1]),
+                "median_step_ms": statistics.median(step_ms),
+                "images_per_s": cfg.batch_size * 1e3 / statistics.median(step_ms),
+                "run_a_s": run_a_s, "peak_memory_gib": peak / 2 ** 30,
+                "cudnn": "autotune (benchmark, deterministic)" if name == "joint" else "default",
+                "eval": {k: ev[k] for k in ("bpp", "psnr", "ms_ssim", "ms_ssim_db")}}
+            states[name] = state_b
+            trained[name] = {k: v.clone() for k, v in state_b.model.state_dict().items()}
+
+        # the hyperprior's sigma-norm quantizer: a few steps
+        steps_seen.clear()
+        cfg_s = dataclasses.replace(base, model="hyperprior", quant="sigma-norm",
+                                    tot_step=sigma_steps, save_model_freq=sigma_steps,
+                                    test_dir="")
+        path = os.path.join(work, "sigma.json")
+        with open(path, "w") as f:
+            f.write(cfg_s.to_json())
+        state_s = train_cli.main(["--config", path, "-n", "hyperprior_sigma"])
+        check(state_s.model.quant == "sigma-norm" and len(steps_seen) == sigma_steps,
+              f"sigma-norm: quant {state_s.model.quant}, {len(steps_seen)} steps")
+        check(all(s[4] == per_step["hyperprior"] for s in steps_seen),
+              f"sigma-norm: launches a step {[s[4] for s in steps_seen]}")
+        check(all(np.isfinite(s[3]) for s in steps_seen), "sigma-norm: an rd_loss is not finite")
+        for k in launches_total:
+            launches_total[k] += sum(s[4][k] for s in steps_seen)
+        runs["hyperprior_sigma"] = {"steps": sigma_steps,
+                                    "rd_loss": [s[3] for s in steps_seen],
+                                    "median_step_ms": statistics.median(
+                                        1e3 * (t1 - t0) for _, t0, t1, *_ in steps_seen[1:])}
+    finally:
+        train_cli.make_hyperprior_train_step, train_cli.eval_kodak = real_make_step, real_eval
+
+    batch = first["x"]  # run B's first batch of the joint, on the card
+    step_fn = make_hyperprior_train_step(lam)
+
+    def flags_of(model):
+        """The cuDNN flags the training loop gives ``model``'s steps."""
+        return cudnn_autotune() if getattr(model, "train_cudnn_autotune", False) \
+            else contextlib.nullcontext()
+
+    # a step both ways: cuDNN's heuristic (the flags' defaults) and cuDNN
+    # choosing by timing, HT_CUDNN_STEPS steps each after one warm-up
+    both_ways = {}
+    for name in ("hyperprior", "joint"):
+        for how, ctx in (("default", contextlib.nullcontext), ("autotune", cudnn_autotune)):
+            st = create_train_state(build_model(name, device=dev, seed=3, out_channel_n=n,
+                                                out_channel_m=m, n=n), lr=base.lr_base)
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            with ctx():
+                for i in range(1 + HT_CUDNN_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step_fn(st, batch, step_generator(base.seed, i, dev))
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.perf_counter() - t0))
+            both_ways[f"{name}_{how}"] = {
+                "first_ms": times[0], "step_ms": statistics.median(times[1:]),
+                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            del st
+
+    # 10 steps of each model under the profiler, on the trained state
+    profiles = {}
+    for name, state in states.items():
+        with flags_of(state.model):
+            for i in range(2):
+                step_fn(state, batch, step_generator(base.seed, 100 + i, dev))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(PROFILE_STEPS):
+                    step_fn(state, batch, step_generator(base.seed, 200 + i, dev))
+                torch.cuda.synchronize()
+                window_ms = 1e3 * (time.perf_counter() - t0)
+        by_kernel = device_ms_by_kernel(torch, prof)
+        busy = sum(by_kernel.values())
+        ours = sum(v for k, v in by_kernel.items()
+                   if any(s in k for s in ("conv_gdn_kernel", "conv_gdn_reduce", "gdn_rows")))
+        profiles[name] = {"steps": PROFILE_STEPS, "window_ms": window_ms,
+                          "device_idle_share": 1.0 - busy / window_ms,
+                          "per_step_ms": {"wall": window_ms / PROFILE_STEPS,
+                                          "device_busy": busy / PROFILE_STEPS,
+                                          "k1_k2_forward_kernels": ours / PROFILE_STEPS},
+                          "window_ms_by_kernel": dict(sorted(by_kernel.items(),
+                                                             key=lambda kv: -kv[1])[:12])}
+
+    # gradients on the card: the kernels' Functions against the plain path
+    # (K2 and K1 swapped for their plain versions), the same weights, batch
+    # and noise; the floor: the plain path with every K2 and K1 output moved
+    # by DSC_K2_PERTURB relative; the control: the same at TF32's error
+    def grads(model, path: str, rel: float = 0.0):
+        real = (k2.conv_gdn, ops_gdn.gdn_fused)
+        gen_p = torch.Generator(device=dev).manual_seed(11)
+
+        def moved(fn):
+            def call(*args):
+                y = fn(*args)
+                return y * (1.0 + rel * torch.randn(y.shape, generator=gen_p, device=y.device))
+            return call
+
+        if path == "plain":
+            k2.conv_gdn, ops_gdn.gdn_fused = k2.conv_gdn_plain, k1.gdn_fused_plain
+        elif path == "perturbed":
+            k2.conv_gdn, ops_gdn.gdn_fused = moved(k2.conv_gdn_plain), moved(k1.gdn_fused_plain)
+        try:
+            model.zero_grad(set_to_none=True)
+            out = model(batch, train=True, generator=step_generator(base.seed, 7, dev))
+            (lam * out["mse"] + out["bpp"]).backward()
+        finally:
+            k2.conv_gdn, ops_gdn.gdn_fused = real
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    def gaps(ga, gb):
+        return {k: float((ga[k] - gb[k]).abs().max() / gb[k].abs().max().clamp(min=1e-30))
+                for k in gb}
+
+    def stats(g, g_plain):
+        """(the largest tensor's gap, the median tensor's gap)."""
+        gap = list(gaps(g, g_plain).values())
+        return max(gap), statistics.median(gap)
+
+    parity = {}
+    for name, state in states.items():
+        model = build_model(name, device=dev, out_channel_n=n, out_channel_m=m, n=n)
+        model.load_state_dict(trained[name])
+        with flags_of(model):
+            before = counts()
+            g_kernel = grads(model, "kernel")
+            ran = {k: v - before[k] for k, v in counts().items()}
+            check(ran == per_step[name], f"{name} gradient parity: the kernel path ran {ran}")
+            g_plain = grads(model, "plain")
+            floor = stats(grads(model, "perturbed", DSC_K2_PERTURB), g_plain)
+            control = stats(grads(model, "perturbed", DSC_CONTROL_PERTURB), g_plain)
+        kp = gaps(g_kernel, g_plain)
+        kernel = (max(kp.values()), statistics.median(kp.values()))
+        # the dsc_train phase's gate on the largest tensor's gap, and the
+        # same on the median tensor's, where the ReLU and leaky-ReLU kinks
+        # of the small hyper tensors (a floor of 1e-2 at 1e-5 relative on
+        # the largest) do not drown a TF32-size error
+        gate = (max(DSC_GRAD_TOL, DSC_FLOOR_FACTOR * floor[0]), DSC_FLOOR_FACTOR * floor[1])
+        parity[name] = {"max_gap": kernel[0], "median_gap": kernel[1], "floor": floor,
+                        "gate": gate, "control_gap": control,
+                        "worst": sorted(((v, k) for k, v in kp.items()), reverse=True)[:5]}
+        del model
+
+    # K2 and K1 at the C = 192 training shapes, from the trained models'
+    # own activations on the batch; cuDNN timed under each model's loop flags
+    k2_row, k1_row = tools.new_row(library=True), tools.new_row(library=False)
+    hp, jm = states["hyperprior"].model, states["joint"].model
+    with torch.no_grad():
+        xs, enc = batch, hp.Encoder
+        for i, (conv, gdn_m) in enumerate(((enc.conv1, enc.gdn1), (enc.conv2, enc.gdn2),
+                                           (enc.conv3, enc.gdn3))):
+            beta, gamma = gdn_reparam(gdn_m.params())
+            args = (xs.contiguous(), conv.weight.permute(2, 3, 1, 0).contiguous(), conv.bias,
+                    gamma.t().contiguous(), beta.contiguous(), 2, 2, False)
+            tools.measure_k2(args, k2_row, f"K2 hyperprior training conv{i + 1}", cudnn_k1=True)
+            k2_row["shapes"][-1].update(where=f"hyperprior g_a conv{i + 1}+gdn{i + 1}",
+                                        cudnn="default")
+            xs = k2.conv_gdn_plain(*args)
+        sites = [("joint g_a.0", jm.g_a[0]), ("joint g_a.2", jm.g_a[2]),
+                 ("joint g_a.4", jm.g_a[4]), ("joint g_s.1", jm.g_s[1]),
+                 ("joint g_s.3", jm.g_s[3]), ("joint g_s.5", jm.g_s[5])]
+        inputs, igdn_in = {}, {}
+        hooks = [blk.register_forward_pre_hook(
+            lambda mod, a, where=where: inputs.setdefault(where, a[0])) for where, blk in sites]
+        hooks += [dc.register_forward_hook(lambda mod, a, out, i=i: igdn_in.setdefault(i, out))
+                  for i, dc in enumerate((hp.Decoder.deconv1, hp.Decoder.deconv2,
+                                          hp.Decoder.deconv3))]
+        g = step_generator(base.seed, 9, dev)
+        jm(batch, train=True, generator=g)
+        hp(batch, train=True, generator=g)
+        for hk in hooks:
+            hk.remove()
+        with cudnn_autotune():
+            for where, blk in sites:
+                tools.measure_k2(block_k2_args(blk, inputs[where]), k2_row,
+                                 f"K2 {where} training", cudnn_k1=True)
+                k2_row["shapes"][-1].update(where=where, cudnn="autotune")
+        add_pixels_and_partials(k2_row)
+        for i, igdn in enumerate((hp.Decoder.igdn1, hp.Decoder.igdn2, hp.Decoder.igdn3)):
+            tools.measure_k1(igdn_in[i].contiguous(), igdn, k1_row,
+                             f"K1 hyperprior training igdn{i + 1}")
+            k1_row["shapes"][-1]["where"] = f"hyperprior g_s igdn{i + 1}"
+
+    # train → codec: the hyperprior's JAX-layout iter checkpoint and the
+    # joint's train-state file through the codec CLI (kinds 5 and 6); a
+    # second checkpoint format of each gives the same file
+    from iclr_17_compression_tpu_torch.data.datasets import _load
+
+    test_ppm = os.path.join(test_dir, "0.ppm")
+    test_image = _load(test_ppm)  # the 8-bit image the CLI reads
+    x_test = torch.from_numpy(codec_cli.pad_to_multiple(test_image, 64)[None]).to(dev)
+    handoff = {}
+    for name, ckpts, mod, load in (
+            ("hyperprior", (f"iter_{resume_steps}.ckpt", "latest.ckpt"), hyperprior,
+             load_hyperprior),
+            ("joint", ("latest.ckpt", f"iter_{resume_steps}.ckpt"), cheng2020, load_joint)):
+        run_dir = os.path.join(work, name)
+        files = []
+        for ckpt in ckpts:
+            icz = os.path.join(work, f"{name}_{ckpt}.icz")
+            codec_cli.main(["encode", test_ppm, icz, "--model", name, "--ckpt",
+                            os.path.join(run_dir, ckpt), "--n", str(n), "--m", str(m)])
+            files.append(open(icz, "rb").read())
+        check(files[0] == files[1], f"{name}: the two checkpoint formats code different files")
+        rec_path = os.path.join(work, f"{name}.ppm")
+        codec_cli.main(["decode", icz, rec_path, "--ckpt", os.path.join(run_dir, ckpts[0])])
+        loaded = load(os.path.join(run_dir, ckpts[0]), device="cuda")
+        check(all(torch.equal(v, trained[name][k]) for k, v in loaded.state_dict().items()),
+              f"{name}: {ckpts[0]} does not hold the trained parameters")
+        comp, y_enc = mod.compress(loaded, x_test, return_y_hat=True)
+        file_comp = (codec_cli.read_joint(files[0]) if name == "joint"
+                     else codec_cli.read_hyperprior(files[0]))[0]
+        _, y_dec = mod.decompress(loaded, file_comp, return_y_hat=True)
+        check(file_comp == comp, f"{name}: the CLI's file differs from the model's streams")
+        check(np.array_equal(y_dec, y_enc), f"{name}: the trained model's ŷ does not round-trip")
+        rec = _load(rec_path)
+        check(rec.shape == test_image.shape and np.isfinite(rec).all(),
+              f"{name}: bad decoded image from the trained checkpoint")
+        handoff[name] = {"ckpts": list(ckpts), "bytes": len(files[0]),
+                         "bpp": 8.0 * len(files[0]) / (test_hw[0] * test_hw[1]),
+                         "psnr_db": float(10 * np.log10(1.0 / max(
+                             float(np.mean((rec - test_image) ** 2)), 1e-12)))}
+
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "hyper_train", "ok": True, "n": n, "m": m, "batch": base.batch_size,
+          "crop": base.image_size, "lambda": lam, "train_images": n_images,
+          "runs": runs, "cudnn_both_ways": both_ways, "profile": profiles,
+          "grad_parity": {"tol": DSC_GRAD_TOL, "floor_factor": DSC_FLOOR_FACTOR,
+                          "perturb": DSC_K2_PERTURB, "control_perturb": DSC_CONTROL_PERTURB,
+                          **parity},
+          "launches": launches_total, "k2_c192_training": k2_row, "k1_c192_training": k1_row,
+          "handoff": handoff, "seconds": seconds})
+    for name, p in parity.items():
+        (gate_max, gate_median), control = p["gate"], p["control_gap"]
+        check(p["max_gap"] <= gate_max and p["median_gap"] <= gate_median,
+              f"{name} gradients through K2/K1 vs plain: largest tensor {p['max_gap']:.2e} "
+              f"(gate {gate_max:.2e}), median {p['median_gap']:.2e} (gate {gate_median:.2e})")
+        check(control[0] > gate_max or control[1] > gate_median,
+              f"{name}: the gradient gate does not catch a TF32-size error: control "
+              f"{control} within the gate {p['gate']}")
+    print(f"hyper_train phase seconds: {seconds:.1f}", flush=True)
+    return {"launches": launches_total, "k2": k2_row, "k1": k1_row}
+
+
+def fusion_code_ends(model):
+    """(the conv whose output channels are spread into the code, the convs
+    that take the code in steps) of a DSC model: g_a22's last 3×3 conv to
+    the code width (the skip conv of its last widening residual block where
+    it has none) and g_s22's first 3×3 conv (the first widening residual
+    block's conv1 and skip where it has none)."""
+    cfg = model.config
+    ga = [i for i, sp in enumerate(cfg.ga22) if sp[0] == "conv3" and sp[1] == cfg.code_channels]
+    last = (model.g_a22[ga[-1]] if ga else
+            [b.skip for b in model.g_a22 if getattr(b, "skip", None) is not None][-1])
+    gs = [i for i, sp in enumerate(cfg.gs22) if sp[0] == "conv3"]
+    if gs:
+        takers = [model.g_s22[gs[0]]]
+    else:
+        block = next(b for b in model.g_s22 if getattr(b, "skip", None) is not None)
+        takers = [block.conv1, block.skip]
+    return last, takers
+
+
+def dsc_fusion_phase(torch, dev, tools, h: int = DSC_H, w: int = DSC_W,
+                     kitti_hw=(KITTI_H, KITTI_W), frames: int = FUSION_FRAMES,
+                     epochs: int = FUSION_TRAIN_EPOCHS) -> dict:
+    """The DSC fusion presets on the card (see the module docstring).
+    ``tools`` holds the harness of ``main``: check, emit, time_ms, call_ms,
+    measure_k2, new_row, bound_ms, floor_ms. Returns the K2 and K3 rows and
+    the launches of the main path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from iclr_17_compression_tpu_torch.coding import codec_cli
+    from iclr_17_compression_tpu_torch.models.dsc import (DSC_PRESETS, DSCDecoder,
+                                                          DSCStereoModel, quantize_code)
+    from iclr_17_compression_tpu_torch.ops.kernels import conv_gdn_kernel as k2
+    from iclr_17_compression_tpu_torch.ops.kernels import gdn_kernel as k1
+    from iclr_17_compression_tpu_torch.ops.kernels import quant_pack_kernel as k3
+    from iclr_17_compression_tpu_torch.train import cli as train_cli
+    from iclr_17_compression_tpu_torch.train.config import TrainConfig
+
+    check, emit = tools.check, tools.emit
+    t_phase = time.perf_counter()
+
+    def counts():
+        return {"conv_gdn": k2.conv_gdn.launches, "gdn": k1.gdn_fused.launches,
+                "quantize_pack": k3.quantize_pack.launches}
+
+    def reset():
+        k2.conv_gdn.launches = k1.gdn_fused.launches = k3.quantize_pack.launches = 0
+
+    rng = np.random.default_rng(8)
+    left = smooth_image(rng, h, w)
+    right = shift_pair(left, rng)
+    x = torch.from_numpy(left[None]).to(dev)
+    y = torch.from_numpy(right[None]).to(dev)
+    launches = dict.fromkeys(counts(), 0)
+    serving, k3_rows, models = {}, [], {}
+    for i, preset in enumerate(FUSION_PRESETS):
+        cfg = DSC_PRESETS[preset]
+        gen = torch.Generator().manual_seed(FUSION_SEED + i)
+        model = gdn_off_identity_(torch, DSCStereoModel(cfg).init_(gen), gen).to(dev).eval()
+        last, takers = fusion_code_ends(model)
+        spread_channels_(torch, last, lambda: model.encode(x), CODE_SPREAD)
+        with torch.no_grad():
+            for conv in takers:
+                conv.weight.div_(cfg.coarse_step)
+        models[preset] = model
+
+        # the main path: the file codec on the pair, the counters around it only
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        data = codec_cli.encode_image(left, model, device="cuda")
+        t1 = time.perf_counter()
+        rec = codec_cli.decode_image(data, model, device="cuda", si_image=right)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        got = counts()
+        for k in launches:
+            launches[k] += got[k]
+        check(got == {"conv_gdn": 11, "gdn": 0, "quantize_pack": 1},
+              f"{preset}: launches {got}, expected K2 4 + 7 and K3 1 an image")
+
+        # checks outside the counted run
+        syms, code = codec_cli.dsc_symbols(x, model)
+        decoded, name, h0, w0 = codec_cli.read_dsc_code(data)
+        check(name == preset and (h0, w0) == (h, w), f"{preset}: header {name} {h0}x{w0}")
+        check(decoded.shape[-1] == cfg.code_channels
+              and np.array_equal(decoded[0] / cfg.coarse_step, syms),
+              f"{preset}: decoded symbols differ from the encoder's")
+        check(np.array_equal(decoded, code.cpu().numpy()),
+              f"{preset}: decoded code differs from K3's dequantized code")
+        check(rec.shape == left.shape and np.isfinite(rec).all() and rec.min() >= 0.0
+              and rec.max() <= 1.0, f"{preset}: recon not finite in [0, 1]")
+        cpu = DSCStereoModel(cfg)
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        rec_cpu = codec_cli.decode_image(data, cpu.eval(), device="cpu", si_image=right)
+        dec_err = float(np.abs(rec - rec_cpu).max())
+        check(dec_err <= DECODE_ATOL, f"{preset}: GPU vs CPU decode of one file {dec_err:.3e}")
+        with torch.no_grad():
+            code_pre = model.encode(x).contiguous()
+        ksyms, kcode = quantize_code(code_pre, cfg)
+        rsyms, rcode = k3.quantize_pack_plain(code_pre, cfg.coarse_step, cfg.code_clip)
+        check(torch.equal(ksyms, rsyms) and torch.equal(kcode, rcode),
+              f"{preset}: K3 on the code is not bit-exact")
+
+        # serving: encode to host symbols + the receiver, batch 1: CUDA
+        # events around it (median of 5 after 2; the host's launch gaps
+        # included), and one under the profiler (device busy)
+        receiver = DSCDecoder(cfg, model=model)
+
+        def serve():
+            with torch.no_grad():
+                symbols, code_t = quantize_code(model.encode(x), cfg)
+                symbols.cpu()
+                return receiver(code_t, y)
+
+        serve_ms = []
+        for j in range(7):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            serve()
+            end.record()
+            end.synchronize()
+            if j >= 2:
+                serve_ms.append(start.elapsed_time(end))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            serve()
+            torch.cuda.synchronize()
+        by_kernel = device_ms_by_kernel(torch, prof)
+        n3 = code_pre.numel()
+        b_ms, b_by = tools.bound_ms(5.0 * n3, 9.0 * n3)
+        k3_rows.append({"preset": preset, "x": list(code_pre.shape), "step": cfg.coarse_step,
+                        "bits": 8, "ms": tools.time_ms(lambda: quantize_code(code_pre, cfg)),
+                        "plain_ms": tools.time_ms(lambda: k3.quantize_pack_plain(
+                            code_pre, cfg.coarse_step, cfg.code_clip)),
+                        "bound_ms": b_ms, "bound_by": b_by, "launch_floor_ms": tools.floor_ms,
+                        "library_ms": None, "max_abs_err": 0.0})
+        serving[preset] = {"bytes": len(data), "bpp": 8.0 * len(data) / (h * w),
+                           "symbols_used": int(np.unique(syms).size),
+                           "encode_ms": 1e3 * (t1 - t0), "decode_ms": 1e3 * (t2 - t1),
+                           "serving_ms": statistics.median(serve_ms),
+                           "serving_device_busy_ms": sum(by_kernel.values()),
+                           "serving_ms_by_kernel": dict(sorted(by_kernel.items(),
+                                                               key=lambda kv: -kv[1])[:8]),
+                           "cpu_decode_max_abs_err": dec_err,
+                           "psnr_db": float(10 * np.log10(1.0 / max(
+                               float(np.mean((rec - left) ** 2)), 1e-12)))}
+        del cpu
+
+    # K2 at the fusion presets' sites (the bottleneck preset's: its wide
+    # g_a22 / g_s22 blocks beside the shared g_a / g_s), from the blocks'
+    # own inputs in one encode + decode, against plain and cuDNN
+    model = models["bottleneck_att_1bpp"]
+    cfg = model.config
+    sites = [(f"{stack} l{i}", getattr(model, stack)[i])
+             for stack, specs in (("g_a", cfg.ga), ("g_a22", cfg.ga22), ("g_s22", cfg.gs22),
+                                  ("g_s", cfg.gs))
+             for i, spec in enumerate(specs) if spec[0] in ("rbs", "rbu")]
+    inputs = {}
+    hooks = [block.register_forward_pre_hook(
+        lambda mod, args, where=where: inputs.setdefault(where, args[0]))
+        for where, block in sites]
+    codec_cli.decode_image(codec_cli.encode_image(left, model, device="cuda"), model,
+                           device="cuda", si_image=right)
+    for hk in hooks:
+        hk.remove()
+    k2_row = tools.new_row(library=True)
+    with torch.no_grad():
+        for where, block in sites:
+            tools.measure_k2(block_k2_args(block, inputs[where]), k2_row,
+                             f"K2 bottleneck_att_1bpp {where}", cudnn_k1=True)
+            k2_row["shapes"][-1]["where"] = where
+    del models
+
+    # train_dsc on the trainable presets: a few steps each, K2 17 a step
+    work = os.path.join(ROOT, "build", "chip_smoke_dsc_fusion")
+    shutil.rmtree(work, ignore_errors=True)
+    train_dir = os.path.join(work, "kitti_train")
+    write_kitti(train_dir, frames, rng, *kitti_hw)
+    base = dataclasses.replace(
+        TrainConfig.from_json(os.path.join(ROOT, "examples", "dsc_0031bpp.json")),
+        tot_epoch=epochs, print_freq=1, tensorboard=False, train_dir=train_dir, test_dir="",
+        save_root=work)
+    steps_seen = []
+    real_make_step = train_cli.make_dsc_train_step
+
+    def timed_make_step(*args, **kw):
+        step_fn = real_make_step(*args, **kw)
+
+        def timed_step(state, im1, im2, generator):
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step_fn(state, im1, im2, generator)
+            torch.cuda.synchronize()
+            steps_seen.append((1e3 * (time.perf_counter() - t0), float(metrics["loss"]),
+                               {k: v - before[k] for k, v in counts().items()},
+                               list(im1.shape)))
+            return metrics
+
+        return timed_step
+
+    training = {}
+    per_run = epochs * (2 * frames // base.batch_size)
+    train_cli.make_dsc_train_step = timed_make_step
+    try:
+        for preset in FUSION_TRAINABLE:
+            cfg_t = dataclasses.replace(base, model=f"dsc:{preset}")
+            path = os.path.join(work, f"{preset}.json")
+            with open(path, "w") as f:
+                f.write(cfg_t.to_json())
+            steps_seen.clear()
+            state = train_cli.main(["--config", path, "-n", preset])
+            check(state.step == per_run == len(steps_seen),
+                  f"{preset}: train_dsc ran {len(steps_seen)} steps, expected {per_run}")
+            check(all(s[2] == {"conv_gdn": 17, "gdn": 0, "quantize_pack": 0}
+                      for s in steps_seen),
+                  f"{preset}: launches a step {[s[2] for s in steps_seen]}, expected K2 17")
+            check(all(np.isfinite(s[1]) for s in steps_seen), f"{preset}: a loss is not finite")
+            for k in launches:
+                launches[k] += sum(s[2][k] for s in steps_seen)
+            training[preset] = {"steps": len(steps_seen), "batch": steps_seen[0][3],
+                                "loss": state.model.config.loss,
+                                "losses": [s[1] for s in steps_seen],
+                                "step_ms": [s[0] for s in steps_seen]}
+            del state
+    finally:
+        train_cli.make_dsc_train_step = real_make_step
+
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "dsc_fusion", "ok": True, "presets": list(FUSION_PRESETS), "n": 128,
+          "shape": [h, w, 3], "launches": launches, "serving": serving, "training": training,
+          "k2_fusion": k2_row, "k3_codes": k3_rows, "seconds": seconds})
+    print(f"dsc_fusion phase seconds: {seconds:.1f}", flush=True)
+    return {"launches": launches, "k2": k2_row, "k3": k3_rows}
 
 
 def main() -> int:
@@ -2007,15 +2746,8 @@ def main() -> int:
     # of g_s22 and g_s square it up to 1e5 and the recon is all clipped
     last = dsc.g_a22[max(i for i, sp in enumerate(cfg_dsc.ga22) if sp[0] == "conv3")]
     first = dsc.g_s22[min(i for i, sp in enumerate(cfg_dsc.gs22) if sp[0] == "conv3")]
-    seen = {}
-    hook = last.register_forward_hook(lambda mod, args, out: seen.setdefault("y", out))
+    spread_channels_(torch, last, lambda: dsc.encode(padded(lefts[0])), CODE_SPREAD)
     with torch.no_grad():
-        dsc.encode(padded(lefts[0]))
-        hook.remove()
-        y = seen["y"].flatten(0, 2)
-        scale = CODE_SPREAD / y.std(dim=0)
-        last.weight.mul_(scale.view(-1, 1, 1, 1))
-        last.bias.copy_(scale * (last.bias - y.mean(dim=0)))
         first.weight.div_(cfg_dsc.coarse_step)
 
     # the file codec on 4 pairs, the counters around it only
@@ -2165,15 +2897,8 @@ def main() -> int:
     with torch.no_grad():
         for where, block in sites:
             check(isinstance(block, (ResidualBlockWithStride, ResidualBlockUpsample)), where)
-            xin = inputs[where]
-            if isinstance(block, ResidualBlockWithStride):
-                y, conv, gdn = block.act(block.conv1(xin)), block.conv2, block.gdn
-            else:
-                y, conv, gdn = block.act(block.subpel_conv(xin)), block.conv, block.igdn
-            beta, gamma = gdn_reparam(gdn.params())
-            args = (y.contiguous(), conv.weight.permute(2, 3, 1, 0).contiguous(), conv.bias,
-                    gamma.t().contiguous(), beta.contiguous(), 1, 1, gdn.inverse)
-            measure_k2(args, k2_dsc, f"K2 DSC {where}", cudnn_k1=True)
+            measure_k2(block_k2_args(block, inputs[where]), k2_dsc, f"K2 DSC {where}",
+                       cudnn_k1=True)
             k2_dsc["shapes"][-1]["where"] = where
         # K1's body at C = 64 (g_a22's GDN) on the two pixel counts of the table
         for pixels in (97280, 380):
@@ -2218,6 +2943,11 @@ def main() -> int:
     dsc_train_launches = dsc_train["launches"]
     hyper = hyper_phase(torch, dev, tools)
     hyper_launches = hyper["launches"]
+    hyper_train = hyper_train_phase(torch, dev, tools)
+    fusion = dsc_fusion_phase(torch, dev, tools)
+    paths = {"codec": launches, "train": train_launches, "dsc": dsc_launches,
+             "dsc_train": dsc_train_launches, "hyper": hyper_launches,
+             "hyper_train": hyper_train["launches"], "dsc_fusion": fusion["launches"]}
 
     kernels = []
     meta = {
@@ -2232,12 +2962,8 @@ def main() -> int:
         row = rows[name]
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
-                 "launches": (launches[name] + train_launches[name] + dsc_launches[name]
-                              + dsc_train_launches[name] + hyper_launches[name]),
-                 "launches_by_path": {"codec": launches[name], "train": train_launches[name],
-                                      "dsc": dsc_launches[name],
-                                      "dsc_train": dsc_train_launches[name],
-                                      "hyper": hyper_launches[name]},
+                 "launches": sum(path[name] for path in paths.values()),
+                 "launches_by_path": {p: path[name] for p, path in paths.items()},
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -2251,14 +2977,14 @@ def main() -> int:
             entry["training_shapes"] = [
                 {k: st.get(k) for k in ("x", "ms", "plain_ms", "library_ms", "bound_ms")}
                 for st in train_row["shapes"]]
-        hyper_row = {"conv_gdn": hyper["k2"], "gdn": hyper["k1"]}.get(name)
-        if hyper_row is not None:
-            entry["max_abs_err"] = max(entry["max_abs_err"], hyper_row["max_abs_err"])
-            entry["c192_shapes"] = [
-                {k: st.get(k) for k in ("where", "x", "splits", "partial_bytes", "ms", "call_ms",
-                                        "plain_ms", "library_ms", "cudnn_k1_ms", "bound_ms",
-                                        "bound_by")}
-                for st in hyper_row["shapes"]]
+        c192_keys = ("where", "x", "splits", "partial_bytes", "ms", "call_ms", "plain_ms",
+                     "library_ms", "cudnn_k1_ms", "cudnn", "bound_ms", "bound_by")
+        for key, phase in (("c192_shapes", hyper), ("c192_training_shapes", hyper_train)):
+            phase_row = {"conv_gdn": phase["k2"], "gdn": phase["k1"]}.get(name)
+            if phase_row is not None:
+                entry["max_abs_err"] = max(entry["max_abs_err"], phase_row["max_abs_err"])
+                entry[key] = [{k: st.get(k) for k in c192_keys if k in st}
+                              for st in phase_row["shapes"]]
         if name == "conv_gdn":
             k2_tr = dsc_train["k2_training"]
             entry["max_abs_err"] = max(entry["max_abs_err"], k2_dsc["max_abs_err"],
@@ -2271,13 +2997,18 @@ def main() -> int:
                 {k: st.get(k) for k in ("where", "x", "splits", "ms", "call_ms", "plain_ms",
                                         "library_ms", "cudnn_k1_ms", "bound_ms", "bound_by")}
                 for st in k2_dsc["shapes"]]
+            entry["max_abs_err"] = max(entry["max_abs_err"], fusion["k2"]["max_abs_err"])
+            entry["fusion_shapes"] = [
+                {k: st.get(k) for k in ("where", "x", "splits", "ms", "plain_ms", "library_ms",
+                                        "cudnn_k1_ms", "bound_ms", "bound_by")}
+                for st in fusion["k2"]["shapes"]]
         elif name == "gdn":
             entry["max_abs_err"] = max(entry["max_abs_err"], k1_c64["max_abs_err"])
             entry["c64_shapes"] = [{k: st.get(k) for k in ("x", "ms", "plain_ms", "bound_ms")}
                                    for st in k1_c64["shapes"]]
         else:
             entry.update(launch_floor_ms=row["launch_floor_ms"], dsc_step16=k3_dsc,
-                         dsc_validation=dsc_train["k3_validation"])
+                         dsc_validation=dsc_train["k3_validation"], fusion_codes=fusion["k3"])
         kernels.append(entry)
     print(f"chip_smoke seconds: {time.perf_counter() - t_script:.1f}", flush=True)
     print(smi, flush=True)

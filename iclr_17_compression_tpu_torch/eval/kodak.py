@@ -3,7 +3,9 @@
 Counterpart of ``iclr_17_compression_tpu/eval/kodak.py`` (the reference's
 periodic testKodak loop, train.py:157-198). The model's eval forward runs
 under ``torch.no_grad()`` on the model's device: on CUDA through K2 and
-K1. ``use_rans`` codes each latent with the port's rANS coder
+K1. It takes a Ballé-17, hyperprior or joint-AR model (the metrics need
+only ``recon``, ``latent`` and ``bpp``). ``use_rans`` (Ballé-17 only, as in
+the JAX package) codes each latent with the port's rANS coder
 (``coding/api.py``) and reports the measured stream size instead of the
 estimate.
 """
@@ -28,6 +30,9 @@ def eval_kodak(
     explicit ``rans_bounds`` raise if a latent falls outside them, never
     clip (a clipped symbol would decode to another latent than the one the
     metrics were computed from)."""
+    if use_rans and not hasattr(model, "bitEstimator"):
+        raise ValueError("use_rans codes a Ballé-17 latent against its factorized prior; "
+                         f"{type(model).__name__} has none")
     device = next(model.parameters()).device
 
     def forward(img):

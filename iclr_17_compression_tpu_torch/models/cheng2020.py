@@ -31,7 +31,10 @@ default) or ``"numpy"``: the two differ in the last bits, so a file must be
 decoded with the backend that encoded it, and a backend that cannot load
 raises.
 
-Training (``train=True``) is not ported yet and raises.
+Training (``train=True``) replaces both roundings by additive U(±½)
+noise drawn from one explicit generator, ẑ's first and then ŷ's (JAX's
+``rng_z, rng_y = split(rng)``); the masked context conv and the entropy
+parameters run in one parallel pass, as in the eval forward.
 """
 
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -45,6 +48,7 @@ from ..coding.gaussian import SCALES_MIN, default_gaussian_codec, default_scale_
 from ..nn.blocks import (ResidualBlock, ResidualBlockUpsample, ResidualBlockWithStride,
                          SubpelConv, _Act, conv1x1, conv3x3, init_dsc_)
 from ..nn.layers import BitEstimator, MaskedConv
+from ..ops import quant
 from ..ops.conv import oihw_to_hwio
 from ..ops.entropy import LOG2
 from .hyperprior import _device, _fp32_on_cuda, _host, z_codec
@@ -123,6 +127,11 @@ class EntropyParameters(nn.Sequential):
 class JointAutoregressive(nn.Module):
     """The end-to-end joint-autoregressive hierarchical-prior codec."""
 
+    # cuDNN's heuristic takes an FFT route for these fp32 3×3 convs at
+    # C = 192; a training loop runs this model's steps under
+    # ``utils.device.cudnn_autotune`` on the card
+    train_cudnn_autotune = True
+
     def __init__(self, n: int = 192, scale_bound: float = SCALES_MIN):
         super().__init__()
         self.n, self.scale_bound = n, scale_bound
@@ -146,16 +155,19 @@ class JointAutoregressive(nn.Module):
 
     def forward(self, image: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """The eval forward on an NHWC batch in [0, 1]: the JAX model's dict
+        """The forward on an NHWC batch in [0, 1]: the JAX model's dict
         (recon clipped, latent ŷ, hyper_latent ẑ, sigma, mu, mse, bpp_y,
-        bpp_z, bpp). The context runs in one parallel masked conv."""
-        if train:
-            raise NotImplementedError("JointAutoregressive training is not ported yet")
+        bpp_z, bpp). The context runs in one parallel masked conv.
+        ``train``: the noise quantizers, drawn from ``generator``."""
         _fp32_on_cuda(image)
         n_img, h, w, _ = image.shape
         y = self.g_a(image)
-        z_hat = torch.round(self.h_a(y))
-        y_hat = torch.round(y)
+        z = self.h_a(y)
+        if train:
+            z_hat = quant.add_uniform_noise(z, generator, 0.5)
+            y_hat = quant.add_uniform_noise(y, generator, 0.5)
+        else:
+            z_hat, y_hat = torch.round(z), torch.round(y)
         hyper = self.h_s(z_hat)
         ctx = self.context_prediction(y_hat)
         params = self.entropy_parameters(torch.cat([hyper, ctx], dim=-1))

@@ -21,16 +21,23 @@ noise drawn from one explicit generator in a fixed order, the counterpart
 of ``jax.random.split(rng, 3)``: the code (± ``coarse_noise``, then the
 clamp), then the base branch's ``z1`` and ``z2`` (± ``fine_noise``).
 
-Not ported yet: the fusion modules of ``fusion_pre="fif"`` and
-``fusion_post`` in ("bot_att", "patch_att", "pam") (``models/enhance.py``,
-``attention.py``, ``passr.py``; ROADMAP item 17). They raise
-``NotImplementedError``.
+The fusion modules of the fusion presets sit between ``g_z1hat_z2``'s
+input and ``g_s``, as in the JAX package: ``fusion_pre="fif"`` runs ``FIF``
+(``models/enhance.py``) on z_cat, in its batch-statistics mode when
+``train``; ``fusion_post="bot_att"`` concatenates ``bottleneck_attention``
+(``models/attention.py``) of the fused latent against z2 and runs
+``final_conv`` (att 2N, rb N); ``"patch_att"`` does the same with
+``PatchMatchAttention`` (``bot_mhsa``), its output zero-padded back to the
+latent size, and ``final_conv`` (att 2N, rb 2N, rb N); ``"pam"`` runs
+``PAM`` (``models/passr.py``) with z2 as the right view, always in its
+eval mode.
 """
 
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..nn.blocks import (AttentionBlock, ResidualBlock, ResidualBlockUpsample,
@@ -40,6 +47,9 @@ from ..ops import quant
 from ..ops.kernels.quant_pack_kernel import quantize_pack
 from ..ops.metrics import ms_ssim
 from ..utils.device import no_tf32
+from .attention import PatchMatchAttention, bottleneck_attention
+from .enhance import FIF
+from .passr import PAM
 
 # ---------------------------------------------------------------------------
 # Stack specs: (kind, features[, arg]).
@@ -126,6 +136,14 @@ def _gz_specs(n: int, cat_factor: int = 2) -> Tuple[Spec, ...]:
 GREC_SPECS = (("att", 6), ("rb", 3), ("rb", 3), ("att", 3), ("rb", 3))
 
 
+def final_conv_specs(cfg: "DSCConfig") -> Tuple[Spec, ...]:
+    """The stack after the bottleneck attention (``bot_att``) or the
+    patch-match attention (``patch_att``), on cat(fused, attention)."""
+    if cfg.fusion_post == "patch_att":
+        return (("att", 2 * cfg.n), ("rb", 2 * cfg.n), ("rb", cfg.n))
+    return (("att", 2 * cfg.n), ("rb", cfg.n))
+
+
 @dataclass(frozen=True)
 class DSCConfig:
     """Full specification of one DSC variant (fields as in the JAX package)."""
@@ -194,18 +212,37 @@ def quantize_code(code_pre: torch.Tensor, cfg: DSCConfig
     return symbols, code
 
 
-def _fuse_and_synthesize(cfg: DSCConfig, mods: nn.Module, z1_hat, z2, z2_hat, im2):
+# The modules each fusion option adds, by their names in the model.
+FUSION_MODULES = {"none": [], "fif": ["fif"], "bot_att": ["final_conv"],
+                  "patch_att": ["bot_mhsa", "final_conv"], "pam": ["pam"]}
+
+
+def _fuse_and_synthesize(cfg: DSCConfig, mods: nn.Module, z1_hat, z2, z2_hat, im2,
+                         train: bool = False):
     """SI fusion + synthesis, the receiver's tail shared by the full model
-    and ``DSCDecoder``: (fused, recon_raw), the recon unclipped."""
+    and ``DSCDecoder``: (fused, recon_raw), the recon unclipped. ``train``
+    reaches FIF's batch statistics only."""
     if cfg.fusion == "cat3":
         z_cat = torch.cat([z1_hat, z2_hat, z2], dim=-1)
     else:
         si = torch.zeros_like(z2) if cfg.si_mode == "zero_si" else z2
         zc = torch.zeros_like(z1_hat) if cfg.si_mode == "zero_code" else z1_hat
         z_cat = torch.cat([zc, si], dim=-1)
+    if cfg.fusion_pre == "fif":
+        z_cat = mods.fif(z_cat, train)
     fused = mods.g_z1hat_z2(z_cat)
     if cfg.gz2:
         fused = fused + mods.g_z1hat_z2_freq2(z_cat)
+    if cfg.fusion_post == "bot_att":
+        fused = mods.final_conv(torch.cat([fused, bottleneck_attention(fused, z2)], dim=-1))
+    elif cfg.fusion_post == "patch_att":
+        att = mods.bot_mhsa(fused, z2)
+        # the 9×9 patch grid may stop short of the latent: pad back with zeros
+        att = F.pad(att, (0, 0, 0, fused.shape[2] - att.shape[2], 0,
+                          fused.shape[1] - att.shape[1]))
+        fused = mods.final_conv(torch.cat([fused, att], dim=-1))
+    elif cfg.fusion_post == "pam":
+        fused = mods.pam(fused, z2, train=False)
     recon = mods.g_s(fused)
     if cfg.recon_residual:
         recon = recon + mods.g_rec1_im2_new(torch.cat([recon, im2], dim=-1))
@@ -227,7 +264,9 @@ def _receiver_stacks(cfg: DSCConfig) -> Tuple[str, ...]:
         names.append("g_z1hat_z2_freq2")
     if cfg.recon_residual:
         names.append("g_rec1_im2_new")
+    names += FUSION_MODULES[cfg.fusion_pre] + FUSION_MODULES[cfg.fusion_post]
     return tuple(names)
+
 
 
 def _fp32_on_cuda(x: torch.Tensor) -> None:
@@ -253,11 +292,9 @@ class DSCStereoModel(nn.Module):
 
     def __init__(self, config: DSCConfig):
         super().__init__()
-        if config.fusion_pre != "none" or config.fusion_post != "none":
-            raise NotImplementedError(
-                f"{config.name}: fusion_pre={config.fusion_pre!r} / fusion_post="
-                f"{config.fusion_post!r} need FIF, the bottleneck attentions or PAM, which "
-                "are not ported yet (ROADMAP item 17)")
+        if config.fusion_pre not in ("none", "fif") or config.fusion_post not in FUSION_MODULES:
+            raise ValueError(f"{config.name}: unknown fusion_pre={config.fusion_pre!r} / "
+                             f"fusion_post={config.fusion_post!r}")
         self.config = config
         self.g_a = build_stack(config.ga, 3)[0]
         if not config.shared_encoder:
@@ -271,6 +308,14 @@ class DSCStereoModel(nn.Module):
             self.g_z1hat_z2_freq2 = build_stack(config.gz2, cat * config.n)[0]
         if config.recon_residual:
             self.g_rec1_im2_new = build_stack(GREC_SPECS, 6)[0]
+        if config.fusion_pre == "fif":
+            self.fif = FIF(2 * config.n)
+        if config.fusion_post == "patch_att":
+            self.bot_mhsa = PatchMatchAttention(config.n)
+        if config.fusion_post in ("bot_att", "patch_att"):
+            self.final_conv = build_stack(final_conv_specs(config), 2 * config.n)[0]
+        elif config.fusion_post == "pam":
+            self.pam = PAM(config.n)
 
     def init_(self, generator: torch.Generator) -> "DSCStereoModel":
         """The JAX package's DSC init (``nn.blocks.init_dsc_``)."""
@@ -302,7 +347,7 @@ class DSCStereoModel(nn.Module):
         z1_hat = self.g_s22(code)
         out["z1_hat"] = z1_hat
         z2_hat = self.g_s22(self.g_a22(z2)) if cfg.fusion == "cat3" else None
-        fused, recon = _fuse_and_synthesize(cfg, self, z1_hat, z2, z2_hat, im2)
+        fused, recon = _fuse_and_synthesize(cfg, self, z1_hat, z2, z2_hat, im2, train)
         out["fused"] = fused
         clipped = torch.clamp(recon, 0.0, 1.0)
         out["recon_raw"] = recon

@@ -28,7 +28,10 @@ written on one device and read on another decodes only where no σ lands on
 the other side of a table edge (the JAX package has the same property
 across its backends).
 
-Training (``train=True``) is not ported yet and raises.
+Training (``train=True``) replaces both roundings by additive U(±½)
+noise drawn from one explicit generator, ẑ's first and then ŷ's (or
+y/σ's), the counterpart of JAX's ``rng_z, rng_y = split(rng)``; the K2
+and K1 launches are then their autograd Functions.
 """
 
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -41,6 +44,7 @@ from ..coding.api import build_cdf_tables_from_bit_estimator, decode_latent, enc
 from ..coding.gaussian import (default_laplace_codec, default_scale_table, scale_indices,
                                unit_laplace_codec)
 from ..nn.layers import BitEstimator
+from ..ops import quant
 from ..ops.entropy import LOG2
 from ..utils.device import cudnn_deterministic, no_tf32
 from .balle17 import _fp32_on_cuda
@@ -91,23 +95,24 @@ class ScaleHyperprior(nn.Module):
 
     def forward(self, image: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """The eval forward on an NHWC batch in [0, 1]: the JAX model's dict
+        """The forward on an NHWC batch in [0, 1]: the JAX model's dict
         (recon clipped, latent ŷ, hyper_latent ẑ, sigma, mse, bpp_y, bpp_z,
-        bpp)."""
-        if train:
-            raise NotImplementedError("ScaleHyperprior training is not ported yet")
+        bpp). ``train``: the noise quantizers, drawn from ``generator``."""
         _fp32_on_cuda(image)
         n_img, h, w, _ = image.shape
         y = self.Encoder(image)
-        z_hat = torch.round(self.priorEncoder(y))
+        z = self.priorEncoder(y)
+        z_hat = quant.add_uniform_noise(z, generator, 0.5) if train else torch.round(z)
         sigma = self.sigma(z_hat)
         if self.quant == "sigma-norm":
-            y_norm_hat = torch.round(y / sigma)
+            y_norm = y / sigma
+            y_norm_hat = (quant.add_uniform_noise(y_norm, generator, 0.5) if train
+                          else torch.round(y_norm))
             y_hat = y_norm_hat * sigma
             ones = torch.ones_like(sigma)
             prob_y = laplace_cdf(y_norm_hat + 0.5, ones) - laplace_cdf(y_norm_hat - 0.5, ones)
         else:
-            y_hat = torch.round(y)
+            y_hat = quant.add_uniform_noise(y, generator, 0.5) if train else torch.round(y)
             prob_y = laplace_cdf(y_hat + 0.5, sigma) - laplace_cdf(y_hat - 0.5, sigma)
         recon = self.Decoder(y_hat)
         prob_z = self.bitEstimator_z(z_hat + 0.5) - self.bitEstimator_z(z_hat - 0.5)

@@ -47,7 +47,7 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, *, stride: int = 1,
-           padding: int = 0) -> torch.Tensor:
+           padding: int = 0, dilation: int = 1) -> torch.Tensor:
     """NHWC conv with ``nn.Conv2d`` semantics; ``w`` is OIHW. On the CPU the
     input is made contiguous NCHW first: oneDNN's backward of convolutions
     on channels-last views corrupts the heap on the DSC stacks (torch 2.13
@@ -55,7 +55,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, *, stride: int = 1,
     xc = nchw(x)
     if x.device.type == "cpu":
         xc = xc.contiguous()
-    return nhwc(F.conv2d(xc, w, b, stride=stride, padding=padding))
+    return nhwc(F.conv2d(xc, w, b, stride=stride, padding=padding, dilation=dilation))
 
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor, b=None, *, stride: int = 1,

@@ -4,12 +4,14 @@ Counterpart of ``iclr_17_compression_tpu/train/checkpoint.py``:
 
 - ``save_params`` / ``load_params``: bare parameter snapshots
   ``iter_<step>.ckpt`` in the JAX package's layout, a flax msgpack of the
-  JAX Ballé-17 param tree (``train/weights.py``). A model trained by the
-  port loads in the JAX package and through the port's ``load_balle17``; a
-  JAX checkpoint loads in the port.
-- ``load_params_partial``: the leaves of a JAX-layout file (Ballé-17 or
-  DSC tree, bare or a TrainState's ``params``) or of the port's train-state
-  file whose key and shape match the model's.
+  JAX param tree of a Ballé-17, hyperprior or joint-AR model
+  (``train/weights.py``). A model trained by the port loads in the JAX
+  package and through the port's ``load_balle17`` / ``load_hyperprior`` /
+  ``load_joint`` (and so the codec CLI); a JAX Ballé-17 checkpoint loads in
+  the port.
+- ``load_params_partial``: the leaves of a JAX-layout file (a Ballé-17,
+  hyperprior, joint-AR or DSC tree, bare or a TrainState's ``params``) or
+  of the port's train-state file whose key and shape match the model's.
 - ``save_train_state`` / ``load_train_state``: the port's own full state, a
   ``torch.save`` of the model's and the optimizer's state dicts and the
   step, with the JAX package's JSON sidecar (epoch, loss, step and extras
@@ -31,13 +33,20 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..models.cheng2020 import JointAutoregressive
 from ..models.dsc import DSCStereoModel
-from ..ops.conv import hwio_to_oihw
+from ..models.hyperprior import ScaleHyperprior
+from ..ops.conv import deconv_hwio_to_torch, hwio_to_oihw
 from .state import TrainState
 from .weights import (
     _dsc_flax_path,
     _flatten,
-    _leaf_to_port,
+    _hyperprior_flax_path,
+    _is_deconv,
+    _jax_path,
+    _joint_flax_path,
+    hyperprior_params_to_jax,
+    joint_params_to_jax,
     msgpack_dumps,
     params_from_jax,
     params_to_jax,
@@ -53,12 +62,23 @@ def _atomic_write(path: str, data: bytes) -> None:
     os.replace(tmp, path)
 
 
+def _params_to_jax(model: torch.nn.Module) -> Dict[str, Any]:
+    """A Ballé-17, hyperprior or joint-AR model's parameters as its JAX
+    param tree."""
+    sd = model.state_dict()
+    if isinstance(model, ScaleHyperprior):
+        return hyperprior_params_to_jax(sd, model.out_channel_n, model.out_channel_m)
+    if isinstance(model, JointAutoregressive):
+        return joint_params_to_jax(sd, model.n)
+    return params_to_jax(sd)
+
+
 def save_params(model: torch.nn.Module, directory: str, step: int, prefix: str = "iter") -> str:
     """Write ``<directory>/<prefix>_<step>.ckpt``: the model's parameters as
     the JAX package's flax msgpack param tree."""
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"{prefix}_{step}.ckpt")
-    _atomic_write(path, msgpack_dumps(params_to_jax(model.state_dict())))
+    _atomic_write(path, msgpack_dumps(_params_to_jax(model)))
     return path
 
 
@@ -70,26 +90,33 @@ def load_params(model: torch.nn.Module, path: str) -> torch.nn.Module:
 
 
 def _jax_leaves(model: torch.nn.Module, tree: Dict[str, Any]):
-    """(port key, tensor in the port's layout) for each leaf of a JAX param
-    tree that names one of ``model``'s keys."""
+    """(port key, tensor in the port's layout) for each parameter of
+    ``model`` that a leaf of a JAX param tree names."""
     flat = _flatten(tree)
-    if not isinstance(model, DSCStereoModel):
-        leaves = (_leaf_to_port(jpath, v) for jpath, v in flat.items())
-        yield from (leaf for leaf in leaves if leaf is not None)
-        return
-    for key in model.state_dict():
-        v = flat.get(_dsc_flax_path(key, model.config))
+    if isinstance(model, DSCStereoModel):
+        path_of, is_deconv = (lambda key: _dsc_flax_path(key, model.config)), None
+    elif isinstance(model, ScaleHyperprior):
+        path_of, is_deconv = _hyperprior_flax_path, _is_deconv
+    elif isinstance(model, JointAutoregressive):
+        path_of, is_deconv = _joint_flax_path, None
+    else:  # Ballé-17
+        path_of, is_deconv = _jax_path, (lambda path: "/conv" not in path)
+    for key, _ in model.named_parameters():
+        v = flat.get(path_of(key))
         if v is not None:
             v = np.asarray(v)
-            yield key, torch.from_numpy(np.array(hwio_to_oihw(v) if v.ndim == 4 else v,
-                                                 order="C"))
+            if v.ndim == 4:
+                v = deconv_hwio_to_torch(v) if is_deconv and is_deconv(path_of(key)) \
+                    else hwio_to_oihw(v)
+            yield key, torch.from_numpy(np.array(v, order="C"))
 
 
 def load_params_partial(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Load only the leaves of a JAX-layout param file (a Ballé-17 or DSC
-    tree, bare or under ``params``), or of the port's train-state file, whose
-    key and shape match the model's (the reference's partial state_dict
-    load, model.py:26-27); every other parameter keeps its value."""
+    """Load only the leaves of a JAX-layout param file (a Ballé-17,
+    hyperprior, joint-AR or DSC tree, bare or under ``params``), or of the
+    port's train-state file, whose key and shape match the model's (the
+    reference's partial state_dict load, model.py:26-27); every other
+    parameter keeps its value."""
     sd = read_port_state(path)
     if sd is not None:
         leaves = sd.items()

@@ -1,5 +1,5 @@
-"""Training CLI on one card: Ballé-17, the DSC stereo codecs and the
-residual rate-regression stage.
+"""Training CLI on one card: Ballé-17, the scale hyperprior, the joint-AR
+codec, the DSC stereo codecs and the residual rate-regression stage.
 
 Counterpart of ``iclr_17_compression_tpu/train/cli.py`` (``main``,
 ``train_single_image``, ``train_dsc``, ``_restore``; its
@@ -18,7 +18,12 @@ gradient clamp ±5 (train.py:106-111), periodic Kodak eval and checkpoints
 presets (``model: "dsc:<preset>"``) train in the train_2StepsNet loop shape
 (per-epoch plateau LR, a validation pass, best-train / best-val / latest
 checkpoints, train_2StepsNet.py:112-256); ``model: "reg_stage"`` runs the
-residual stage's trainer (``train/trainers.py``).
+residual stage's trainer (``train/trainers.py``). ``hyperprior`` and
+``joint`` train in the Ballé-17 loop with rd_loss = λ·mse + bpp; the steps
+of a model with ``train_cudnn_autotune`` set (the joint) run under
+``cudnn_autotune`` on the card (``utils/device.py``: cuDNN's heuristic takes
+an FFT route for the joint's 3×3 convs at C = 192, 32× slower a step on an
+H100; the hyperprior's 5×5 convs are as fast without it).
 
 Runs on CUDA (``resolve_device``: it raises without a card) unless a loop
 is given ``device="cpu"``. One card: the JAX package's data×tile mesh has
@@ -35,6 +40,7 @@ uninterrupted one would.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import os
@@ -47,7 +53,7 @@ import torch
 from ..data.datasets import ImageFolderDataset, KodakDataset, StereoKittiDataset, batch_iterator
 from ..eval.kodak import eval_kodak
 from ..models.dsc import DSC_PRESETS
-from ..utils.device import resolve_device
+from ..utils.device import cudnn_autotune, resolve_device
 from .checkpoint import (
     load_params_partial,
     load_train_state,
@@ -60,7 +66,7 @@ from .meters import AverageMeter
 from .observability import MetricsLogger, ProfileWindow
 from .schedules import step_decay_schedule
 from .state import (TrainState, build_model, create_train_state, make_balle17_train_step,
-                    make_dsc_train_step, step_generator)
+                    make_dsc_train_step, make_hyperprior_train_step, step_generator)
 from .trainers import TRAINERS, EpochTail, make_stereo_dataset
 
 logger = logging.getLogger("iclr17c_torch")
@@ -79,20 +85,24 @@ def setup_logging(name: str, save_dir: str) -> None:
     logger.addHandler(sh)
 
 
+SINGLE_IMAGE_MODELS = ("balle17", "hyperprior", "joint")
+
+
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise for what the port does not train yet, naming its ROADMAP item:
-    the hyperprior and joint models (16b), the DSC fusion modules (17), the
-    auxiliary trainers other than ``reg_stage`` (18), a mesh (20)."""
-    if cfg.model in ("hyperprior", "joint"):
-        raise NotImplementedError(f"model {cfg.model!r}: not ported yet (ROADMAP item 16b)")
+    """Raise for what the port does not train, naming its ROADMAP entry:
+    ``fif_0031bpp`` in ``train_dsc`` (Queue 3: the JAX trainer keeps no
+    batch statistics), the auxiliary trainers other than ``reg_stage``
+    (item 18), a mesh (item 20)."""
     if cfg.model.startswith("dsc:"):
         preset = DSC_PRESETS[cfg.model.split(":", 1)[1]]
-        if preset.fusion_pre != "none" or preset.fusion_post != "none":
+        if preset.fusion_pre == "fif":
             raise NotImplementedError(
-                f"model {cfg.model!r}: its fusion modules are not ported yet (ROADMAP item 17)")
+                f"model {cfg.model!r}: the JAX trainer keeps only the params, not FIF's "
+                "batch_stats, and cannot train this preset; the port follows it "
+                "(ROADMAP Queue 3)")
     elif cfg.model in TRAINERS and cfg.model != "reg_stage":
         raise NotImplementedError(f"trainer {cfg.model!r}: not ported yet (ROADMAP item 18)")
-    elif cfg.model not in ("balle17", "reg_stage"):
+    elif cfg.model not in SINGLE_IMAGE_MODELS + ("reg_stage",):
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.mesh_data not in (None, 1) or cfg.mesh_tile != 1:
         raise NotImplementedError(
@@ -112,17 +122,18 @@ def _restore(state: TrainState, resume: str):
 
 def train_single_image(cfg: TrainConfig, name: str, pretrain: str = "", resume: str = "",
                        device: Optional[str] = None) -> TrainState:
-    """The Ballé-17 training loop (reference train.py shape) on ``device``
-    (default ``cuda``). Returns the final train state."""
+    """The Ballé-17 / hyperprior / joint-AR training loop (reference
+    train.py shape) on ``device`` (default ``cuda``). Returns the final
+    train state."""
     dev = resolve_device(device)
     check_supported(cfg)
-    if cfg.model != "balle17":
-        raise ValueError(f"train_single_image trains balle17, not {cfg.model!r}")
+    if cfg.model not in SINGLE_IMAGE_MODELS:
+        raise ValueError(f"train_single_image trains {SINGLE_IMAGE_MODELS}, not {cfg.model!r}")
     save_dir = os.path.join(cfg.save_root, name)
     setup_logging(name, save_dir)
 
-    model = build_model("balle17", device=dev, seed=cfg.seed, out_channel_n=cfg.out_channel_n,
-                        quant=cfg.quant)
+    model = build_model(cfg.model, device=dev, seed=cfg.seed, out_channel_n=cfg.out_channel_n,
+                        out_channel_m=cfg.out_channel_m, quant=cfg.quant, n=cfg.joint_n)
     lr = step_decay_schedule(cfg.lr_base, cfg.lr_decay, cfg.lr_decay_interval, cfg.warmup_step)
     state = create_train_state(model, lr=lr, grad_clip=cfg.grad_clip)
     start_epoch, start_skip = 0, 0
@@ -135,7 +146,10 @@ def train_single_image(cfg: TrainConfig, name: str, pretrain: str = "", resume: 
         logger.info("loaded pretrain %s", pretrain)
     logger.info("device: %s", torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu")
 
-    step_fn = make_balle17_train_step(cfg.train_lambda, distortion=cfg.loss or "mse")
+    if cfg.model == "balle17":
+        step_fn = make_balle17_train_step(cfg.train_lambda, distortion=cfg.loss or "mse")
+    else:
+        step_fn = make_hyperprior_train_step(cfg.train_lambda)
     dataset = ImageFolderDataset(cfg.train_dir, cfg.image_size, cfg.seed)
     test_set = KodakDataset(cfg.test_dir) if cfg.test_dir else None
 
@@ -148,6 +162,12 @@ def train_single_image(cfg: TrainConfig, name: str, pretrain: str = "", resume: 
         save_train_state(state, save_dir, "latest", epoch=epoch,
                          extra={"batch_in_epoch": batch_in_epoch})
 
+    # a model whose convs need cuDNN's algorithms chosen by timing says so
+    # (``train_cudnn_autotune``, utils/device.py); the flags hold for its
+    # train steps only (the joint's eval at 768×512 keeps cuDNN's heuristic:
+    # timing those shapes peaks at 74 GiB of workspace on an H100)
+    autotune = cudnn_autotune if getattr(model, "train_cudnn_autotune", False) \
+        and dev.type == "cuda" else contextlib.nullcontext
     try:
         t_last = time.time()
         for epoch in range(start_epoch, cfg.tot_epoch):
@@ -158,11 +178,13 @@ def train_single_image(cfg: TrainConfig, name: str, pretrain: str = "", resume: 
             ):
                 prof.tick(state.step)
                 x = torch.from_numpy(batch).to(dev, non_blocking=True)
-                metrics = step_fn(state, x, step_generator(cfg.seed, state.step, dev))
+                with autotune():
+                    metrics = step_fn(state, x, step_generator(cfg.seed, state.step, dev))
                 batch_in_epoch += 1
                 if state.step % cfg.cal_step == 0:
                     for k in meters:
-                        meters[k].update(float(metrics[k]))
+                        if k in metrics:  # the hyperprior step reports no psnr
+                            meters[k].update(float(metrics[k]))
                 if state.step % cfg.print_freq == 0:
                     dt = time.time() - t_last
                     t_last = time.time()

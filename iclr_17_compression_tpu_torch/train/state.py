@@ -2,7 +2,7 @@
 
 Counterpart of ``iclr_17_compression_tpu/train/state.py`` (``TrainState``,
 ``_make_optimizer``, ``make_balle17_train_step``, ``make_dsc_train_step``,
-``build_model``). JAX's pure
+``make_hyperprior_train_step``, ``build_model``). JAX's pure
 ``(state, batch, rng) -> (state, metrics)`` becomes a step that updates the
 model and optimizer in place and returns the metrics.
 
@@ -135,13 +135,40 @@ def make_dsc_train_step(w_full: float = 1.0, w_base: float = 1.0, w_z: float = 0
     return train_step
 
 
+def make_hyperprior_train_step(train_lambda: float = 8192.0):
+    """``train_step(state, batch, generator)`` for a ``ScaleHyperprior`` or
+    a ``JointAutoregressive``: rd_loss = λ·mse + bpp (bpp_y + bpp_z); one
+    update; the metrics ``rd_loss``, ``mse``, ``bpp``, ``bpp_y`` and
+    ``bpp_z`` (detached tensors)."""
+
+    def train_step(state: TrainState, batch: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        with torch.profiler.record_function("train_step/forward"):
+            out = state.model(batch, train=True, generator=generator)
+            rd_loss = train_lambda * out["mse"] + out["bpp"]
+        with torch.profiler.record_function("train_step/backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            rd_loss.backward()
+        with torch.profiler.record_function("train_step/optimizer"):
+            apply_gradients(state)
+        return {"rd_loss": rd_loss.detach(),
+                **{k: out[k].detach() for k in ("mse", "bpp", "bpp_y", "bpp_z")}}
+
+    return train_step
+
+
 def build_model(name: str, device: Optional[str] = None, seed: int = 0, **kw) -> torch.nn.Module:
-    """Model factory: ``balle17`` (``out_channel_n``, ``quant``) or
+    """Model factory: ``balle17`` (``out_channel_n``, ``quant``),
+    ``hyperprior`` (``out_channel_n`` 192, ``out_channel_m`` 320, ``quant``:
+    ``sigma-norm``, else ``round``, as the JAX model reads any other name,
+    such as the config's default ``noise-round``), ``joint`` (``n`` 192) or
     ``dsc:<preset>`` (``loss`` overrides the preset's), drawn from the JAX
     package's init with a generator seeded by ``seed``, on ``device``
-    (default ``cuda``). ``hyperprior`` and ``joint`` are ROADMAP item 16b."""
+    (default ``cuda``)."""
     from ..models.balle17 import Balle17Compressor
+    from ..models.cheng2020 import JointAutoregressive
     from ..models.dsc import DSC_PRESETS, DSCStereoModel
+    from ..models.hyperprior import ScaleHyperprior
 
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
@@ -153,8 +180,12 @@ def build_model(name: str, device: Optional[str] = None, seed: int = 0, **kw) ->
         if kw.get("loss"):
             cfg = dataclasses.replace(cfg, loss=kw["loss"])
         model = DSCStereoModel(cfg)
-    elif name in ("hyperprior", "joint"):
-        raise NotImplementedError(f"model {name!r} is not ported yet (ROADMAP item 16b)")
+    elif name == "hyperprior":
+        model = ScaleHyperprior(kw.get("out_channel_n", 192), kw.get("out_channel_m", 320),
+                                quant="sigma-norm" if kw.get("quant") == "sigma-norm"
+                                else "round")
+    elif name == "joint":
+        model = JointAutoregressive(kw.get("n", 192))
     else:
         raise ValueError(f"unknown model {name!r}")
     return model.init_(gen).to(dev)

@@ -29,6 +29,16 @@ of a given ``DSCConfig`` (the inverse of ``import_dsc``): the flax tree
 ``save_train_state``: a ``torch.save`` zip whose ``model`` is the state_dict,
 read with ``weights_only=True``).
 
+The fusion presets' modules map as the JAX package names them: FIF's
+``fif.conv8.convblk.0.weight`` is flax ``fif/conv5/weight`` (the reference
+calls the fifth block ``conv8``), ``….convblk.2.bn.weight`` ``…/abn/bn/scale``;
+``bot_mhsa.q_patches.0.weight`` is ``bot_mhsa/q_patches/weight``;
+``pam.rb.body.2.weight`` is ``pam/rb/conv2/weight``; ``final_conv`` is a
+stack. FIF's running statistics (``….bn.running_mean`` / ``running_var``)
+are buffers in the port and flax's ``batch_stats`` collection
+(``fif/conv1/abn/bn/mean`` / ``var``): ``dsc_batch_stats_{from,to}_jax``
+carry them, and ``dsc_params_{from,to}_jax`` carry the parameters alone.
+
 ``hyperprior_params_{from,to}_jax`` and ``joint_params_{from,to}_jax`` do the
 same for the scale hyperprior (the inverse of ``import_hyperprior``: flax
 ``g_a/conv1`` is the port's ``Encoder.conv1``, ``h_s/deconv1``
@@ -37,7 +47,7 @@ and the joint-AR model (the flax names ``g_a/rbs0``, ``h_s/subpel1/conv``,
 ``entropy_parameters/conv2`` are the CompressAI indices ``g_a.0``,
 ``h_s.2.0``, ``entropy_parameters.4``, as ``import_joint`` maps them).
 ``load_hyperprior`` and ``load_joint`` read a JAX params file or TrainState
-checkpoint.
+checkpoint, or the port's own train-state file.
 """
 
 import struct
@@ -49,7 +59,7 @@ import torch
 
 from ..models.balle17 import Balle17Compressor
 from ..models.cheng2020 import JointAutoregressive
-from ..models.dsc import DSC_PRESETS, GREC_SPECS, DSCConfig, DSCStereoModel
+from ..models.dsc import DSC_PRESETS, GREC_SPECS, DSCConfig, DSCStereoModel, final_conv_specs
 from ..models.hyperprior import ScaleHyperprior
 from ..ops.conv import deconv_hwio_to_torch, hwio_to_oihw, oihw_to_hwio
 from ..utils.device import resolve_device
@@ -335,7 +345,7 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         node = tree
         for p in parents:
             node = node.setdefault(p, {})
-        node[leaf] = np.ascontiguousarray(v)
+        node[leaf] = np.array(v, order="C")  # ascontiguousarray would make a scalar 1-D
     return tree
 
 
@@ -355,7 +365,37 @@ def _dsc_stacks(cfg: DSCConfig) -> Dict[str, tuple]:
             "g_a22": ("g_a22", cfg.ga22), "g_s22": ("g_s22", cfg.gs22),
             "g_z1hat_z2": ("g_z1hat_z2", cfg.gz),
             "g_z1hat_z2_freq2": ("g_z1hat_z2_freq2", cfg.gz2),
-            "g_rec1_im2_new": ("g_rec1_im2_new", GREC_SPECS)}
+            "g_rec1_im2_new": ("g_rec1_im2_new", GREC_SPECS),
+            "final_conv": ("final_conv", final_conv_specs(cfg))}
+
+
+# FIF: the reference's block names → the JAX package's; the
+# AdaptiveBatchNorm's leaves → flax's; the running statistics → the
+# batch_stats leaves
+_FIF_BLOCKS = {"conv1": "conv1", "conv2": "conv2", "conv3": "conv3", "conv4": "conv4",
+               "conv8": "conv5"}
+_FIF_LEAVES = {"0.weight": "weight", "0.bias": "bias", "2.a": "abn/a", "2.b": "abn/b",
+               "2.bn.weight": "abn/bn/scale", "2.bn.bias": "abn/bn/bias",
+               "2.bn.running_mean": "abn/bn/mean", "2.bn.running_var": "abn/bn/var"}
+_STAT_LEAVES = ("running_mean", "running_var")
+
+
+def _is_stat(key: str) -> bool:
+    """A running-statistics buffer (flax ``batch_stats``), not a parameter."""
+    return key.rsplit(".", 1)[-1] in _STAT_LEAVES
+
+
+def _fusion_flax_path(top: str, rest: str) -> str:
+    """A key below ``fif``, ``bot_mhsa`` or ``pam`` → its JAX leaf path."""
+    if top == "fif":
+        block, tail = rest.split(".convblk.")
+        return f"fif/{_FIF_BLOCKS[block]}/{_FIF_LEAVES[tail]}"
+    parts = rest.split(".")
+    if top == "bot_mhsa":  # q_patches.0.weight: Sequential(conv, ReLU)
+        return "/".join(["bot_mhsa"] + ([parts[0], parts[2]] if len(parts) == 3 else parts))
+    if parts[0] == "rb":  # pam.rb.body.{0,2}.weight
+        return f"pam/rb/conv{1 + int(parts[2]) // 2}/{parts[3]}"
+    return "/".join(["pam"] + parts)
 
 
 _UNIT_CONVS = {"0": "conv_in", "2": "conv_mid", "4": "conv_out"}
@@ -382,15 +422,21 @@ def stack_flax_path(specs, key: str) -> str:
 
 
 def _dsc_flax_path(key: str, cfg: DSCConfig) -> str:
-    """A port DSC state_dict key → its JAX leaf path."""
+    """A port DSC state_dict key → its JAX leaf path (in ``params``, or in
+    ``batch_stats`` for a running statistic)."""
     top, rest = key.split(".", 1)
+    if top in ("fif", "bot_mhsa", "pam"):
+        return _fusion_flax_path(top, rest)
     flax_top, specs = _dsc_stacks(cfg)[top]
     return f"{flax_top}/{stack_flax_path(specs, rest)}"
 
 
-def _dsc_template(cfg: DSCConfig) -> Dict[str, torch.Tensor]:
+def _dsc_template(cfg: DSCConfig, stats: bool = False) -> Dict[str, torch.Tensor]:
+    """The parameters (``stats=False``) or the running statistics of a DSC
+    model of ``cfg``, on the meta device."""
     with torch.device("meta"):
-        return DSCStereoModel(cfg).state_dict()
+        sd = DSCStereoModel(cfg).state_dict()
+    return {k: v for k, v in sd.items() if _is_stat(k) == stats}
 
 
 def dsc_params_from_jax(tree: Dict[str, Any], cfg: DSCConfig) -> Dict[str, torch.Tensor]:
@@ -417,7 +463,7 @@ def _tree_from(state_dict: Dict[str, torch.Tensor], path_of, is_deconv=None) -> 
         node = tree
         for p in parents:
             node = node.setdefault(p, {})
-        node[leaf] = np.ascontiguousarray(v)
+        node[leaf] = np.array(v, order="C")  # ascontiguousarray would make a scalar 1-D
     return tree
 
 
@@ -451,8 +497,27 @@ def _state_from(tree: Dict[str, Any], template: Dict[str, torch.Tensor], path_of
 def dsc_params_to_jax(state_dict: Dict[str, torch.Tensor], cfg: DSCConfig) -> Dict[str, Any]:
     """A port ``DSCStereoModel`` state_dict → the JAX params tree (nested
     dicts of float32 numpy arrays, HWIO conv weights), the inverse of
-    ``dsc_params_from_jax``."""
-    return _tree_from(state_dict, lambda key: _dsc_flax_path(key, cfg))
+    ``dsc_params_from_jax``; running statistics are left out."""
+    return _tree_from({k: v for k, v in state_dict.items() if not _is_stat(k)},
+                      lambda key: _dsc_flax_path(key, cfg))
+
+
+def dsc_batch_stats_from_jax(tree: Dict[str, Any], cfg: DSCConfig) -> Dict[str, torch.Tensor]:
+    """A JAX ``batch_stats`` tree of ``cfg`` (bare or under "batch_stats")
+    → the port's running-statistics buffers, every leaf checked (FIF's, for
+    ``fif_0031bpp``; empty for a preset without BatchNorm)."""
+    if set(tree) == {"batch_stats"}:
+        tree = tree["batch_stats"]
+    return _state_from(tree, _dsc_template(cfg, stats=True),
+                       lambda key: _dsc_flax_path(key, cfg), f"DSC {cfg.name} batch_stats")
+
+
+def dsc_batch_stats_to_jax(state_dict: Dict[str, torch.Tensor], cfg: DSCConfig
+                           ) -> Dict[str, Any]:
+    """The running statistics of a port DSC state_dict → the JAX
+    ``batch_stats`` tree, the inverse of ``dsc_batch_stats_from_jax``."""
+    return _tree_from({k: v for k, v in state_dict.items() if _is_stat(k)},
+                      lambda key: _dsc_flax_path(key, cfg))
 
 
 _HYPER_TOPS = {"Encoder": "g_a", "Decoder": "g_s", "priorEncoder": "h_a", "priorDecoder": "h_s"}
@@ -556,22 +621,32 @@ def _params_tree(path: str, top: str) -> Dict[str, Any]:
     return tree
 
 
+def _load_strict(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    own = model.state_dict()
+    model.load_state_dict({k: v.to(own[k].device) if k in own else v for k, v in sd.items()},
+                          strict=True)
+
+
 def load_hyperprior_weights(model: ScaleHyperprior, path: str) -> ScaleHyperprior:
     """Load every weight of ``model`` from a JAX params file or TrainState
-    checkpoint (strict: the widths must match)."""
-    sd = hyperprior_params_from_jax(_params_tree(path, "g_a"), model.out_channel_n,
-                                    model.out_channel_m)
-    model.load_state_dict({k: v.to(model.Encoder.conv1.weight.device) for k, v in sd.items()},
-                          strict=True)
+    checkpoint, or from the port's train-state file (strict: the widths must
+    match)."""
+    sd = read_port_state(path)
+    if sd is None:
+        sd = hyperprior_params_from_jax(_params_tree(path, "g_a"), model.out_channel_n,
+                                        model.out_channel_m)
+    _load_strict(model, sd)
     return model
 
 
 def load_joint_weights(model: JointAutoregressive, path: str) -> JointAutoregressive:
     """Load every weight of ``model`` from a JAX params file or TrainState
-    checkpoint (strict: the width must match)."""
-    sd = joint_params_from_jax(_params_tree(path, "g_a"), model.n)
-    model.load_state_dict({k: v.to(model.g_a[0].conv1.weight.device) for k, v in sd.items()},
-                          strict=True)
+    checkpoint, or from the port's train-state file (strict: the width must
+    match)."""
+    sd = read_port_state(path)
+    if sd is None:
+        sd = joint_params_from_jax(_params_tree(path, "g_a"), model.n)
+    _load_strict(model, sd)
     return model
 
 
@@ -579,20 +654,28 @@ def load_hyperprior(path: str, quant: str = "round", device: Optional[str] = Non
                     ) -> ScaleHyperprior:
     """A ``ScaleHyperprior`` with quantizer ``quant`` in eval mode on
     ``device`` (default ``cuda``), with the weights of a JAX checkpoint or
-    params file; N and M come from its shapes."""
+    params file or of the port's train-state file; N and M come from its
+    shapes."""
     dev = resolve_device(device)
-    g_a = _params_tree(path, "g_a")["g_a"]
-    model = ScaleHyperprior(int(np.shape(g_a["conv1"]["weight"])[-1]),
-                            int(np.shape(g_a["conv4"]["weight"])[-1]), quant=quant)
-    return load_hyperprior_weights(model, path).to(dev).eval()
+    sd = read_port_state(path)
+    if sd is None:
+        g_a = _params_tree(path, "g_a")["g_a"]
+        n, m = (int(np.shape(g_a[c]["weight"])[-1]) for c in ("conv1", "conv4"))
+    else:
+        n, m = (int(sd[f"Encoder.{c}.weight"].shape[0]) for c in ("conv1", "conv4"))
+    return load_hyperprior_weights(ScaleHyperprior(n, m, quant=quant), path).to(dev).eval()
 
 
 def load_joint(path: str, device: Optional[str] = None) -> JointAutoregressive:
     """A ``JointAutoregressive`` in eval mode on ``device`` (default
-    ``cuda``), with the weights of a JAX checkpoint or params file; N comes
-    from its shapes."""
+    ``cuda``), with the weights of a JAX checkpoint or params file or of the
+    port's train-state file; N comes from its shapes."""
     dev = resolve_device(device)
-    n = int(np.shape(_params_tree(path, "g_a")["g_a"]["rbs0"]["conv1"]["weight"])[-1])
+    sd = read_port_state(path)
+    if sd is None:
+        n = int(np.shape(_params_tree(path, "g_a")["g_a"]["rbs0"]["conv1"]["weight"])[-1])
+    else:
+        n = int(sd["g_a.0.conv1.weight"].shape[0])
     return load_joint_weights(JointAutoregressive(n), path).to(dev).eval()
 
 
@@ -605,17 +688,25 @@ def read_port_state(path: str) -> Optional[Dict[str, torch.Tensor]]:
 
 
 def load_dsc_weights(model: DSCStereoModel, path: str) -> DSCStereoModel:
-    """Load every weight of ``model`` from a JAX params file or TrainState
-    checkpoint, or from the port's train-state file (strict: no key missing
-    or extra)."""
+    """Load every weight of ``model`` from a JAX params file, variables dict
+    or TrainState checkpoint, or from the port's train-state file (strict:
+    no key missing or extra). A FIF preset needs the file's ``batch_stats``
+    too: a JAX file without them raises, as the JAX model does on it."""
     sd = read_port_state(path)
     if sd is None:
         tree = read_checkpoint(path)
+        stats = tree.get("batch_stats")
+        if model.config.fusion_pre == "fif" and not isinstance(stats, dict):
+            raise ValueError(
+                f"{path}: a {model.config.fusion_pre!r} preset needs the file's batch_stats "
+                "(FIF's running statistics); this file holds only params, as the JAX "
+                "trainer writes them, and the JAX model cannot run on it (ROADMAP Queue 3)")
         if "params" in tree and "g_a" not in tree:
             tree = tree["params"]
         sd = dsc_params_from_jax(tree, model.config)
-    own = model.state_dict()
-    model.load_state_dict({k: v.to(own[k].device) for k, v in sd.items()}, strict=True)
+        if isinstance(stats, dict):
+            sd.update(dsc_batch_stats_from_jax(stats, model.config))
+    _load_strict(model, sd)
     return model
 
 

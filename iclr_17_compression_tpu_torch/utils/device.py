@@ -20,6 +20,12 @@ atomics, whose result changes from call to call in the last bits. It is
 not for the large 3×3 convs: cuDNN's deterministic choice there is an FFT
 and GEMV path 100× slower with 18 GiB of workspace (H100, cuDNN of
 torch 2.11).
+
+``cudnn_autotune`` is a context manager for training steps: cuDNN picks
+each convolution's algorithm by timing it (``benchmark``), among the
+deterministic ones, as XLA autotunes its GPU convolutions. Without it
+cuDNN's heuristic takes an FFT route for the joint-AR model's fp32 3×3
+convs at C = 192 (``PERF.md``).
 """
 
 import contextlib
@@ -55,6 +61,18 @@ def cudnn_deterministic():
     by timing, for the enclosed calls; the flags are restored after."""
     saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+@contextlib.contextmanager
+def cudnn_autotune():
+    """cuDNN choosing its algorithms by timing, among the deterministic
+    ones, for the enclosed calls; the flags are restored after."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, True
     try:
         yield
     finally:

@@ -20,6 +20,8 @@ same numpy-seeded images. Stated tolerances:
 The weight bridge's own tests are in ``test_torch_dsc_weights.py``.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,9 +162,18 @@ def test_model_and_decoder_match_jax(preset):
 
 
 def test_unported_parts_raise():
-    for preset in ("fif_0031bpp", "att_0031bpp", "bottleneck_att_1bpp", "pam_0031bpp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-            DSCStereoModel(DSC_PRESETS[preset])
+    """The fusion presets build with their modules (their parity is in
+    ``test_torch_fusion.py``); a fusion option the JAX package has not
+    raises."""
+    modules = {"fif_0031bpp": {"fif"}, "att_0031bpp": {"final_conv"},
+               "bottleneck_att_1bpp": {"bot_mhsa", "final_conv"}, "pam_0031bpp": {"pam"}}
+    for preset, names in modules.items():
+        model = DSCStereoModel(DSC_PRESETS[preset])
+        assert names <= {name for name, _ in model.named_children()}, preset
+    for field in ("fusion_pre", "fusion_post"):
+        cfg = dataclasses.replace(DSC_PRESETS["temp_0031bpp"], **{field: "nlblock"})
+        with pytest.raises(ValueError, match="unknown fusion"):
+            DSCStereoModel(cfg)
 
 
 def test_presets_equal_the_jax_table():

@@ -360,9 +360,10 @@ def test_load_params_partial_maps_dsc_trees(tmp_path):
 
 
 def test_what_the_trainers_refuse(kitti, tmp_path):
-    for model, item in (("hyperprior", "item 16"), ("joint", "item 16"),
-                        ("dsc:fif_0031bpp", "item 17"), ("dsc:pam_0031bpp", "item 17"),
-                        ("passr", "item 18"), ("two_steps", "item 18")):
+    # hyperprior, joint and the fusion presets but fif_0031bpp train now
+    # (test_torch_hyper_train.py, test_torch_fusion.py)
+    for model, item in (("dsc:fif_0031bpp", "Queue 3"), ("passr", "item 18"),
+                        ("two_steps", "item 18")):
         with pytest.raises(NotImplementedError, match=item):
             cli.check_supported(TrainConfig(model=model))
     with pytest.raises(NotImplementedError, match="item 18"):
@@ -371,10 +372,11 @@ def test_what_the_trainers_refuse(kitti, tmp_path):
         cli.train_dsc(_dsc_cfg(kitti, tmp_path, mesh_data=2), "x", device="cpu")
     with pytest.raises(ValueError, match="dsc:"):
         cli.train_dsc(_dsc_cfg(kitti, tmp_path, model="balle17"), "x", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        build_model("hyperprior", device="cpu")
-    cli.check_supported(TrainConfig(model="reg_stage"))
-    cli.check_supported(TrainConfig(model="dsc:temp_0031bpp"))
+    assert build_model("hyperprior", device="cpu", out_channel_n=16, out_channel_m=24).quant \
+        == "round"
+    for model in ("reg_stage", "dsc:temp_0031bpp", "hyperprior", "joint", "dsc:att_0031bpp",
+                  "dsc:bottleneck_att_1bpp", "dsc:pam_0031bpp"):
+        cli.check_supported(TrainConfig(model=model))
     if not torch.cuda.is_available():
         for call in (lambda: cli.train_dsc(_dsc_cfg(kitti, tmp_path), "x"),
                      lambda: ttrainers.train_reg_stage(_dsc_cfg(kitti, tmp_path), "x"),

@@ -157,8 +157,12 @@ def test_eval_forward_matches_jax(quant):
         np.testing.assert_allclose(float(out[key]), float(ref[key]), rtol=RATE_RTOL,
                                    err_msg=key)
     assert float(out["bpp_y"]) > 0.05  # y spreads over several symbols
-    with pytest.raises(NotImplementedError):
-        model(torch.from_numpy(x), train=True)
+    # the train forward (ported since; its parity is in test_torch_hyper_train.py)
+    # gives the same keys, with noise where the eval forward rounds
+    with torch.no_grad():
+        noisy = model(torch.from_numpy(x), train=True, generator=torch.Generator().manual_seed(0))
+    assert set(noisy) == set(out)
+    assert not torch.equal(noisy["latent"], torch.round(noisy["latent"]))
 
 
 @pytest.mark.parametrize("quant", ["round", "sigma-norm"])

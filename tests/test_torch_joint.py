@@ -153,8 +153,12 @@ def test_eval_forward_matches_jax():
     assert resolved.mean() > 0.1
     bits = lambda p: np.clip(-np.log2(p[resolved] + 1e-10), 0.0, 50.0).sum()  # noqa: E731
     np.testing.assert_allclose(bits(prob_t), bits(prob_j), rtol=RATE_RTOL)
-    with pytest.raises(NotImplementedError):
-        model(torch.from_numpy(x), train=True)
+    # the train forward (ported since; its parity is in test_torch_hyper_train.py)
+    # gives the same keys, with noise where the eval forward rounds
+    with torch.no_grad():
+        noisy = model(torch.from_numpy(x), train=True, generator=torch.Generator().manual_seed(0))
+    assert set(noisy) == set(out)
+    assert not torch.equal(noisy["latent"], torch.round(noisy["latent"]))
 
 
 def _jax_y_hyper(params, img):
