@@ -46,7 +46,7 @@ Phases, one JSON line each:
           through load_balle17 and codes a test image with exact symbols; a
           model moved to the card by hand with TF32 on trains in fp32.
           Numbers: median step ms over steps 20-100 and images/s, peak
-          memory, the step's phases (CUDA events), a 10-step profile (device
+          memory, the step's phases (CUDA events), a 5-step profile (device
           busy, idle share, K1/K2 backward recompute, top kernels), the
           eval's bpp, PSNR and MS-SSIM
   dsc     the flagship DSC stereo codec (temp_0031bpp, n = 128, full width)
@@ -69,15 +69,16 @@ Phases, one JSON line each:
           training CLI on examples/dsc_0031bpp.json (batch 2, MS-SSIM), on
           12 synthetic stereo pairs of KITTI's 375×1242 written as a KITTI
           layout of PNGs under build/ (crops 315×1215 floored to 288×1184)
-          and a 2-frame test root: 60 steps, then --resume for 12 more, with
+          and a 2-frame test root: 48 steps, then --resume for 12 more, with
           the launch counters reset just before and read just after; checks:
           K2 17 launches a step and a validation frame, K3 0 a step and 1 a
           validation frame, K1 none (DSC's GDNs run fused in K2); every
           loss finite and the last 10 steps' mean below the first 10's; the gradient of every parameter through K2's
           Function against the plain path on the card within 4× a floor
           measured in the same run (the plain path against itself with K2's
-          outputs moved by K2's own error; DSC_GRAD_TOL), and a control at
-          TF32's error (1e-3 relative) beyond that gate; K2 at the training
+          outputs moved by K2's own error; DSC_GRAD_TOL), on the largest
+          and on the median tensor's gap, and a control at TF32's error
+          (1e-3 relative) beyond one of the two gates; K2 at the training
           sites (five shapes) and K3 at the validation code against plain;
           the resume's parameters, Adam moments, LR and plateau state read
           back bit-equal and its first batch the uninterrupted loop's;
@@ -86,7 +87,7 @@ Phases, one JSON line each:
           JAX-layout params (K2 28, K3 1 and K1 0 a step, the frozen base
           bit-unchanged, finite losses); a model moved to the card by hand
           with TF32 on trains in fp32. Numbers: median step ms and pairs/s,
-          peak memory, a 10-step profile (device busy, idle share, K2
+          peak memory, a 5-step profile (device busy, idle share, K2
           forward, K2's backward recompute, cuDNN's convolutions, top
           kernels), validation ms a frame, K2 at each training shape with
           cuDNN + plain GDN and cuDNN + K1 and its bound, K3 against its
@@ -128,7 +129,7 @@ Phases, one JSON line each:
           train-state file) through the codec CLI (kinds 5 and 6) with the
           same file from both and exact symbols. Numbers: median step ms and
           images/s (the joint's loop under cuDNN autotuning), a step under
-          cuDNN's defaults and autotuned, a 10-step profile of each model
+          cuDNN's defaults and autotuned, a 5-step profile of each model
           (device busy, idle share), peak memory, K2 at the six and K1 at
           the three C = 192 training shapes against plain and cuDNN (S,
           partial bytes)
@@ -145,6 +146,25 @@ Phases, one JSON line each:
           an image (one profiled), K2
           at the bottleneck preset's sites and K3 on each preset's code
           against plain, step ms
+  aux     the six auxiliary trainers through the training CLI's main at the
+          JAX TrainConfig's defaults (batch 4, image_size 256, lr 1e-4,
+          KITTI layout) for 20 steps each: two_steps and decoder_only over
+          the archived Ballé-17 (frozen), att_exp, att_block over a seeded
+          temp_1bpp (frozen, written as a JAX params file), passr on the
+          dsc_train phase's KITTI frames, fif_enhance on 4 triplets of
+          KITTI's size written under build/; the counters reset before and
+          read after each step (K2 6 a step for two_steps, K2 6 + K1 4 for
+          decoder_only, K2 17 + K3 1 for att_block, none for the others);
+          checks: every loss finite and the last 5 steps' mean below the
+          first 5's, the frozen models bit-unchanged, each best_train.ckpt
+          back through _load_frozen and load_params_partial, decoder_only's
+          gradients through K1's Function against the plain path (GRAD_TOL);
+          then K1 at C = 512 at AnalysisSmall's GDNs and SynthesisSmall's
+          IGDNs (batch 4 of 16×16) against plain, with the same bits on a
+          second call, its times and bound, and one AnalysisSmall →
+          SynthesisSmall forward on the card (K1 6) within 1e-4 of its
+          largest |value| of the CPU's. Numbers: median step ms, peak memory
+          and seconds of each trainer
 Then the script's seconds, the card's name and power limit, one line with
 every kernel's numbers, and last the line {"ok": true, "device": {...}}.
 Any failed check exits non-zero. Imports nothing of JAX.
@@ -212,7 +232,7 @@ CODE_SPREAD = 64.0
 # Training phase: the run's length, its resume, and the profiled window.
 TRAIN_STEPS, RESUME_STEPS = 100, 120
 N_TRAIN_IMAGES, TRAIN_IMG = 16, 512
-PROFILE_START, PROFILE_STEPS = 40, 10
+PROFILE_START, PROFILE_STEPS = 40, 5
 # Gradients through the kernels' Functions vs the plain path on the card,
 # per parameter tensor, as a fraction of its largest |gradient|. The
 # backward is the same plain recompute on both sides; only the forward
@@ -224,11 +244,12 @@ GRAD_TOL = 1e-3
 # DSC training phase: the flagship (temp_0031bpp, n = 128) trained by the
 # CLI on examples/dsc_0031bpp.json at batch 2 on synthetic KITTI-layout
 # stereo PNGs of KITTI's 375×1242 (crops 315×1215 floored to 288×1184):
-# DSC_TRAIN_FRAMES frames × (_10, _11) = 12 pairs, 6 steps an epoch, 10
-# epochs (60 steps), then --resume for 2 more; a 2-frame test root for the
+# DSC_TRAIN_FRAMES frames × (_10, _11) = 12 pairs, 6 steps an epoch, 8
+# epochs (48 steps), then --resume for 2 more; a 2-frame test root for the
 # validation pass; REG_STEPS steps of the reg_stage trainer.
 KITTI_H, KITTI_W = 375, 1242
-DSC_TRAIN_FRAMES, DSC_TRAIN_EPOCHS, DSC_RESUME_EPOCHS, REG_STEPS = 6, 10, 2, 4
+KITTI_TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_dsc_train", "kitti_train")
+DSC_TRAIN_FRAMES, DSC_TRAIN_EPOCHS, DSC_RESUME_EPOCHS, REG_STEPS = 6, 8, 2, 4
 # Gradients through K2's Function vs the plain path on the card, per
 # parameter tensor, as a fraction of its largest |gradient|. The backward
 # is the same plain recompute on both sides; the forwards differ by K2's
@@ -244,6 +265,13 @@ DSC_TRAIN_FRAMES, DSC_TRAIN_EPOCHS, DSC_RESUME_EPOCHS, REG_STEPS = 6, 10, 2, 4
 # tighter than DSC_GRAD_TOL). A control shows that the gate separates: the
 # same plain path with each K2 output moved by DSC_CONTROL_PERTURB relative
 # (TF32's error, 100× K2's) must stand beyond the gate, or the phase fails.
+# Both are held on two statistics, as in the hyper_train phase: the largest
+# tensor's gap and the median tensor's. The kernel must pass both gates;
+# the control must miss one. The largest gap alone did not separate on an
+# H100 (a trained model with a floor of 8.1e-3 gave a gate of 3.25e-2 and
+# a control of 3.06e-2; runs before gave controls of 5.5e-2 and 1.3e-1):
+# the kinks flip under any perturbation in the small tensors, while the
+# median tensor's gap scales with the perturbation.
 DSC_GRAD_TOL = 1e-3
 DSC_K2_PERTURB = 1e-5
 DSC_FLOOR_FACTOR = 4.0
@@ -291,6 +319,21 @@ N_HT_IMAGES, HT_IMG = 8, 512
 FUSION_PRESETS = ("att_0031bpp", "bottleneck_att_1bpp", "fif_0031bpp", "pam_0031bpp")
 FUSION_TRAINABLE = ("att_0031bpp", "bottleneck_att_1bpp", "pam_0031bpp")
 FUSION_SEED, FUSION_FRAMES, FUSION_TRAIN_EPOCHS = 2468, 2, 2
+
+
+# Auxiliary trainers' phase: the six trainers through the training CLI at
+# the JAX TrainConfig's defaults (batch 4, image_size 256, lr 1e-4, KITTI
+# layout; the KITTI loader's 315×1215 crops floored to ×16 or ×32) on the
+# dsc_train phase's KITTI frames and AUX_TRIPLETS enhancement triplets of
+# KITTI's size, AUX_STEPS steps each; two_steps and decoder_only freeze the
+# archived Ballé-17, att_block a seeded temp_1bpp. K2 / K1 / K3 launches a
+# step: att_block's are its base's eval forward (17 K2 sites, one code).
+# Then K1 at C = 512 at AnalysisSmall's and SynthesisSmall's shapes (batch
+# C512_BATCH of 16×16, their GDNs and IGDNs).
+AUX_TRAINERS = ("two_steps", "decoder_only", "att_exp", "att_block", "passr", "fif_enhance")
+AUX_LAUNCHES = {"two_steps": (6, 0, 0), "decoder_only": (6, 4, 0), "att_exp": (0, 0, 0),
+                "att_block": (17, 0, 1), "passr": (0, 0, 0), "fif_enhance": (0, 0, 0)}
+AUX_STEPS, AUX_TRIPLETS, AUX_SEED, C512_BATCH = 20, 4, 97, 4
 
 
 def emit(obj) -> None:
@@ -523,7 +566,7 @@ def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
     t_phase = time.perf_counter()
     work = os.path.join(ROOT, "build", "chip_smoke_dsc_train")
     shutil.rmtree(work, ignore_errors=True)
-    train_dir, test_dir = os.path.join(work, "kitti_train"), os.path.join(work, "kitti_test")
+    train_dir, test_dir = KITTI_TRAIN_DIR, os.path.join(work, "kitti_test")
     rng = np.random.default_rng(3)
     write_kitti(train_dir, train_frames, rng, h, w)
     write_kitti(test_dir, 2, rng, h, w)
@@ -669,7 +712,7 @@ def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
             if i >= 3:
                 val_ms.append(1e3 * (time.perf_counter() - t0))
 
-    # a profile of 10 steps of the train step on run B's first batch
+    # a profile of PROFILE_STEPS steps of the train step on run B's first batch
     im1, im2 = (torch.from_numpy(b).to(dev) for b in expected)
     prof_state = create_train_state(
         build_model(cfg.model, device=dev, seed=cfg.seed), lr=cfg.lr_base)
@@ -734,20 +777,26 @@ def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
         return {k: float((ga[k] - gb[k]).abs().max() / gb[k].abs().max().clamp(min=1e-30))
                 for k in gb}
 
+    def stats(g, g_plain):
+        """(the largest tensor's gap, the median tensor's gap)."""
+        gap = list(gaps(g, g_plain).values())
+        return max(gap), statistics.median(gap)
+
     def parity_of(m, control: bool = False):
-        """(the largest gap kernel vs plain, the floor's, the gate, the five
-        worst tensors, the control's largest gap or None) of model ``m``."""
+        """(the kernel's (largest, median) gap against plain, the floor's,
+        the gate on each, the five worst tensors, the control's gaps or
+        None) of model ``m``: the hyper_train phase's two statistics."""
         before = k2.conv_gdn.launches
         _, g_kernel = grads(m, "kernel")
         check(k2.conv_gdn.launches - before == 17, "gradient parity: the kernel path ran no K2")
         _, g_plain = grads(m, "plain")
-        _, g_moved = grads(m, "perturbed", DSC_K2_PERTURB)
-        kp, floor = gaps(g_kernel, g_plain), max(gaps(g_moved, g_plain).values())
+        floor = stats(grads(m, "perturbed", DSC_K2_PERTURB)[1], g_plain)
+        kp = gaps(g_kernel, g_plain)
         worst = sorted(((v, k) for k, v in kp.items()), reverse=True)[:5]
-        missed = (max(gaps(grads(m, "perturbed", DSC_CONTROL_PERTURB)[1], g_plain).values())
+        missed = (stats(grads(m, "perturbed", DSC_CONTROL_PERTURB)[1], g_plain)
                   if control else None)
-        return (max(kp.values()), floor, max(DSC_GRAD_TOL, DSC_FLOOR_FACTOR * floor), worst,
-                missed)
+        gate = (max(DSC_GRAD_TOL, DSC_FLOOR_FACTOR * floor[0]), DSC_FLOOR_FACTOR * floor[1])
+        return (max(kp.values()), statistics.median(kp.values())), floor, gate, worst, missed
 
     parity = build_model(cfg.model, device=dev, seed=cfg.seed)
     parity.load_state_dict(model.state_dict())  # the trained weights
@@ -889,8 +938,9 @@ def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
                           "window_ms_by_kernel": dict(sorted(by_kernel.items(),
                                                              key=lambda kv: -kv[1])[:15])},
               "grad_parity": {"tol": DSC_GRAD_TOL, "floor_factor": DSC_FLOOR_FACTOR,
-                              "perturb": DSC_K2_PERTURB, "max_gap": gap, "floor": floor,
-                              "gate": gate, "worst": worst,
+                              "perturb": DSC_K2_PERTURB, "max_gap": gap[0],
+                              "median_gap": gap[1], "floor": floor, "gate": gate,
+                              "worst": worst,
                               "control_perturb": DSC_CONTROL_PERTURB,
                               "control_gap": control_gap},
               "tf32_check": {"flags_before": flags_before, "flags_after_forward": flags,
@@ -901,12 +951,16 @@ def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
               "seconds": time.perf_counter() - t_phase}
     emit(result)
     # the gradient checks come after the numbers, so that a miss shows them
-    check(gap <= gate, f"DSC gradients through K2 vs plain: {gap:.2e} > {gate:.2e}")
-    check(control_gap > gate, f"the gradient gate does not catch a TF32-size error: control "
-          f"{control_gap:.2e} <= gate {gate:.2e}")
-    check(flags_before == (True, True) and flags == (False, False) and tf32_gap <= tf32_gate,
-          f"DSC model moved by hand with TF32 on: flags {flags}, grads {tf32_gap:.2e} > "
-          f"{tf32_gate:.2e}")
+    check(gap[0] <= gate[0] and gap[1] <= gate[1],
+          f"DSC gradients through K2 vs plain: largest tensor {gap[0]:.2e} (gate "
+          f"{gate[0]:.2e}), median {gap[1]:.2e} (gate {gate[1]:.2e})")
+    check(control_gap[0] > gate[0] or control_gap[1] > gate[1],
+          f"the gradient gate does not catch a TF32-size error: control {control_gap} "
+          f"within the gate {gate}")
+    check(flags_before == (True, True) and flags == (False, False)
+          and tf32_gap[0] <= tf32_gate[0] and tf32_gap[1] <= tf32_gate[1],
+          f"DSC model moved by hand with TF32 on: flags {flags}, grads {tf32_gap} beyond "
+          f"{tf32_gate}")
     print(f"dsc_train phase seconds: {result['seconds']:.1f}", flush=True)
     return result
 
@@ -1558,7 +1612,7 @@ def hyper_train_phase(torch, dev, tools, steps: int = HT_STEPS,
                 "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
             del st
 
-    # 10 steps of each model under the profiler, on the trained state
+    # PROFILE_STEPS steps of each model under the profiler, on the trained state
     profiles = {}
     for name, state in states.items():
         with flags_of(state.model):
@@ -1976,6 +2030,259 @@ def dsc_fusion_phase(torch, dev, tools, h: int = DSC_H, w: int = DSC_W,
           "k2_fusion": k2_row, "k3_codes": k3_rows, "seconds": seconds})
     print(f"dsc_fusion phase seconds: {seconds:.1f}", flush=True)
     return {"launches": launches, "k2": k2_row, "k3": k3_rows}
+
+
+def aux_phase(torch, dev, tools, kitti_dir: str, steps: int = AUX_STEPS,
+              triplets: int = AUX_TRIPLETS, kitti_hw=(KITTI_H, KITTI_W),
+              c512_batch: int = C512_BATCH) -> dict:
+    """The six auxiliary trainers and K1 at C = 512 on the card (see the
+    module docstring). ``kitti_dir``: the KITTI-layout root that the
+    ``dsc_train`` phase wrote. ``tools`` holds the harness of ``main``: check, emit,
+    measure_k1, new_row. Returns the K1 row and the launches of the path."""
+    from iclr_17_compression_tpu_torch.models.dsc import DSC_PRESETS, DSCStereoModel
+    from iclr_17_compression_tpu_torch.models.extra import AnalysisSmall, SynthesisSmall
+    from iclr_17_compression_tpu_torch.nn.layers import GDN
+    from iclr_17_compression_tpu_torch.ops.gdn import gdn_plain
+    from iclr_17_compression_tpu_torch.ops.kernels import conv_gdn_kernel as k2
+    from iclr_17_compression_tpu_torch.ops.kernels import gdn_kernel as k1
+    from iclr_17_compression_tpu_torch.ops.kernels import quant_pack_kernel as k3
+    from iclr_17_compression_tpu_torch.train import checkpoint as ckpt
+    from iclr_17_compression_tpu_torch.train import cli as train_cli
+    from iclr_17_compression_tpu_torch.train import trainers
+    from iclr_17_compression_tpu_torch.train.config import TrainConfig
+    from iclr_17_compression_tpu_torch.train.weights import dsc_params_to_jax, msgpack_dumps
+
+    check, emit = tools.check, tools.emit
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_aux")
+    shutil.rmtree(work, ignore_errors=True)
+    rng = np.random.default_rng(AUX_SEED)
+    # the enhancement triplets: a KITTI-size original, its reconstruction
+    # (the original blurred and noised) and the warped side information
+    fif_dir = os.path.join(work, "fif")
+    for sub in ("reconstructed", "original", "SI_warped"):
+        os.makedirs(os.path.join(fif_dir, sub))
+    for i in range(triplets):
+        orig = smooth_image(rng, -(-kitti_hw[0] // 64) * 64, -(-kitti_hw[1] // 64) * 64)[
+            :kitti_hw[0], :kitti_hw[1]]
+        rec = np.clip(0.5 * (orig + np.roll(orig, 1, axis=1))
+                      + 0.02 * rng.standard_normal(orig.shape), 0, 1)
+        for sub, img in (("original", orig), ("reconstructed", rec),
+                         ("SI_warped", shift_pair(orig, rng))):
+            write_png(os.path.join(fif_dir, sub, f"{i:06d}.png"), img)
+    # a frozen temp_1bpp for att_block, as the JAX-layout params file a JAX
+    # run would hand over: seeded init with every GDN off the identity
+    gen = torch.Generator().manual_seed(AUX_SEED)
+    base_1bpp = gdn_off_identity_(torch, DSCStereoModel(DSC_PRESETS["temp_1bpp"]).init_(gen),
+                                  gen)
+    base_path = os.path.join(work, "temp_1bpp_params.msgpack")
+    with open(base_path, "wb") as f:
+        f.write(msgpack_dumps(dsc_params_to_jax(base_1bpp.state_dict(), base_1bpp.config)))
+    pretrain = {"two_steps": CKPT, "decoder_only": CKPT, "att_block": base_path}
+
+    def counts():
+        return {"conv_gdn": k2.conv_gdn.launches, "gdn": k1.gdn_fused.launches,
+                "quantize_pack": k3.quantize_pack.launches}
+
+    def reset():
+        k2.conv_gdn.launches = k1.gdn_fused.launches = k3.quantize_pack.launches = 0
+
+    # each trainer's step, timed (host clock around work that ends in a
+    # synchronize) with its launches; its frozen model, copied when loaded
+    seen, frozen = [], {}
+    real_update, real_load_frozen = trainers._update, trainers._load_frozen
+
+    def counted_update(state, loss):
+        real_update(state, loss)
+        torch.cuda.synchronize()
+        seen[-1]["t1"] = time.perf_counter()
+        seen[-1]["loss"] = float(loss.detach())
+        seen[-1]["launches"] = counts()
+        reset()
+
+    def traced_load_frozen(model, path):
+        model = real_load_frozen(model, path)
+        frozen["model"] = model
+        frozen["before"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        return model
+
+    makers = {}
+    for name in AUX_TRAINERS:
+        real_make = getattr(trainers, f"make_{name}_step")
+
+        def make(*args, _real=real_make, **kw):
+            step_fn = _real(*args, **kw)
+
+            def timed_step(state, batch, generator):
+                torch.cuda.synchronize()
+                reset()
+                # the run's first batch kept (``seen`` is cleared for each run)
+                seen.append({"t0": time.perf_counter(), "step": state.step,
+                             "batch": None if seen else tuple(np.asarray(b).copy()
+                                                              for b in batch)})
+                return step_fn(state, batch, generator)
+
+            return timed_step
+
+        makers[name] = real_make
+        setattr(trainers, f"make_{name}_step", make)
+    trainers._update, trainers._load_frozen = counted_update, traced_load_frozen
+    runs = {}
+    try:
+        for name in AUX_TRAINERS:
+            cfg = TrainConfig(model=name, tot_step=steps, print_freq=5, tensorboard=False,
+                              save_root=work,
+                              train_dir=os.path.join(fif_dir, "reconstructed")
+                              if name == "fif_enhance" else kitti_dir)
+            check((cfg.batch_size, cfg.image_size, cfg.lr_base, cfg.dataset)
+                  == (4, 256, 1e-4, "kitti"), f"TrainConfig defaults changed: {cfg}")
+            path = os.path.join(work, f"{name}.json")
+            with open(path, "w") as f:
+                f.write(cfg.to_json())
+            frozen.clear()
+            del seen[:]
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            argv = ["--config", path, "-n", name]
+            if name in pretrain:
+                argv += ["-p", pretrain[name]]
+            state = train_cli.main(argv)
+            runs[name] = {"state": state, "seconds": time.perf_counter() - t0,
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "steps": list(seen), "frozen": dict(frozen)}
+    finally:
+        for name, real_make in makers.items():
+            setattr(trainers, f"make_{name}_step", real_make)
+        trainers._update, trainers._load_frozen = real_update, real_load_frozen
+
+    launches = dict.fromkeys(counts(), 0)
+    training = {}
+    for name in AUX_TRAINERS:
+        run = runs[name]
+        got = run["steps"]
+        check(len(got) == steps == run["state"].step, f"{name}: ran {len(got)} steps")
+        want = dict(zip(("conv_gdn", "gdn", "quantize_pack"), AUX_LAUNCHES[name]))
+        check(all(s["launches"] == want for s in got),
+              f"{name}: launches a step {[s['launches'] for s in got]}, expected {want}")
+        losses = [s["loss"] for s in got]
+        check(all(np.isfinite(losses)), f"{name}: a loss is not finite")
+        check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+              f"{name}: the last 5 steps' mean loss {np.mean(losses[-5:]):.5f} is not below "
+              f"the first 5's {np.mean(losses[:5]):.5f}")
+        for k in launches:
+            launches[k] += sum(s["launches"][k] for s in got)
+        if run["frozen"]:
+            fm = run["frozen"]["model"]
+            check(not fm.training and not any(p.requires_grad for p in fm.parameters())
+                  and all(torch.equal(v.cpu(), run["frozen"]["before"][k])
+                          for k, v in fm.state_dict().items()),
+                  f"{name}: the frozen model moved or is not frozen")
+        # its best_train.ckpt into a fresh model, through _load_frozen and
+        # load_params_partial
+        best = os.path.join(work, name, "best_train.ckpt")
+        blob = torch.load(best, map_location="cpu", weights_only=True)["model"]
+        model = run["state"].model
+        fresh = [trainers._load_frozen(_fresh_like(torch, model), best),
+                 ckpt.load_params_partial(_fresh_like(torch, model), best)]
+        check(all(torch.equal(m.state_dict()[k].cpu(), v) for m in fresh
+                  for k, v in blob.items()), f"{name}: best_train.ckpt does not load back")
+        step_ms = [1e3 * (s["t1"] - s["t0"]) for s in got]
+        training[name] = {"steps": len(got), "batch": [list(b.shape) for b in got[0]["batch"]],
+                          "losses": losses, "step_ms": step_ms,
+                          "median_step_ms": statistics.median(step_ms[2:]),
+                          "peak_gib": run["peak_bytes"] / 2 ** 30,
+                          "launches_per_step": got[0]["launches"],
+                          "seconds": run["seconds"]}
+
+    # decoder_only: gradients through K1's Function against the plain path
+    # on the card, the trained decoder on its first batch
+    dec = runs["decoder_only"]["state"].model
+    enc = runs["decoder_only"]["frozen"]["model"].Encoder
+    im1, im2 = (torch.from_numpy(b).to(dev) for b in runs["decoder_only"]["steps"][0]["batch"])
+    with torch.no_grad():
+        z1, z2 = enc(im1), enc(im2)
+        noise = torch.rand(z1.shape, generator=torch.Generator(device=dev).manual_seed(5),
+                           device=dev) - 0.5
+
+    def plain_dec(z):
+        z = gdn_plain(dec.deconv1(z), dec.igdn1.params(), inverse=True)
+        z = gdn_plain(dec.deconv2(z), dec.igdn2.params(), inverse=True)
+        return dec.deconv3(z)
+
+    def dec_grads(fwd):
+        dec.zero_grad(set_to_none=True)
+        loss = (torch.mean((torch.clamp(fwd(z1 + noise), 0, 1) - im1) ** 2)
+                + torch.mean((torch.clamp(fwd(z2 + noise), 0, 1) - im2) ** 2))
+        loss.backward()
+        return {k: p.grad.clone() for k, p in dec.named_parameters()}
+
+    reset()
+    g_kernel = dec_grads(dec)
+    check(counts()["gdn"] == 4, f"decoder_only parity: K1 launched {counts()['gdn']} times")
+    g_plain = dec_grads(plain_dec)
+    grad_gap = max(float((g_kernel[k] - g_plain[k]).abs().max()
+                         / g_plain[k].abs().max().clamp(min=1e-30)) for k in g_plain)
+    check(grad_gap <= GRAD_TOL, f"decoder_only: gradients through K1 vs plain {grad_gap:.2e}")
+
+    # K1 at C = 512: AnalysisSmall's GDNs and SynthesisSmall's IGDNs at
+    # their shapes (batch c512_batch of 16×16), the models' own inputs;
+    # then one AnalysisSmall → SynthesisSmall forward on the card (counted:
+    # K1 6) against the same forward on the CPU
+    gen = torch.Generator().manual_seed(AUX_SEED + 1)
+    ana = gdn_off_identity_(torch, AnalysisSmall().init_(gen), gen)
+    syn = gdn_off_identity_(torch, SynthesisSmall().init_(gen), gen)
+    ana_cpu, syn_cpu = AnalysisSmall(), SynthesisSmall()
+    ana_cpu.load_state_dict(ana.state_dict())
+    syn_cpu.load_state_dict(syn.state_dict())
+    ana, syn = ana.to(dev).eval(), syn.to(dev).eval()
+    x = torch.randn((c512_batch, 16, 16, 1024), generator=gen)
+    gdn_inputs = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: gdn_inputs.append((mod, args[0])))
+             for m in list(ana.modules()) + list(syn.modules()) if isinstance(m, GDN)]
+    with torch.no_grad():
+        reset()
+        lat = syn(ana(x.to(dev)))
+        torch.cuda.synchronize()
+        c512_launches = counts()
+        for hk in hooks:
+            hk.remove()
+        lat_cpu = syn_cpu(ana_cpu(x))
+    check(c512_launches == {"conv_gdn": 0, "gdn": 6, "quantize_pack": 0},
+          f"AnalysisSmall → SynthesisSmall launches {c512_launches}, expected K1 6")
+    for k in launches:
+        launches[k] += c512_launches[k]
+    fwd_err = float((lat.cpu() - lat_cpu).abs().max())
+    fwd_scale = max(1.0, float(lat_cpu.abs().max()))
+    check(bool(torch.isfinite(lat).all()) and fwd_err <= 1e-4 * fwd_scale,
+          f"AnalysisSmall → SynthesisSmall on the card vs the CPU: {fwd_err:.3e} "
+          f"(largest |value| {fwd_scale:.3e})")
+    k1_row = tools.new_row(library=False)
+    with torch.no_grad():
+        for i, (mod, xin) in enumerate(gdn_inputs):
+            where = f"{'SynthesisSmall igdn' if mod.inverse else 'AnalysisSmall gdn'}{i % 3 + 1}"
+            tools.measure_k1(xin.contiguous(), mod, k1_row, f"K1 C=512 {where}")
+            k1_row["shapes"][-1]["where"] = where
+
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "aux", "ok": True, "trainers": list(AUX_TRAINERS), "steps": steps,
+          "launches": launches, "training": training, "decoder_only_grad_gap": grad_gap,
+          "c512_forward": {"max_abs_err_vs_cpu": fwd_err, "largest": fwd_scale,
+                           "launches": c512_launches},
+          "k1_c512": k1_row, "seconds": seconds})
+    print(f"aux phase seconds: {seconds:.1f}", flush=True)
+    return {"launches": launches, "k1": k1_row}
+
+
+def _fresh_like(torch, model):
+    """A copy of ``model`` (its kind, widths and device) with every
+    parameter moved by 1."""
+    import copy
+
+    fresh = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in fresh.parameters():
+            p.add_(1.0)
+    return fresh
 
 
 def main() -> int:
@@ -2945,9 +3252,11 @@ def main() -> int:
     hyper_launches = hyper["launches"]
     hyper_train = hyper_train_phase(torch, dev, tools)
     fusion = dsc_fusion_phase(torch, dev, tools)
+    aux = aux_phase(torch, dev, tools, KITTI_TRAIN_DIR)
     paths = {"codec": launches, "train": train_launches, "dsc": dsc_launches,
              "dsc_train": dsc_train_launches, "hyper": hyper_launches,
-             "hyper_train": hyper_train["launches"], "dsc_fusion": fusion["launches"]}
+             "hyper_train": hyper_train["launches"], "dsc_fusion": fusion["launches"],
+             "aux": aux["launches"]}
 
     kernels = []
     meta = {
@@ -3003,9 +3312,14 @@ def main() -> int:
                                         "cudnn_k1_ms", "bound_ms", "bound_by")}
                 for st in fusion["k2"]["shapes"]]
         elif name == "gdn":
-            entry["max_abs_err"] = max(entry["max_abs_err"], k1_c64["max_abs_err"])
+            entry["max_abs_err"] = max(entry["max_abs_err"], k1_c64["max_abs_err"],
+                                       aux["k1"]["max_abs_err"])
             entry["c64_shapes"] = [{k: st.get(k) for k in ("x", "ms", "plain_ms", "bound_ms")}
                                    for st in k1_c64["shapes"]]
+            entry["c512_shapes"] = [
+                {k: st.get(k) for k in ("where", "x", "inverse", "ms", "call_ms", "plain_ms",
+                                        "bound_ms", "bound_by")}
+                for st in aux["k1"]["shapes"]]
         else:
             entry.update(launch_floor_ms=row["launch_floor_ms"], dsc_step16=k3_dsc,
                          dsc_validation=dsc_train["k3_validation"], fusion_codes=fusion["k3"])

@@ -420,8 +420,7 @@ def _load_model(spec: str, ckpt: str, dev: Optional[str], n: int = 0, m: int = 0
     ``dev``. Ballé-17 and DSC take their widths from the checkpoint; the
     hyperprior and joint models are built at ``n`` / ``m`` (0: 192 / 320)
     and the checkpoint must match them."""
-    from ..train.weights import (load_balle17, load_dsc, load_hyperprior_weights,
-                                 load_joint_weights)
+    from ..train.weights import load_balle17, load_dsc, load_weights
 
     if spec == "balle17":
         return load_balle17(ckpt, device=dev)
@@ -429,8 +428,7 @@ def _load_model(spec: str, ckpt: str, dev: Optional[str], n: int = 0, m: int = 0
         return load_dsc(ckpt, spec, dev)
     dev = resolve_device(dev)
     _, model, _ = build_model(spec, n, m)
-    load = load_joint_weights if spec == "joint" else load_hyperprior_weights
-    return load(model, ckpt).to(dev).eval()
+    return load_weights(model, ckpt).to(dev).eval()
 
 
 def _decode_file(data: bytes, args, si: Optional[np.ndarray], reg_model=None, model=None):

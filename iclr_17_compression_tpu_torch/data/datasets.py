@@ -8,7 +8,10 @@ Counterpart of the single-image and stereo loaders of
 training joint crop and vflip), ``StereoKittiDataset`` (KITTI 2012/2015
 ``image_2``/``image_3`` pairs, test split ``*_10.png``, joint crop, vflip and
 one colour jitter for both eyes), ``StereoHoloPixDataset`` (``left`` →
-``right`` path pairs, floor to ×32, optional joint crop), ``batch_iterator``
+``right`` path pairs, floor to ×32, optional joint crop),
+``FIFEnhanceDataset`` (the enhancement nets' (warped SI, reconstruction,
+original) triplets), ``StereoPassrDataset`` (stereo SR's (blurred left,
+right, left)), ``batch_iterator``
 (shuffle, batch, thread prefetch, ``skip`` for an exact mid-epoch resume;
 tuple items give a tuple of batches) and their helpers. For the same seed,
 epoch and index they produce the same crops as the JAX package: both draw
@@ -511,6 +514,77 @@ class StereoHoloPixDataset(_EpochSeeded):
         if self.random_crop:
             a, b = _joint_crop(rng, *self.crop, a, b)
         return np.ascontiguousarray(a), np.ascontiguousarray(b)
+
+
+class FIFEnhanceDataset(_EpochSeeded):
+    """(SI_warped, reconstructed, original) triplets: each image under
+    ``reconstructed_dir`` and the files at its path with ``reconstructed``
+    replaced by ``original`` and by ``SI_warped``; with ``random_crop`` the
+    same random (ch, cw) window of all three, upscaled first where it does
+    not fit (reference StereoDataset_FIF_enhance, datasets.py:284-316)."""
+
+    def __init__(self, reconstructed_dir: str, random_crop: bool = False,
+                 crop: Tuple[int, int] = (320, 1216), seed: int = 1234):
+        self.rec = _list_images(reconstructed_dir)
+        if not self.rec:
+            raise FileNotFoundError(f"no images under {reconstructed_dir}")
+        self.random_crop = random_crop
+        self.crop = crop
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.rec)
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        rng = self._item_rng(i)
+        rp = self.rec[i]
+        im_rec = _load(rp)
+        im_orig = _load(rp.replace("reconstructed", "original"))
+        im_si = _load(rp.replace("reconstructed", "SI_warped"))
+        if self.random_crop:
+            ch, cw = self.crop
+            h, w, im_rec, im_orig, im_si = _fit_for_crop(ch, cw, im_rec, im_orig, im_si)
+            top = rng.randint(0, h - ch)
+            left = rng.randint(0, w - cw)
+            sl = np.s_[top: top + ch, left: left + cw]
+            im_rec, im_orig, im_si = im_rec[sl], im_orig[sl], im_si[sl]
+        return (np.ascontiguousarray(im_si), np.ascontiguousarray(im_rec),
+                np.ascontiguousarray(im_orig))
+
+
+class StereoPassrDataset(_EpochSeeded):
+    """(LR left, HR right, HR left) for stereo SR training: KITTI-layout
+    pairs (``StereoKittiDataset``'s list, no jitter), the same (ch, cw)
+    window of both eyes (random in training, centred otherwise; upscaled
+    first where it does not fit), the left eye blurred by a ÷2 bilinear
+    resize round trip (reference StereoDataset_passrNet, datasets.py:319-362)."""
+
+    def __init__(self, roots: Sequence[str], train: bool = True,
+                 crop: Tuple[int, int] = (320, 320), seed: int = 1234):
+        self.pairs = StereoKittiDataset(roots, train=train, crop=None, jitter=False,
+                                        seed=seed).pairs
+        self.train = train
+        self.crop = crop
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        rng = self._item_rng(i)
+        lp, rp = self.pairs[i]
+        ch, cw = self.crop
+        h, w, left, right = _fit_for_crop(ch, cw, _load(lp), _load(rp))
+        if self.train:
+            top = rng.randint(0, h - ch)
+            lft = rng.randint(0, w - cw)
+        else:
+            top, lft = (h - ch) // 2, (w - cw) // 2
+        left = left[top: top + ch, lft: lft + cw]
+        right = right[top: top + ch, lft: lft + cw]
+        blurry = _resize(_resize(left, ch // 2, cw // 2), ch, cw)
+        return (np.ascontiguousarray(blurry), np.ascontiguousarray(right),
+                np.ascontiguousarray(left))
 
 
 def _assemble_batch(items):

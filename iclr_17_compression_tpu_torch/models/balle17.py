@@ -27,7 +27,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from ..nn.layers import GDN, BitEstimator, TorchConv, TorchConvTranspose
+from ..nn.layers import GDN, BitEstimator, TorchConv, TorchConvTranspose, init_modules_
 from ..ops import quant
 from ..ops.entropy import estimate_bits
 from ..ops.kernels.conv_gdn_kernel import analysis17_fused
@@ -119,10 +119,7 @@ class Balle17Compressor(nn.Module):
     def init_(self, generator: torch.Generator) -> "Balle17Compressor":
         """The JAX package's training init (``nn/layers.py``), drawn from
         ``generator`` in module order."""
-        for m in self.modules():
-            if m is not self and hasattr(m, "init_"):
-                m.init_(generator)
-        return self
+        return init_modules_(self, generator)
 
     def forward(self, image: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:

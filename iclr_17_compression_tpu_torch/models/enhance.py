@@ -1,8 +1,8 @@
-"""The FIF dilated-conv net of the DSC ``fif_0031bpp`` preset, NHWC.
+"""The enhancement nets, NHWC: the FIF dilated-conv trunk (also the DSC
+``fif_0031bpp`` preset's), the FIF enhancement head and the gated final
+enhancer.
 
-Counterpart of part of ``iclr_17_compression_tpu/models/enhance.py``:
-``_identity_conv_init``, ``AdaptiveBatchNorm``, ``ConvBlock`` and ``FIF``.
-``FIFEnhance`` and ``FinalEnhanceNet`` are not ported yet.
+Counterpart of ``iclr_17_compression_tpu/models/enhance.py``.
 
 - ``ConvBlock``: circular padding by the dilation (``wrap_pad``), a VALID
   dilated 3×3 conv (identity weight init, zero bias), LeakyReLU(0.2),
@@ -21,12 +21,21 @@ Counterpart of part of ``iclr_17_compression_tpu/models/enhance.py``:
 - ``FIF``: five ConvBlocks at dilations 1, 2, 4, 8, 1, named ``conv1``-
   ``conv4`` and ``conv8`` as in the reference's ``FIF_net.py`` (the JAX
   package's ``conv5``).
+- ``FIFEnhance``: the trunk at ``features`` channels over any input, then a
+  1×1 conv (``out_conv``) to a 3-channel residual.
+- ``FinalEnhanceNet``: over cat(recon, side information), two branches of
+  three ``ResidualBlock``s (``conv_a``; ``conv_b`` with a 1×1 conv
+  after), gated a·σ(b), then ResidualBlock ×2, an ``AttentionBlock`` and
+  ResidualBlock ×2 down to a 3-channel residual (reference
+  final_enhance_net.py:32-64; keys ``conv_a.{0,1,2}``, ``conv_b.{0..3}``,
+  ``final_block.{0..4}``). ``init_`` draws torch's default conv init.
 """
 
 import torch
 from torch import nn
 
-from ..nn.blocks import _LeakyReLU
+from ..nn.blocks import AttentionBlock, ResidualBlock, _LeakyReLU, init_dsc_
+from ..nn.layers import TorchConv
 from ..ops import conv as ops_conv
 
 FIF_DILATIONS = (1, 2, 4, 8, 1)
@@ -131,3 +140,45 @@ class FIF(nn.Module):
         for name in FIF_NAMES:
             x = getattr(self, name)(x, train)
         return x
+
+
+class FIFEnhance(nn.Module):
+    """FIF-style enhancement head: ConvBlocks at dilations 1, 2, 4, 8, 1
+    (the first from ``in_channels``), then a 1×1 conv to 3 channels."""
+
+    def __init__(self, in_channels: int, features: int = 64):
+        super().__init__()
+        for i, (name, dil) in enumerate(zip(FIF_NAMES, FIF_DILATIONS)):
+            setattr(self, name, ConvBlock(in_channels if i == 0 else features, features, 3, dil))
+        self.out_conv = TorchConv(features, 3, 1)
+
+    def init_(self, generator: torch.Generator) -> "FIFEnhance":
+        """The identity convs stay; torch's default init for ``out_conv``."""
+        return init_dsc_(self, generator)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        for name in FIF_NAMES:
+            x = getattr(self, name)(x, train)
+        return self.out_conv(x)
+
+
+class FinalEnhanceNet(nn.Module):
+    """Gated residual enhancer over cat(recon, side information) (6
+    channels); returns the 3-channel residual to add to the recon."""
+
+    def __init__(self, n: int = 64, act: str = "leaky_relu", in_channels: int = 6):
+        super().__init__()
+        self.conv_a = nn.Sequential(ResidualBlock(in_channels, n, act), ResidualBlock(n, n, act),
+                                    ResidualBlock(n, n, act))
+        self.conv_b = nn.Sequential(ResidualBlock(in_channels, n, act), ResidualBlock(n, n, act),
+                                    ResidualBlock(n, n, act), TorchConv(n, n, 1))
+        self.final_block = nn.Sequential(ResidualBlock(n, n, act), ResidualBlock(n, n, act),
+                                         AttentionBlock(n), ResidualBlock(n, n, act),
+                                         ResidualBlock(n, 3, act))
+
+    def init_(self, generator: torch.Generator) -> "FinalEnhanceNet":
+        """torch's default conv init, drawn from ``generator``."""
+        return init_dsc_(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.final_block(self.conv_a(x) * torch.sigmoid(self.conv_b(x)))

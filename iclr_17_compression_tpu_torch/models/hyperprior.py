@@ -43,7 +43,7 @@ from torch import nn
 from ..coding.api import build_cdf_tables_from_bit_estimator, decode_latent, encode_latent
 from ..coding.gaussian import (default_laplace_codec, default_scale_table, scale_indices,
                                unit_laplace_codec)
-from ..nn.layers import BitEstimator
+from ..nn.layers import BitEstimator, init_modules_
 from ..ops import quant
 from ..ops.entropy import LOG2
 from ..utils.device import cudnn_deterministic, no_tf32
@@ -80,10 +80,7 @@ class ScaleHyperprior(nn.Module):
         """The JAX package's init (xavier with each layer's gain, biases
         0.01, GDN identity, Bitparm N(0, 0.01²)), drawn from ``generator``
         in module order."""
-        for mod in self.modules():
-            if mod is not self and hasattr(mod, "init_"):
-                mod.init_(generator)
-        return self
+        return init_modules_(self, generator)
 
     def sigma(self, z_hat: torch.Tensor) -> torch.Tensor:
         """σ = clip(h_s(ẑ), 1e-10, 1e10), with cuDNN held to deterministic

@@ -50,6 +50,15 @@ def torch_default_init_(conv: nn.Conv2d, generator: torch.Generator) -> None:
             conv.bias.uniform_(-bound, bound, generator=generator)
 
 
+def init_modules_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The JAX package's training init of ``module``, in place: every
+    submodule's own ``init_``, drawn from ``generator`` in module order."""
+    for m in module.modules():
+        if m is not module and hasattr(m, "init_"):
+            m.init_(generator)
+    return module
+
+
 class _JaxInit:
     """``init_``: the weight drawn by ``xavier_normal_`` with ``self.gain``,
     the bias (where there is one) set to 0.01."""
@@ -71,7 +80,7 @@ class TorchConv(_JaxInit, nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return ops_conv.conv2d(x, self.weight, self.bias, stride=self.stride,
-                               padding=self.padding)
+                               padding=self.padding, dilation=self.dilation)
 
 
 class TorchConvTranspose(_JaxInit, nn.ConvTranspose2d):

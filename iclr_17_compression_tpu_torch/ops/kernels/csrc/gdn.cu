@@ -20,7 +20,9 @@
 //   loads gamma_t into shared memory once and walks 64-pixel tiles (32-pixel
 //   tiles at C = 192, where two x buffers and gamma_t would not fit; at
 //   C = 256, where gamma_t alone would not fit, it streams gamma_t 32 rows
-//   at a time for each tile, as K2's epilogue does);
+//   at a time for each tile, as K2's epilogue does; past C = 256, up to
+//   512, its 8 warps take the channels in passes of 256 and each pass
+//   streams a 256-column window of gamma_t, the chunks summed in order);
 // - x tiles double-buffered with cp.async, the next tile's copy in flight
 //   while the current one is computed;
 // - the norm product on the tensor cores (gdn_epilogue.cuh), x squared as it
@@ -31,7 +33,7 @@
 // that a trace tells it from K1), the tile load sums the S partial slices
 // in fixed order and adds the bias before the GDN: no atomics, so two calls
 // give the same bits. The channel count is a runtime argument
-// (C % 32 == 0, C <= 256).
+// (C % 32 == 0, C <= 512 for K1, C <= 256 for the reduction).
 
 #include <cuda_runtime.h>
 
@@ -121,24 +123,34 @@ __device__ __forceinline__ void gdn_rows(const RowsArgs& a) {
       // The warp's 32 x 32 tile: norm on the tensor cores, then the GDN and
       // the store straight from registers (no barrier: the buffer is reused
       // only after the next iteration's first barrier, which also orders the
-      // last reads of a streaming ring before its next refill).
-      float nrm[2][4][4], y[2][4][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) nrm[mi][ni][r] = 0.f;
+      // last reads of a streaming ring before its next refill). Past
+      // C = 256 the block's 8 warps take the channels in passes of 256, each
+      // streaming its window of gamma_t's columns.
       const float* A = xt + row0 * lda;
-      if (a.resident) {
-        for (int k0 = 0; k0 < C; k0 += BK)
-          mma_chunk<true>(nrm, A + k0, lda, gs + k0 * ldb + col0, ldb, lane);
-      } else {
-        gdn_norm_streamed(nrm, A, a.gamma_t, gs, C, col0, tid, nthreads, lane);
+      const int pass_cols = WARP_N * (nthreads / 32 / a.warp_rows);
+      for (int c0 = 0; c0 < C; c0 += pass_cols) {
+        const int col = c0 + col0;
+        float nrm[2][4][4], y[2][4][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) nrm[mi][ni][r] = 0.f;
+        if (a.resident) {
+          for (int k0 = 0; k0 < C; k0 += BK)
+            mma_chunk<true>(nrm, A + k0, lda, gs + k0 * ldb + col0, ldb, lane);
+        } else {
+          if (c0 > 0) __syncthreads();  // every warp is done with the last window's ring
+          gdn_norm_window(nrm, A, a.gamma_t, gs, C, c0, min(pass_cols, C - c0), col0, col < C,
+                          tid, nthreads, lane);
+        }
+        if (col < C) {
+          frag_from_smem(y, A + col, lda, lane);
+          gdn_apply(y, nrm, a.beta, col, a.inverse, lane);
+          frag_store_global(y, a.out, pix0 + row0, a.P, C, col, lane);
+        }
       }
-      frag_from_smem(y, A + col0, lda, lane);
-      gdn_apply(y, nrm, a.beta, col0, a.inverse, lane);
-      frag_store_global(y, a.out, pix0 + row0, a.P, C, col0, lane);
     } else {
       store_rows(xt, lda, a.out, pix0, a.P, bm, C, tid, nthreads);
     }
@@ -153,22 +165,31 @@ __global__ void __launch_bounds__(256, 1) conv_gdn_reduce_kernel(RowsArgs a) {
 // Tiles and shared memory of the rows kernels at C channels: gamma_t resident
 // beside two x tiles of 64 pixels where that fits (C <= 128), else of 32
 // pixels (C <= 192), else streamed through a 2-slot ring (C = 256) beside
-// 32-pixel tiles, as a plain reduction takes them. A block is at most 256
-// threads, so a thread may hold 255 registers.
+// 32-pixel tiles, as a plain reduction takes them. One warp a 32-channel
+// column up to C = 256; past it (K1 only, C <= 512) 8 warps that walk the
+// channels in passes of 256, the ring holding a 256-column window of
+// gamma_t (at C = 512: 132 KB of x tiles and 68 KB of ring, where a
+// full-width ring would not fit). A block is at most 256 threads, so a
+// thread may hold 255 registers.
+constexpr int PASS_COLS = 256;
+
 struct RowsPlan {
   int warp_rows;
   int resident;
+  int threads;
   size_t smem;
 };
 
 static RowsPlan rows_plan(int C, bool gdn_on) {
-  auto bytes = [&](int warp_rows, size_t gamma_rows) {
-    return sizeof(float) * (2ull * WARP_M * warp_rows * lda_of(C) + gamma_rows * ldb_of(C));
+  auto bytes = [&](int warp_rows, size_t gamma_rows, int gamma_cols) {
+    return sizeof(float) *
+           (2ull * WARP_M * warp_rows * lda_of(C) + gamma_rows * ldb_of(gamma_cols));
   };
-  if (!gdn_on) return {1, 0, bytes(1, 0)};
-  if (bytes(2, C) <= SMEM_LIMIT) return {2, 1, bytes(2, C)};
-  if (bytes(1, C) <= SMEM_LIMIT) return {1, 1, bytes(1, C)};
-  return {1, 0, bytes(1, 2 * BK)};
+  if (!gdn_on) return {1, 0, C, bytes(1, 0, C)};
+  if (bytes(2, C, C) <= SMEM_LIMIT) return {2, 1, 2 * C, bytes(2, C, C)};
+  if (bytes(1, C, C) <= SMEM_LIMIT) return {1, 1, C, bytes(1, C, C)};
+  if (C <= PASS_COLS) return {1, 0, C, bytes(1, 2 * BK, C)};
+  return {1, 0, PASS_COLS, bytes(1, 2 * BK, PASS_COLS)};
 }
 
 static bool rows_smem_set[64];
@@ -177,17 +198,17 @@ static bool reduce_smem_set[64];
 cudaError_t gdn_rows_launch(const float* src, int parts, long long part_stride,
                             const float* bias, const float* gamma_t, const float* beta,
                             float* out, long long P, int C, int inverse, cudaStream_t stream) {
-  if (P <= 0 || C <= 0 || C % 32 != 0 || C > 256 || parts < 1 ||
-      (gamma_t != nullptr && beta == nullptr))
-    return cudaErrorInvalidValue;
   // K2's reduction has partials to sum or a bias to add; K1 has neither
   const bool reduce = parts > 1 || bias != nullptr;
+  if (P <= 0 || C <= 0 || C % 32 != 0 || C > (reduce ? 256 : 512) || parts < 1 ||
+      (gamma_t != nullptr && beta == nullptr) || (C > 256 && gamma_t == nullptr))
+    return cudaErrorInvalidValue;
   void (*kernel)(RowsArgs) = reduce ? conv_gdn_reduce_kernel : gdn_rows_kernel;
   cudaError_t err = allow_smem(kernel, reduce ? reduce_smem_set : rows_smem_set);
   if (err != cudaSuccess) return err;
   const RowsPlan plan = rows_plan(C, gamma_t != nullptr);
   const size_t smem = plan.smem;
-  const int threads = plan.warp_rows * C;  // warp_rows x C / 32 warps
+  const int threads = plan.threads;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)

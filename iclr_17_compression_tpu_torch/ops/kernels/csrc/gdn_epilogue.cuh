@@ -6,7 +6,8 @@
 // fragment (mi, ni) is pixel 16*mi + g + 8*(r >= 2), channel 8*ni + 2*t +
 // (r & 1), with g = lane / 4 and t = lane % 4. A block is 1 or 2 warps of
 // pixels times C / 32 warps of channels, so a pixel's C channels all live in
-// one block and its GDN needs no other block (C % 32 == 0, C <= 256).
+// one block and its GDN needs no other block (C % 32 == 0, C <= 256; K1
+// past 256 has 8 warps walk the channels in passes of 256, C <= 512).
 //
 // Arithmetic: 3xTF32. Each fp32 operand is split as it is loaded into a
 // fragment, hi = tf32(x) and lo = tf32(x - hi) (as cvt.rna: round to
@@ -26,7 +27,8 @@
 //   y    = y / sqrt(norm)   (forward)  or  y * sqrt(norm)   (inverse)
 // with the C x C product in 3xTF32 as above (y squared as it is loaded) and
 // gamma_t read from shared memory: resident in K1 where it fits, else
-// streamed 32 rows at a time (K2, and K1 at C = 256).
+// streamed 32 rows at a time (K2, and K1 at C = 256), and past C = 256 (K1
+// only) streamed in column windows of 256, one pass of the block each.
 
 #pragma once
 
@@ -96,7 +98,7 @@ __device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4], const 
 // first row and the warp's first channel of a [k][n] tile (ldb % 32 == 8).
 // kGdn = false (the conv, K up to k*k*Cin): the chunk is summed from zero in
 // the tensor cores and added to acc with a rounded fp32 add.
-// kGdn = true (the GDN norm, K = C <= 256): the A operand is A*A (y*y), and
+// kGdn = true (the GDN norm, K = C <= 512): the A operand is A*A (y*y), and
 // the chunk accumulates into acc in the tensor cores directly: at this depth
 // K1 stays within 3e-6 relative of its plain version on an H100
 // (chip_smoke.py).
@@ -243,32 +245,63 @@ __device__ __forceinline__ void store_rows(const float* T, int ldt, float* __res
   }
 }
 
-// nrm = (Y*Y) . gamma_t for one warp tile, gamma_t streamed from device
-// memory 32 rows at a time through a 2-slot ring (2 * BK * ldb_of(C) floats)
-// with one barrier a chunk. Y points at the warp's first pixel row of an
-// [m][C] tile (stride lda_of(C)). Every thread of the block calls; the first
-// barrier inside also publishes the caller's writes of Y, and the ring must
-// be free on entry. Waits for every cp.async group of the thread.
-__device__ __forceinline__ void gdn_norm_streamed(float (&nrm)[2][4][4], const float* Y,
-                                                  const float* __restrict__ gamma_t,
-                                                  float* ring, int C, int col0, int tid,
-                                                  int nthreads, int lane) {
+// Copy rows row0 .. row0+rows-1, columns col_begin .. col_begin+cols-1 of
+// a row-major (nrows, C) array into T[m][c] (row stride ldt) with 16-byte
+// cp.async; rows at or past nrows become zero. The caller commits the group.
+__device__ __forceinline__ void load_cols_async(float* T, int ldt, const float* src,
+                                                long long row0, long long nrows, int rows,
+                                                int C, int col_begin, int cols, int tid,
+                                                int nthreads) {
+  const int units = cols / 4;
+  for (int e = tid; e < rows * units; e += nthreads) {
+    const int m = e / units;
+    const int u = e - m * units;
+    const long long r = row0 + m;
+    const bool ok = r < nrows;
+    cp_async16(T + m * ldt + 4 * u, ok ? src + r * C + col_begin + 4 * u : src, ok);
+  }
+}
+
+// nrm = (Y*Y) . gamma_t[:, c0 : c0 + cw] for one warp tile, that column
+// window of gamma_t streamed from device memory 32 rows at a time through a
+// 2-slot ring (2 * BK * ldb_of(cw) floats) with one barrier a chunk; the
+// warp's channels are c0 + wcol .. c0 + wcol + 31 (wcol < cw). Y points at
+// the warp's first pixel row of an [m][C] tile (stride lda_of(C)). Every
+// thread of the block calls, and loads and waits; a warp with `active`
+// false computes nothing (a last window narrower than the block). The sum
+// runs over the chunks in order, so a second call gives the same bits. The
+// first barrier inside also publishes the caller's writes of Y, and the
+// ring must be free on entry. Waits for every cp.async group of the thread.
+__device__ __forceinline__ void gdn_norm_window(float (&nrm)[2][4][4], const float* Y,
+                                                const float* __restrict__ gamma_t,
+                                                float* ring, int C, int c0, int cw, int wcol,
+                                                bool active, int tid, int nthreads,
+                                                int lane) {
   const int lda = lda_of(C);
-  const int ldb = ldb_of(C);
+  const int ldb = ldb_of(cw);
   const int slot = BK * ldb;
   const int chunks = C / BK;
-  load_rows_async(ring, ldb, gamma_t, 0, C, BK, C, tid, nthreads);
+  load_cols_async(ring, ldb, gamma_t, 0, C, BK, C, c0, cw, tid, nthreads);
   cp_async_commit();
   for (int c = 0; c < chunks; ++c) {
     cp_async_wait<0>();
     __syncthreads();  // chunk c has landed; every warp is done with chunk c-1
     if (c + 1 < chunks) {
-      load_rows_async(ring + ((c + 1) & 1) * slot, ldb, gamma_t, (c + 1) * BK, C, BK, C, tid,
-                      nthreads);
+      load_cols_async(ring + ((c + 1) & 1) * slot, ldb, gamma_t, (c + 1) * BK, C, BK, C, c0,
+                      cw, tid, nthreads);
       cp_async_commit();
     }
-    mma_chunk<true>(nrm, Y + c * BK, lda, ring + (c & 1) * slot + col0, ldb, lane);
+    if (active) mma_chunk<true>(nrm, Y + c * BK, lda, ring + (c & 1) * slot + wcol, ldb, lane);
   }
+}
+
+// The whole of gamma_t's columns as one window (K2's epilogue, K1 at
+// C = 256): the warp's channels are col0 .. col0 + 31.
+__device__ __forceinline__ void gdn_norm_streamed(float (&nrm)[2][4][4], const float* Y,
+                                                  const float* __restrict__ gamma_t,
+                                                  float* ring, int C, int col0, int tid,
+                                                  int nthreads, int lane) {
+  gdn_norm_window(nrm, Y, gamma_t, ring, C, 0, C, col0, true, tid, nthreads, lane);
 }
 
 // y = y / sqrt(nrm + beta), or y * sqrt(nrm + beta) when inverse, for one

@@ -70,8 +70,8 @@ def gdn_fused(x: torch.Tensor, gamma_t: torch.Tensor, beta: torch.Tensor,
 
 def _launch(x, gamma_t, beta, inverse):
     c = x.shape[-1]
-    if c % 32 or c > 256:
-        raise ValueError(f"gdn_fused: the kernel takes C % 32 == 0 and C <= 256, got C={c}")
+    if c % 32 or c > 512:
+        raise ValueError(f"gdn_fused: the kernel takes C % 32 == 0 and C <= 512, got C={c}")
     _build.check_tensor("x", x)
     _build.check_tensor("gamma_t", gamma_t, (c, c))
     _build.check_tensor("beta", beta, (c,))

@@ -4,14 +4,15 @@ Counterpart of ``iclr_17_compression_tpu/train/checkpoint.py``:
 
 - ``save_params`` / ``load_params``: bare parameter snapshots
   ``iter_<step>.ckpt`` in the JAX package's layout, a flax msgpack of the
-  JAX param tree of a Ballé-17, hyperprior or joint-AR model
-  (``train/weights.py``). A model trained by the port loads in the JAX
+  JAX param tree of a port model of any kind: Ballé-17, hyperprior,
+  joint-AR, DSC or an auxiliary model (``train/weights.py``'s
+  ``layout_of``). A model trained by the port loads in the JAX
   package and through the port's ``load_balle17`` / ``load_hyperprior`` /
   ``load_joint`` (and so the codec CLI); a JAX Ballé-17 checkpoint loads in
   the port.
-- ``load_params_partial``: the leaves of a JAX-layout file (a Ballé-17,
-  hyperprior, joint-AR or DSC tree, bare or a TrainState's ``params``) or
-  of the port's train-state file whose key and shape match the model's.
+- ``load_params_partial``: the leaves of a JAX-layout file (the tree of
+  the model's kind, bare or a TrainState's ``params``) or of the port's
+  train-state file whose key and shape match the model's.
 - ``save_train_state`` / ``load_train_state``: the port's own full state, a
   ``torch.save`` of the model's and the optimizer's state dicts and the
   step, with the JAX package's JSON sidecar (epoch, loss, step and extras
@@ -33,20 +34,13 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..models.cheng2020 import JointAutoregressive
-from ..models.dsc import DSCStereoModel
-from ..models.hyperprior import ScaleHyperprior
-from ..ops.conv import deconv_hwio_to_torch, hwio_to_oihw
+from ..models.balle17 import Balle17Compressor
 from .state import TrainState
 from .weights import (
-    _dsc_flax_path,
     _flatten,
-    _hyperprior_flax_path,
-    _is_deconv,
-    _jax_path,
-    _joint_flax_path,
-    hyperprior_params_to_jax,
-    joint_params_to_jax,
+    _leaf_from_jax,
+    layout_of,
+    model_params_to_jax,
     msgpack_dumps,
     params_from_jax,
     params_to_jax,
@@ -63,14 +57,11 @@ def _atomic_write(path: str, data: bytes) -> None:
 
 
 def _params_to_jax(model: torch.nn.Module) -> Dict[str, Any]:
-    """A Ballé-17, hyperprior or joint-AR model's parameters as its JAX
-    param tree."""
-    sd = model.state_dict()
-    if isinstance(model, ScaleHyperprior):
-        return hyperprior_params_to_jax(sd, model.out_channel_n, model.out_channel_m)
-    if isinstance(model, JointAutoregressive):
-        return joint_params_to_jax(sd, model.n)
-    return params_to_jax(sd)
+    """A port model's parameters as its JAX param tree (a Ballé-17's in the
+    JAX model's key order)."""
+    if isinstance(model, Balle17Compressor):
+        return params_to_jax(model.state_dict())
+    return model_params_to_jax(model)
 
 
 def save_params(model: torch.nn.Module, directory: str, step: int, prefix: str = "iter") -> str:
@@ -91,29 +82,20 @@ def load_params(model: torch.nn.Module, path: str) -> torch.nn.Module:
 
 def _jax_leaves(model: torch.nn.Module, tree: Dict[str, Any]):
     """(port key, tensor in the port's layout) for each parameter of
-    ``model`` that a leaf of a JAX param tree names."""
+    ``model`` that a leaf of a JAX param tree of the same size names."""
     flat = _flatten(tree)
-    if isinstance(model, DSCStereoModel):
-        path_of, is_deconv = (lambda key: _dsc_flax_path(key, model.config)), None
-    elif isinstance(model, ScaleHyperprior):
-        path_of, is_deconv = _hyperprior_flax_path, _is_deconv
-    elif isinstance(model, JointAutoregressive):
-        path_of, is_deconv = _joint_flax_path, None
-    else:  # Ballé-17
-        path_of, is_deconv = _jax_path, (lambda path: "/conv" not in path)
-    for key, _ in model.named_parameters():
-        v = flat.get(path_of(key))
-        if v is not None:
-            v = np.asarray(v)
-            if v.ndim == 4:
-                v = deconv_hwio_to_torch(v) if is_deconv and is_deconv(path_of(key)) \
-                    else hwio_to_oihw(v)
+    lay = layout_of(model)
+    for key, p in model.named_parameters():
+        path = lay.path_of(key)
+        v = flat.get(path)
+        if v is not None and np.size(v) == p.numel():
+            v = _leaf_from_jax(np.asarray(v), path, lay.is_deconv, lay.perms)
             yield key, torch.from_numpy(np.array(v, order="C"))
 
 
 def load_params_partial(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Load only the leaves of a JAX-layout param file (a Ballé-17,
-    hyperprior, joint-AR or DSC tree, bare or under ``params``), or of the
+    """Load only the leaves of a JAX-layout param file (the tree of the
+    model's kind, bare or under ``params``), or of the
     port's train-state file, whose key and shape match the model's (the
     reference's partial state_dict load, model.py:26-27); every other
     parameter keeps its value."""

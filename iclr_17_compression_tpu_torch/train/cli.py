@@ -1,5 +1,5 @@
 """Training CLI on one card: Ballé-17, the scale hyperprior, the joint-AR
-codec, the DSC stereo codecs and the residual rate-regression stage.
+codec, the DSC stereo codecs and the seven auxiliary trainers.
 
 Counterpart of ``iclr_17_compression_tpu/train/cli.py`` (``main``,
 ``train_single_image``, ``train_dsc``, ``_restore``; its
@@ -17,8 +17,10 @@ gradient clamp ±5 (train.py:106-111), periodic Kodak eval and checkpoints
 (train.py:150-153), windowed meters and logging (train.py:114-149). DSC
 presets (``model: "dsc:<preset>"``) train in the train_2StepsNet loop shape
 (per-epoch plateau LR, a validation pass, best-train / best-val / latest
-checkpoints, train_2StepsNet.py:112-256); ``model: "reg_stage"`` runs the
-residual stage's trainer (``train/trainers.py``). ``hyperprior`` and
+checkpoints, train_2StepsNet.py:112-256); ``model`` one of ``two_steps``,
+``reg_stage``, ``decoder_only``, ``att_exp``, ``att_block``, ``passr``,
+``fif_enhance`` runs that auxiliary trainer (``train/trainers.py``), with
+``--pretrain`` its frozen model's checkpoint where it has one. ``hyperprior`` and
 ``joint`` train in the Ballé-17 loop with rd_loss = λ·mse + bpp; the steps
 of a model with ``train_cudnn_autotune`` set (the joint) run under
 ``cudnn_autotune`` on the card (``utils/device.py``: cuDNN's heuristic takes
@@ -91,8 +93,7 @@ SINGLE_IMAGE_MODELS = ("balle17", "hyperprior", "joint")
 def check_supported(cfg: TrainConfig) -> None:
     """Raise for what the port does not train, naming its ROADMAP entry:
     ``fif_0031bpp`` in ``train_dsc`` (Queue 3: the JAX trainer keeps no
-    batch statistics), the auxiliary trainers other than ``reg_stage``
-    (item 18), a mesh (item 20)."""
+    batch statistics), a mesh (item 20)."""
     if cfg.model.startswith("dsc:"):
         preset = DSC_PRESETS[cfg.model.split(":", 1)[1]]
         if preset.fusion_pre == "fif":
@@ -100,9 +101,7 @@ def check_supported(cfg: TrainConfig) -> None:
                 f"model {cfg.model!r}: the JAX trainer keeps only the params, not FIF's "
                 "batch_stats, and cannot train this preset; the port follows it "
                 "(ROADMAP Queue 3)")
-    elif cfg.model in TRAINERS and cfg.model != "reg_stage":
-        raise NotImplementedError(f"trainer {cfg.model!r}: not ported yet (ROADMAP item 18)")
-    elif cfg.model not in SINGLE_IMAGE_MODELS + ("reg_stage",):
+    elif cfg.model not in SINGLE_IMAGE_MODELS and cfg.model not in TRAINERS:
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.mesh_data not in (None, 1) or cfg.mesh_tile != 1:
         raise NotImplementedError(

@@ -48,19 +48,35 @@ and the joint-AR model (the flax names ``g_a/rbs0``, ``h_s/subpel1/conv``,
 ``h_s.2.0``, ``entropy_parameters.4``, as ``import_joint`` maps them).
 ``load_hyperprior`` and ``load_joint`` read a JAX params file or TrainState
 checkpoint, or the port's own train-state file.
+
+Every port model, the auxiliary ones included, goes through
+``model_params_{from,to}_jax(model, …)``: ``layout_of(model)`` names its JAX
+layout, for each the inverse of its ``torch_import`` map (``import_fc``,
+``import_latent_compressor``, ``import_analysis_small``,
+``import_synthesis_small``, ``import_passr``, ``import_fif``,
+``import_final_enhance``). A linear layer's weight (out, in) is flax's
+``kernel`` (in, out); where the reference flattens a latent in NCHW order and
+the JAX module in NHWC order (``fc``, AnalysisSmall's ``fc1``,
+SynthesisSmall's ``fc2``) its rows or columns go through ``_fc_perm``, as
+``import_fc`` / ``import_analysis_small`` / ``import_synthesis_small`` take
+them.
 """
 
 import struct
 import zipfile
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..models.balle17 import Balle17Compressor
+from ..models.attention import PatchMatchAttention
+from ..models.balle17 import Analysis17, Balle17Compressor, Synthesis17
 from ..models.cheng2020 import JointAutoregressive
 from ..models.dsc import DSC_PRESETS, GREC_SPECS, DSCConfig, DSCStereoModel, final_conv_specs
+from ..models.enhance import FIFEnhance, FinalEnhanceNet
+from ..models.extra import AnalysisSmall, ImageCompressorFC, LatentCompressor, SynthesisSmall
 from ..models.hyperprior import ScaleHyperprior
+from ..models.passr import PASSRnet
 from ..ops.conv import deconv_hwio_to_torch, hwio_to_oihw, oihw_to_hwio
 from ..utils.device import resolve_device
 
@@ -431,34 +447,61 @@ def _dsc_flax_path(key: str, cfg: DSCConfig) -> str:
     return f"{flax_top}/{stack_flax_path(specs, rest)}"
 
 
-def _dsc_template(cfg: DSCConfig, stats: bool = False) -> Dict[str, torch.Tensor]:
-    """The parameters (``stats=False``) or the running statistics of a DSC
-    model of ``cfg``, on the meta device."""
-    with torch.device("meta"):
-        sd = DSCStereoModel(cfg).state_dict()
-    return {k: v for k, v in sd.items() if _is_stat(k) == stats}
-
-
 def dsc_params_from_jax(tree: Dict[str, Any], cfg: DSCConfig) -> Dict[str, torch.Tensor]:
     """JAX ``DSCStereoModel`` params of ``cfg`` (nested dicts of arrays, bare
     or under "params") → the port's ``DSCStereoModel`` state_dict. Every leaf
     is checked: shape, float32, none missing, none extra."""
-    return _state_from(tree, _dsc_template(cfg), lambda key: _dsc_flax_path(key, cfg),
-                       f"DSC {cfg.name}")
+    return model_params_from_jax(_meta(DSCStereoModel, cfg), tree)
 
 
-def _tree_from(state_dict: Dict[str, torch.Tensor], path_of, is_deconv=None) -> Dict[str, Any]:
+def _linear_perms(path: str, perms) -> tuple:
+    """(in, out) flatten permutations of the dense layer owning ``path``."""
+    return (perms or {}).get(path.rsplit("/", 1)[0], (None, None))
+
+
+def _leaf_to_jax(v: np.ndarray, path: str, is_deconv=None, perms=None) -> np.ndarray:
+    """One port leaf in the JAX layout at ``path``: 4-D weights to HWIO (or,
+    where ``is_deconv(path)``, the JAX pre-flipped deconv layout); a dense
+    weight (out, in) to flax's kernel (in, out), its rows and columns taken
+    through the layer's flatten permutations (``perms``: layer path → (in,
+    out), ``import_fc``'s ``_import_linear``) and its bias through the out
+    one."""
+    if v.ndim == 4 and is_deconv is not None and is_deconv(path):
+        return np.flip(v, axis=(2, 3)).transpose(2, 3, 0, 1)  # deconv_hwio_to_torch⁻¹
+    if v.ndim == 4:
+        return oihw_to_hwio(v)
+    in_p, out_p = _linear_perms(path, perms)
+    if path.endswith("/kernel"):
+        v = v if out_p is None else v[out_p]
+        return (v if in_p is None else v[:, in_p]).T
+    if path.endswith("/bias") and out_p is not None:
+        return v[out_p]
+    return v
+
+
+def _leaf_from_jax(v: np.ndarray, path: str, is_deconv=None, perms=None) -> np.ndarray:
+    """``_leaf_to_jax``'s inverse."""
+    if v.ndim == 4:
+        return deconv_hwio_to_torch(v) if is_deconv is not None and is_deconv(path) \
+            else hwio_to_oihw(v)
+    in_p, out_p = _linear_perms(path, perms)
+    if path.endswith("/kernel"):
+        v = v.T
+        v = v if in_p is None else v[:, np.argsort(in_p)]
+        return v if out_p is None else v[np.argsort(out_p)]
+    if path.endswith("/bias") and out_p is not None:
+        return v[np.argsort(out_p)]
+    return v
+
+
+def _tree_from(state_dict: Dict[str, torch.Tensor], path_of, is_deconv=None,
+               perms=None) -> Dict[str, Any]:
     """A port state_dict → a JAX params tree: ``path_of(key)`` names each
-    leaf; 4-D weights go to HWIO, or, where ``is_deconv(path)``, to the JAX
-    pre-flipped deconv layout."""
+    leaf, ``_leaf_to_jax`` lays it out."""
     tree: Dict[str, Any] = {}
     for key, t in state_dict.items():
-        v = t.detach().to("cpu", torch.float32).numpy()
         path = path_of(key)
-        if v.ndim == 4 and is_deconv is not None and is_deconv(path):
-            v = np.flip(v, axis=(2, 3)).transpose(2, 3, 0, 1)  # deconv_hwio_to_torch⁻¹
-        elif v.ndim == 4:
-            v = oihw_to_hwio(v)
+        v = _leaf_to_jax(t.detach().to("cpu", torch.float32).numpy(), path, is_deconv, perms)
         *parents, leaf = path.split("/")
         node = tree
         for p in parents:
@@ -468,7 +511,7 @@ def _tree_from(state_dict: Dict[str, torch.Tensor], path_of, is_deconv=None) -> 
 
 
 def _state_from(tree: Dict[str, Any], template: Dict[str, torch.Tensor], path_of, what: str,
-                is_deconv=None) -> Dict[str, torch.Tensor]:
+                is_deconv=None, perms=None) -> Dict[str, torch.Tensor]:
     """A JAX params tree (bare or under "params") → a port state_dict of
     ``template``'s keys and shapes: ``_tree_from``'s inverse. Every leaf is
     checked: shape, float32, none missing, none extra."""
@@ -485,9 +528,9 @@ def _state_from(tree: Dict[str, Any], template: Dict[str, torch.Tensor], path_of
         v = np.asarray(flat[path])
         if v.dtype != np.float32:
             raise TypeError(f"{path}: dtype {v.dtype}, expected float32")
-        if v.ndim == 4:
-            v = deconv_hwio_to_torch(v) if is_deconv is not None and is_deconv(path) \
-                else hwio_to_oihw(v)
+        if v.ndim != template[key].dim():
+            raise ValueError(f"{path}: shape {v.shape}, expected {tuple(template[key].shape)}")
+        v = _leaf_from_jax(v, path, is_deconv, perms)
         if v.shape != tuple(template[key].shape):
             raise ValueError(f"{path}: shape {v.shape}, expected {tuple(template[key].shape)}")
         sd[key] = torch.from_numpy(np.array(v, order="C"))
@@ -508,7 +551,7 @@ def dsc_batch_stats_from_jax(tree: Dict[str, Any], cfg: DSCConfig) -> Dict[str, 
     ``fif_0031bpp``; empty for a preset without BatchNorm)."""
     if set(tree) == {"batch_stats"}:
         tree = tree["batch_stats"]
-    return _state_from(tree, _dsc_template(cfg, stats=True),
+    return _state_from(tree, _template(_meta(DSCStereoModel, cfg), stats=True),
                        lambda key: _dsc_flax_path(key, cfg), f"DSC {cfg.name} batch_stats")
 
 
@@ -540,26 +583,17 @@ def _is_deconv(path: str) -> bool:
     return path.split("/")[-2].startswith("deconv")
 
 
-def _hyperprior_template(n: int, m: int) -> Dict[str, torch.Tensor]:
-    with torch.device("meta"):
-        return ScaleHyperprior(n, m).state_dict()
-
-
 def hyperprior_params_from_jax(tree: Dict[str, Any], n: int, m: int) -> Dict[str, torch.Tensor]:
     """JAX ``ScaleHyperprior`` params of widths (n, m) → the port's
     ``ScaleHyperprior`` state_dict (either quantizer: they share weights)."""
-    return _state_from(tree, _hyperprior_template(n, m), _hyperprior_flax_path, "hyperprior",
-                       _is_deconv)
+    return model_params_from_jax(_meta(ScaleHyperprior, n, m), tree)
 
 
 def hyperprior_params_to_jax(state_dict: Dict[str, torch.Tensor], n: int, m: int
                              ) -> Dict[str, Any]:
     """A port ``ScaleHyperprior`` state_dict → the JAX params tree, the
     inverse of ``hyperprior_params_from_jax``."""
-    template = _hyperprior_template(n, m)
-    if set(state_dict) != set(template):
-        raise KeyError(f"not a hyperprior state_dict of n={n}, m={m}")
-    return _tree_from(state_dict, _hyperprior_flax_path, _is_deconv)
+    return model_params_to_jax(_meta(ScaleHyperprior, n, m), state_dict)
 
 
 # The flax name of each indexed block of the joint-AR stacks (the
@@ -591,23 +625,194 @@ def _joint_flax_path(key: str) -> str:
     return "/".join([top, name] + inner + [leaf])
 
 
-def _joint_template(n: int) -> Dict[str, torch.Tensor]:
-    with torch.device("meta"):
-        return JointAutoregressive(n).state_dict()
-
-
 def joint_params_from_jax(tree: Dict[str, Any], n: int) -> Dict[str, torch.Tensor]:
     """JAX ``JointAutoregressive`` params of width n → the port's
     ``JointAutoregressive`` state_dict."""
-    return _state_from(tree, _joint_template(n), _joint_flax_path, "joint")
+    return model_params_from_jax(_meta(JointAutoregressive, n), tree)
 
 
 def joint_params_to_jax(state_dict: Dict[str, torch.Tensor], n: int) -> Dict[str, Any]:
     """A port ``JointAutoregressive`` state_dict → the JAX params tree, the
     inverse of ``joint_params_from_jax``."""
-    if set(state_dict) != set(_joint_template(n)):
-        raise KeyError(f"not a joint-AR state_dict of n={n}")
-    return _tree_from(state_dict, _joint_flax_path)
+    return model_params_to_jax(_meta(JointAutoregressive, n), state_dict)
+
+
+def _fc_perm(h: int, w: int, c: int) -> np.ndarray:
+    """Position j of the NHWC-flat (h, w, c) latent holds element perm[j] of
+    the NCHW-flat one (``torch_import._fc_perm``)."""
+    return np.arange(c * h * w).reshape(c, h, w).transpose(1, 2, 0).ravel()
+
+
+def _dense_path(key: str) -> str:
+    """``fc1.0.weight`` / ``fc2.weight`` (a linear layer, bare or first in a
+    Sequential) → ``fc1/kernel`` / ``fc2/kernel``; other leaves as named."""
+    parts = key.split(".")
+    leaf = "kernel" if parts[-1] == "weight" else parts[-1]
+    return f"{parts[0]}/{leaf}"
+
+
+def _small_flax_path(key: str) -> str:
+    """AnalysisSmall / SynthesisSmall: ``conv1.weight`` → ``conv1/weight``,
+    ``igdn2.gamma`` → ``igdn2/gamma``, ``fc1.0.weight`` → ``fc1/kernel``."""
+    name, leaf = key.split(".")[0], key.rsplit(".", 1)[1]
+    return _dense_path(key) if name.startswith("fc") else f"{name}/{leaf}"
+
+
+_LC_NAMES = {"conv_down_zx": {"0": "down1", "2": "down2", "4": "down3", "6": "down4"},
+             "fc_combine_zx_zy": {str(i): f"comb{i + 1}" for i in range(5)}}
+
+
+def _latent_compressor_flax_path(key: str) -> str:
+    top, idx, leaf = key.split(".")
+    return f"{_LC_NAMES[top][idx]}/{leaf}"
+
+
+def _resb_conv(sub: str) -> str:
+    """A ResB's ``body.{0,2}`` → ``conv{1,2}``."""
+    return f"conv{1 + int(sub.split('.')[1]) // 2}"
+
+
+_PASSR_FEATURES = {"2": "resb1", "3": "aspp1", "4": "resb2", "5": "aspp2", "6": "resb3"}
+_PASSR_UP = {"4": "up_conv1", "6": "up_conv2", "7": "up_conv3"}
+
+
+def _passr_flax_path(key: str) -> str:
+    """A ``PASSRnet`` key → its JAX leaf path (``import_passr``'s map)."""
+    top, rest = key.split(".", 1)
+    if top == "pam":
+        return _fusion_flax_path("pam", rest)
+    idx, _, sub = rest.partition(".")
+    leaf = key.rsplit(".", 1)[1]
+    if top == "upscale":
+        name = _PASSR_UP.get(idx)
+        return f"{name}/{leaf}" if name else f"up_resb{idx}/{_resb_conv(sub)}/{leaf}"
+    if idx == "0":
+        return f"{top}_conv0/{leaf}"
+    name = _PASSR_FEATURES[idx]
+    inner = _resb_conv(sub) if name.startswith("resb") else sub.split(".")[0]
+    return f"{top}_{name}/{inner}/{leaf}"
+
+
+def _fif_enhance_flax_path(key: str) -> str:
+    if key.startswith("out_conv."):
+        return key.replace(".", "/")
+    block, tail = key.split(".convblk.")
+    return f"{_FIF_BLOCKS[block]}/{_FIF_LEAVES[tail]}"
+
+
+_FINAL_BLOCKS = {"0": "final_rb0", "1": "final_rb1", "2": "final_att", "3": "final_rb2",
+                 "4": "final_rb3"}
+
+
+def _attention_block_path(rest: str) -> str:
+    """Inside an AttentionBlock: ``conv_a.<u>.conv.<j>.<leaf>`` →
+    ``a_ru<u>/conv_{in,mid,out}/<leaf>``, ``conv_b.3.<leaf>`` →
+    ``b_conv/<leaf>``."""
+    parts = rest.split(".")
+    if parts[:2] == ["conv_b", "3"]:
+        return f"b_conv/{parts[2]}"
+    return f"{parts[0][-1]}_ru{parts[1]}/{_UNIT_CONVS[parts[3]]}/{parts[4]}"
+
+
+def _final_enhance_flax_path(key: str) -> str:
+    """A ``FinalEnhanceNet`` key → its JAX leaf path (``import_final_enhance``'s
+    map)."""
+    top, idx, rest = key.split(".", 2)
+    if top == "conv_b" and idx == "3":
+        return f"conv_b_conv/{rest}"
+    if top in ("conv_a", "conv_b"):
+        return f"{top}_rb{idx}/{rest.replace('.', '/')}"
+    name = _FINAL_BLOCKS[idx]
+    if name == "final_att":
+        return f"final_att/{_attention_block_path(rest)}"
+    return f"{name}/{rest.replace('.', '/')}"
+
+
+def _patch_attention_flax_path(key: str) -> str:
+    """``q_patches.0.weight`` → ``q_patches/weight``; ``scale_att`` as is."""
+    parts = key.split(".")
+    return "/".join([parts[0], parts[2]] if len(parts) == 3 else parts)
+
+
+class Layout(NamedTuple):
+    """How a port model's state_dict maps onto its JAX params tree."""
+
+    path_of: Callable[[str], str]
+    is_deconv: Optional[Callable[[str], bool]] = None
+    perms: Optional[Dict[str, tuple]] = None
+
+
+def layout_of(model: torch.nn.Module) -> Layout:
+    """The JAX layout of a port model of any kind."""
+    if isinstance(model, DSCStereoModel):
+        return Layout(lambda key: _dsc_flax_path(key, model.config))
+    if isinstance(model, ScaleHyperprior):
+        return Layout(_hyperprior_flax_path, _is_deconv)
+    if isinstance(model, JointAutoregressive):
+        return Layout(_joint_flax_path)
+    if isinstance(model, Balle17Compressor):
+        return Layout(_jax_path, lambda path: "/conv" not in path)
+    if isinstance(model, (Analysis17, Synthesis17)):  # a transform alone: conv1/weight, …
+        return Layout(lambda key: key.replace(".", "/"), _is_deconv)
+    if isinstance(model, ImageCompressorFC):
+        h, w, c = model.latent_hw + (model.out_channel_n,)
+        perm = _fc_perm(h, w, c)
+        return Layout(lambda key: _dense_path(key) if key.startswith("fc.") else _jax_path(key),
+                      lambda path: path.startswith("decoder/"), {"fc": (perm, perm)})
+    if isinstance(model, LatentCompressor):
+        return Layout(_latent_compressor_flax_path)
+    if isinstance(model, AnalysisSmall):
+        m, g = model.conv4.out_channels, model.grid
+        return Layout(_small_flax_path, perms={"fc1": (_fc_perm(g, g, m), None)})
+    if isinstance(model, SynthesisSmall):
+        return Layout(_small_flax_path, _is_deconv, {"fc2": (None, _fc_perm(16, 16, 16))})
+    if isinstance(model, PASSRnet):
+        return Layout(_passr_flax_path)
+    if isinstance(model, FIFEnhance):
+        return Layout(_fif_enhance_flax_path)
+    if isinstance(model, FinalEnhanceNet):
+        return Layout(_final_enhance_flax_path)
+    if isinstance(model, PatchMatchAttention):
+        return Layout(_patch_attention_flax_path)
+    raise TypeError(f"no JAX layout for {type(model).__name__}")
+
+
+def _params_only(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v for k, v in state_dict.items() if not _is_stat(k)}
+
+
+def _template(model: torch.nn.Module, stats: bool = False) -> Dict[str, torch.Tensor]:
+    return {k: v for k, v in model.state_dict().items() if _is_stat(k) == stats}
+
+
+def model_params_to_jax(model: torch.nn.Module,
+                        state_dict: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
+    """``state_dict`` (default the model's own; every parameter of the
+    model's kind and widths, checked) as the JAX params tree of ``model``'s
+    kind; running statistics are left out."""
+    sd = _params_only(model.state_dict() if state_dict is None else state_dict)
+    template = _template(model)
+    if set(sd) != set(template) or any(sd[k].shape != template[k].shape for k in sd):
+        raise KeyError(f"not a {type(model).__name__} state_dict of these widths")
+    return _tree_from(sd, *layout_of(model))
+
+
+def model_params_from_jax(model: torch.nn.Module, tree: Dict[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """The JAX params tree of ``model``'s kind (bare, or under "params" of a
+    variables dict or TrainState) as its state_dict's parameters, every leaf
+    checked."""
+    if isinstance(tree.get("params"), dict):
+        tree = tree["params"]
+    lay = layout_of(model)
+    return _state_from(tree, _template(model), lay.path_of, type(model).__name__,
+                       lay.is_deconv, lay.perms)
+
+
+def _meta(cls, *args, **kw) -> torch.nn.Module:
+    """A model on the meta device: a template of keys and shapes."""
+    with torch.device("meta"):
+        return cls(*args, **kw)
 
 
 def _params_tree(path: str, top: str) -> Dict[str, Any]:
@@ -627,29 +832,6 @@ def _load_strict(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
                           strict=True)
 
 
-def load_hyperprior_weights(model: ScaleHyperprior, path: str) -> ScaleHyperprior:
-    """Load every weight of ``model`` from a JAX params file or TrainState
-    checkpoint, or from the port's train-state file (strict: the widths must
-    match)."""
-    sd = read_port_state(path)
-    if sd is None:
-        sd = hyperprior_params_from_jax(_params_tree(path, "g_a"), model.out_channel_n,
-                                        model.out_channel_m)
-    _load_strict(model, sd)
-    return model
-
-
-def load_joint_weights(model: JointAutoregressive, path: str) -> JointAutoregressive:
-    """Load every weight of ``model`` from a JAX params file or TrainState
-    checkpoint, or from the port's train-state file (strict: the width must
-    match)."""
-    sd = read_port_state(path)
-    if sd is None:
-        sd = joint_params_from_jax(_params_tree(path, "g_a"), model.n)
-    _load_strict(model, sd)
-    return model
-
-
 def load_hyperprior(path: str, quant: str = "round", device: Optional[str] = None
                     ) -> ScaleHyperprior:
     """A ``ScaleHyperprior`` with quantizer ``quant`` in eval mode on
@@ -663,7 +845,7 @@ def load_hyperprior(path: str, quant: str = "round", device: Optional[str] = Non
         n, m = (int(np.shape(g_a[c]["weight"])[-1]) for c in ("conv1", "conv4"))
     else:
         n, m = (int(sd[f"Encoder.{c}.weight"].shape[0]) for c in ("conv1", "conv4"))
-    return load_hyperprior_weights(ScaleHyperprior(n, m, quant=quant), path).to(dev).eval()
+    return load_weights(ScaleHyperprior(n, m, quant=quant), path).to(dev).eval()
 
 
 def load_joint(path: str, device: Optional[str] = None) -> JointAutoregressive:
@@ -676,7 +858,21 @@ def load_joint(path: str, device: Optional[str] = None) -> JointAutoregressive:
         n = int(np.shape(_params_tree(path, "g_a")["g_a"]["rbs0"]["conv1"]["weight"])[-1])
     else:
         n = int(sd["g_a.0.conv1.weight"].shape[0])
-    return load_joint_weights(JointAutoregressive(n), path).to(dev).eval()
+    return load_weights(JointAutoregressive(n), path).to(dev).eval()
+
+
+def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load every weight of a port model of any kind (``layout_of``) from a
+    JAX params file, variables dict or TrainState checkpoint of its kind, or
+    from the port's train-state file (strict: no key missing or extra; a DSC
+    model as ``load_dsc_weights``)."""
+    if isinstance(model, DSCStereoModel):
+        return load_dsc_weights(model, path)
+    sd = read_port_state(path)
+    if sd is None:
+        sd = model_params_from_jax(model, read_checkpoint(path))
+    _load_strict(model, sd)
+    return model
 
 
 def read_port_state(path: str) -> Optional[Dict[str, torch.Tensor]]:

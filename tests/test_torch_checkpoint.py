@@ -166,11 +166,17 @@ def test_train_single_image_end_to_end(data_dirs, tmp_path):
 def test_cli_refuses_what_it_does_not_train(data_dirs, tmp_path):
     # the hyperprior and joint models train now (test_torch_hyper_train.py);
     # fif_0031bpp is refused as the JAX trainer fails it (ROADMAP Queue 3)
-    for kw, item in (({"model": "dsc:fif_0031bpp"}, "Queue 3"), ({"model": "passr"}, "item 18"),
+    for kw, item in (({"model": "dsc:fif_0031bpp"}, "Queue 3"),
                      ({"mesh_data": 2}, "item 20"), ({"mesh_tile": 2}, "item 20")):
         with pytest.raises(NotImplementedError, match=item):
             cli.train_single_image(_cfg(data_dirs, tmp_path, tot_step=1, **kw), "x",
                                    device="cpu")
+    # the auxiliary trainers train now (test_torch_aux_trainers.py), through
+    # main's dispatch, not this loop
+    cli.check_supported(_cfg(data_dirs, tmp_path, model="passr"))
+    with pytest.raises(ValueError, match="passr"):
+        cli.train_single_image(_cfg(data_dirs, tmp_path, tot_step=1, model="passr"), "x",
+                               device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.train_single_image(_cfg(data_dirs, tmp_path, tot_step=1), "x")

@@ -202,6 +202,20 @@ def test_run_epochs_writes_what_jax_writes(tmp_path, tot_step):
     assert jlr < 1e-4  # the plateau cut it
 
 
+def test_run_epochs_refuses_a_dataset_smaller_than_a_batch(tmp_path):
+    """Fewer items than a batch give no step: the loop raises before its
+    first epoch ends, with no step run and no checkpoint written."""
+    steps = []
+    cfg = TrainConfig(save_root=str(tmp_path), batch_size=4, tot_epoch=3, print_freq=1)
+    with pytest.raises(ValueError, match="no batch of 4"):
+        ttrainers._run_epochs(cfg, "small", [np.zeros(2, np.float32)] * 3,
+                              create_train_state(torch.nn.Linear(2, 1), lr=1e-4),
+                              lambda state, batch, gen: steps.append(1) or {"loss": 0.0},
+                              torch.device("cpu"))
+    assert not steps
+    assert os.listdir(tmp_path / "small") == []
+
+
 def test_stereo_sources_of_the_trainers(kitti, tmp_path):
     """``make_stereo_dataset`` follows ``cfg.dataset``; the auxiliary
     trainers' ``_kitti`` reads KITTI for anything but pairs, and crops the
@@ -361,13 +375,17 @@ def test_load_params_partial_maps_dsc_trees(tmp_path):
 
 def test_what_the_trainers_refuse(kitti, tmp_path):
     # hyperprior, joint and the fusion presets but fif_0031bpp train now
-    # (test_torch_hyper_train.py, test_torch_fusion.py)
-    for model, item in (("dsc:fif_0031bpp", "Queue 3"), ("passr", "item 18"),
-                        ("two_steps", "item 18")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.check_supported(TrainConfig(model=model))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        ttrainers.TRAINERS["att_exp"](TrainConfig(), "x")
+    # (test_torch_hyper_train.py, test_torch_fusion.py), and so do the
+    # auxiliary trainers (test_torch_aux_trainers.py)
+    with pytest.raises(NotImplementedError, match="Queue 3"):
+        cli.check_supported(TrainConfig(model="dsc:fif_0031bpp"))
+    for model in ("passr", "two_steps", "att_exp"):
+        cli.check_supported(TrainConfig(model=model))
+    left, right = (os.path.join(kitti[0], side) for side in ("image_2", "image_3"))
+    state = ttrainers.TRAINERS["att_exp"](
+        TrainConfig(model="att_exp", train_dir=f"{left},{right}", dataset="pairs", image_size=64,
+                    batch_size=2, tot_step=1, save_root=str(tmp_path)), "x", device="cpu")
+    assert state.step == 1 and os.path.exists(tmp_path / "x" / "best_train.ckpt")
     with pytest.raises(NotImplementedError, match="item 20"):
         cli.train_dsc(_dsc_cfg(kitti, tmp_path, mesh_data=2), "x", device="cpu")
     with pytest.raises(ValueError, match="dsc:"):

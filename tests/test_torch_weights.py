@@ -164,9 +164,11 @@ from iclr_17_compression_tpu_torch.ops.kernels import (
 from iclr_17_compression_tpu_torch.train import weights
 from iclr_17_compression_tpu_torch.train import checkpoint, cli, config, observability, state
 from iclr_17_compression_tpu_torch.data import datasets
-from iclr_17_compression_tpu_torch.eval import kodak, reg_stage, stereo
-from iclr_17_compression_tpu_torch.models import dsc
+from iclr_17_compression_tpu_torch.eval import enhance, kodak, passr, reg_stage, stereo
+from iclr_17_compression_tpu_torch.models import dsc, extra
+from iclr_17_compression_tpu_torch.models import passr as passr_model
 from iclr_17_compression_tpu_torch.nn import blocks
+from iclr_17_compression_tpu_torch.train import losses, trainers
 from iclr_17_compression_tpu_torch.utils import resolve_device
 import chip_smoke
 if torch.cuda.is_available():
@@ -175,7 +177,8 @@ if torch.cuda.is_available():
 model = weights.load_balle17({str(CKPT)!r}, device="cpu")
 img = np.full((16, 16, 3), 0.5, np.float32)
 for call in (lambda: resolve_device(), lambda: weights.load_balle17({str(CKPT)!r}),
-             lambda: codec_cli.encode_image(img, model)):
+             lambda: codec_cli.encode_image(img, model),
+             lambda: trainers.train_decoder_only(config.TrainConfig(), "x")):
     try:
         call()
     except RuntimeError as e:
