@@ -158,31 +158,52 @@ Phases, one JSON line each:
           checks: every loss finite and the last 5 steps' mean below the
           first 5's, the frozen models bit-unchanged, each best_train.ckpt
           back through _load_frozen and load_params_partial, decoder_only's
-          gradients through K1's Function against the plain path (GRAD_TOL);
-          then K1 at C = 512 at AnalysisSmall's GDNs and SynthesisSmall's
+          gradients through K1's Function against the plain path (GRAD_TOL),
+          and K1 at C = 128 at its two IGDN shapes against plain, with its
+          times and bound; then K1 at C = 512 at AnalysisSmall's GDNs and SynthesisSmall's
           IGDNs (batch 4 of 16×16) against plain, with the same bits on a
           second call, its times and bound, and one AnalysisSmall →
           SynthesisSmall forward on the card (K1 6) within 1e-4 of its
           largest |value| of the CPU's. Numbers: median step ms, peak memory
           and seconds of each trainer
+  eval    the evaluation and analysis tools with the archived weights at full
+          width, each step's launches counted on its own (K2 3 + K1 2 a
+          Ballé-17 forward, K2 17 + K3 1 a flagship forward, K2 3 + K1 2 +
+          K3 1 a Ballé file): the four Ballé-17 checkpoints (N = 128) through
+          eval_kodak with rANS on 4 synthetic 768×512 images (finite, rANS
+          bpp within 3% of the estimate; one image against the CPU with the
+          card's tables: PSNR within 1e-3 dB, bpp 0.1%), code_distribution,
+          eval_single_image and average_two_models(A, A) (equal, under
+          deterministic cuDNN), mix_encoder_decoder(lam128, lam2048), and
+          create_diff_folder read back by the port's PNG reader; the flagship
+          DSC (temp_0031bpp, n = 128) on 2 synthetic 320×1216 pairs:
+          si_only_recon, code_only_recon (the caller's model unchanged),
+          two_level_recon with the lam2048 file codec as the diff codec,
+          greedy_channel_mask_search for 2 channels, the first greedy step's
+          masked MSEs against the CPU's (rtol 1e-4): all 8 on a 128×256
+          crop, and on the whole first pair for the channel chosen first,
+          encoder_similarity (with the channel dump) and encoder_distances,
+          save_both_direction_recons read back; reference .pth files of
+          lam2048 and the flagship loaded on the card with bit-equal
+          outputs; NLBlock in its four modes at C = 128 on the 20×76 latent
+          grid against the CPU (1e-4 of its largest |value|)
 Then the script's seconds, the card's name and power limit, one line with
 every kernel's numbers, and last the line {"ok": true, "device": {...}}.
 Any failed check exits non-zero. Imports nothing of JAX.
 """
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
 import re
 import shutil
 import statistics
-import struct
 import subprocess
 import sys
 import time
 import types
-import zlib
 
 import numpy as np
 
@@ -335,6 +356,29 @@ AUX_LAUNCHES = {"two_steps": (6, 0, 0), "decoder_only": (6, 4, 0), "att_exp": (0
                 "att_block": (17, 0, 1), "passr": (0, 0, 0), "fif_enhance": (0, 0, 0)}
 AUX_STEPS, AUX_TRIPLETS, AUX_SEED, C512_BATCH = 20, 4, 97, 4
 
+# Evaluation phase: the four archived Ballé-17 checkpoints through eval_kodak
+# (rANS) on EVAL_IMAGES synthetic 768×512 images, and the mixing, code
+# statistics and diff-folder tools over them; the archived flagship DSC
+# (temp_0031bpp) through the ablations, the greedy channel-mask search for
+# EVAL_MASKS channels, the similarity analyses and the both-direction dump
+# on EVAL_PAIRS synthetic 320×1216 pairs; reference .pth files of both
+# models; NLBlock in its four modes at C = 128 on the flagship's 20×76
+# latent grid. A forward of the Ballé-17 model launches K2 3 and K1 2, of
+# the flagship K2 17 (base branch included) and K3 1; the Ballé file codec
+# (encode + decode) K2 3, K1 2 and K3 1. The first greedy step's masked
+# MSEs are held against the CPU's: all of them on an EVAL_CROP crop of the
+# first pair, and the one of the channel chosen first on the whole pair (a
+# forward there takes about 4 s on 8 CPU cores, so not all 8).
+BALLE_CKPTS = ("lam128_iter_10000", "lam2048_iter_19000", "lam8192_iter_20000",
+               "msssim48_iter_12000")
+FLAGSHIP = os.path.join(ROOT, "results", "ckpts", "dsc_flagship_params.msgpack")
+EVAL_SEED, EVAL_IMAGES, EVAL_PAIRS, EVAL_MASKS, EVAL_CROP = 4242, 4, 2, 2, (128, 256)
+BALLE_FWD, DSC_FWD, BALLE_CODEC = (3, 2, 0), (17, 0, 1), (3, 2, 1)
+# Card vs CPU on the same inputs: PSNR 1e-3 dB and bpp 0.1% (the rule of
+# the R-D row of PERF.md §2), the masked MSEs rtol 1e-4, NLBlock's output
+# 1e-4 of its largest |value| (cuBLAS and the CPU's fp32 sums).
+EVAL_PSNR_DB, EVAL_BPP_REL, EVAL_MSE_RTOL, NL_TOL = 1e-3, 1e-3, 1e-4, 1e-4
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -441,33 +485,25 @@ def k1_work(x):
     return 2.0 * p * c * c, 4.0 * p * c, 4.0 * (2 * x.numel() + c * c + c)
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """An HWC image in [0, 1] as an 8-bit RGB PNG, with ``zlib`` alone (every
-    row unfiltered)."""
-    u8 = np.clip(np.rint(np.asarray(img, np.float64) * 255.0), 0, 255).astype(np.uint8)
-    h, w = u8.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), u8.reshape(h, w * 3)], axis=1)
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+def to_u8(img: np.ndarray) -> np.ndarray:
+    """An image in [0, 1] as 8-bit values, rounded."""
+    return np.clip(np.rint(np.asarray(img, np.float64) * 255.0), 0, 255).astype(np.uint8)
 
 
 def write_kitti(root: str, frames: int, rng: np.random.Generator, h: int = KITTI_H,
                 w: int = KITTI_W) -> None:
     """A KITTI-layout root: ``image_2`` / ``image_3`` stereo pairs
     ``0000NN_10.png`` and ``_11.png`` of ``frames`` frames, h×w."""
+    from iclr_17_compression_tpu_torch.data.datasets import write_png
+
     for side in ("image_2", "image_3"):
         os.makedirs(os.path.join(root, side), exist_ok=True)
     for i in range(frames):
         for t in (10, 11):
             a = smooth_image(rng, -(-h // 64) * 64, -(-w // 64) * 64)[:h, :w]
-            write_png(os.path.join(root, "image_2", f"{i:06d}_{t}.png"), a)
-            write_png(os.path.join(root, "image_3", f"{i:06d}_{t}.png"), shift_pair(a, rng))
+            write_png(os.path.join(root, "image_2", f"{i:06d}_{t}.png"), to_u8(a))
+            write_png(os.path.join(root, "image_3", f"{i:06d}_{t}.png"),
+                      to_u8(shift_pair(a, rng)))
 
 
 def gdn_off_identity_(torch, model, gen):
@@ -2039,6 +2075,7 @@ def aux_phase(torch, dev, tools, kitti_dir: str, steps: int = AUX_STEPS,
     module docstring). ``kitti_dir``: the KITTI-layout root that the
     ``dsc_train`` phase wrote. ``tools`` holds the harness of ``main``: check, emit,
     measure_k1, new_row. Returns the K1 row and the launches of the path."""
+    from iclr_17_compression_tpu_torch.data.datasets import write_png
     from iclr_17_compression_tpu_torch.models.dsc import DSC_PRESETS, DSCStereoModel
     from iclr_17_compression_tpu_torch.models.extra import AnalysisSmall, SynthesisSmall
     from iclr_17_compression_tpu_torch.nn.layers import GDN
@@ -2069,7 +2106,7 @@ def aux_phase(torch, dev, tools, kitti_dir: str, steps: int = AUX_STEPS,
                       + 0.02 * rng.standard_normal(orig.shape), 0, 1)
         for sub, img in (("original", orig), ("reconstructed", rec),
                          ("SI_warped", shift_pair(orig, rng))):
-            write_png(os.path.join(fif_dir, sub, f"{i:06d}.png"), img)
+            write_png(os.path.join(fif_dir, sub, f"{i:06d}.png"), to_u8(img))
     # a frozen temp_1bpp for att_block, as the JAX-layout params file a JAX
     # run would hand over: seeded init with every GDN off the identity
     gen = torch.Generator().manual_seed(AUX_SEED)
@@ -2223,6 +2260,21 @@ def aux_phase(torch, dev, tools, kitti_dir: str, steps: int = AUX_STEPS,
     grad_gap = max(float((g_kernel[k] - g_plain[k]).abs().max()
                          / g_plain[k].abs().max().clamp(min=1e-30)) for k in g_plain)
     check(grad_gap <= GRAD_TOL, f"decoder_only: gradients through K1 vs plain {grad_gap:.2e}")
+    # K1 at C = 128 at decoder_only's two IGDN shapes: the trained decoder's
+    # inputs on its first batch
+    dec_inputs = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: dec_inputs.append((mod, args[0])))
+             for m in (dec.igdn1, dec.igdn2)]
+    with torch.no_grad():
+        dec(z1 + noise)
+    for hk in hooks:
+        hk.remove()
+    k1_dec = tools.new_row(library=False)
+    with torch.no_grad():
+        for mod, xin in dec_inputs:
+            where = f"decoder_only {'igdn1' if mod is dec.igdn1 else 'igdn2'}"
+            tools.measure_k1(xin.contiguous(), mod, k1_dec, f"K1 C=128 {where}")
+            k1_dec["shapes"][-1]["where"] = where
 
     # K1 at C = 512: AnalysisSmall's GDNs and SynthesisSmall's IGDNs at
     # their shapes (batch c512_batch of 16×16), the models' own inputs;
@@ -2268,9 +2320,267 @@ def aux_phase(torch, dev, tools, kitti_dir: str, steps: int = AUX_STEPS,
           "launches": launches, "training": training, "decoder_only_grad_gap": grad_gap,
           "c512_forward": {"max_abs_err_vs_cpu": fwd_err, "largest": fwd_scale,
                            "launches": c512_launches},
-          "k1_c512": k1_row, "seconds": seconds})
+          "k1_c512": k1_row, "k1_decoder_only": k1_dec, "seconds": seconds})
     print(f"aux phase seconds: {seconds:.1f}", flush=True)
-    return {"launches": launches, "k1": k1_row}
+    return {"launches": launches, "k1": k1_row, "k1_decoder_only": k1_dec}
+
+
+def eval_phase(torch, dev, tools) -> dict:
+    """The evaluation and analysis tools on the card with the archived
+    weights (see the module docstring). ``tools`` holds the harness of
+    ``main``: check, emit. Returns the launches of the path."""
+    from iclr_17_compression_tpu_torch.coding import codec_cli
+    from iclr_17_compression_tpu_torch.data.datasets import _read_png, write_png
+    from iclr_17_compression_tpu_torch.eval import ablation, mix, similarity
+    from iclr_17_compression_tpu_torch.eval.kodak import eval_kodak
+    from iclr_17_compression_tpu_torch.models import NLBlock
+    from iclr_17_compression_tpu_torch.models.dsc import DSCStereoModel
+    from iclr_17_compression_tpu_torch.nn.layers import torch_default_init_
+    from iclr_17_compression_tpu_torch.ops.kernels import conv_gdn_kernel as k2
+    from iclr_17_compression_tpu_torch.ops.kernels import gdn_kernel as k1
+    from iclr_17_compression_tpu_torch.ops.kernels import quant_pack_kernel as k3
+    from iclr_17_compression_tpu_torch.train.weights import load_balle17, load_dsc
+    from iclr_17_compression_tpu_torch.utils import dataset_tools
+    from iclr_17_compression_tpu_torch.utils.device import cudnn_deterministic, image_batch
+
+    check, emit = tools.check, tools.emit
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_eval")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(EVAL_SEED)
+    images = [smooth_image(rng, IMG_H, IMG_W) for _ in range(EVAL_IMAGES)]
+    lefts = [smooth_image(rng, DSC_H, DSC_W) for _ in range(EVAL_PAIRS)]
+    pairs = [(a, shift_pair(a, rng)) for a in lefts]
+    keys = ("conv_gdn", "gdn", "quantize_pack")
+    launches = dict.fromkeys(keys, 0)
+    by_step = {}
+
+    def counted(step, want, fn, *args, **kw):
+        """``fn(*args, **kw)`` with the counters reset before and read after,
+        added to the path's launches; ``want``: the (K2, K1, K3) launches."""
+        torch.cuda.synchronize()
+        k2.conv_gdn.launches = k1.gdn_fused.launches = k3.quantize_pack.launches = 0
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        got = (k2.conv_gdn.launches, k1.gdn_fused.launches, k3.quantize_pack.launches)
+        check(got == tuple(want), f"eval {step}: launches {got}, expected {tuple(want)}")
+        by_step[step] = dict(zip(keys, got))
+        for k, v in zip(keys, got):
+            launches[k] += v
+        return out
+
+    def times(n, unit):
+        return tuple(n * u for u in unit)
+
+    def psnr_of(a, b):
+        return 10.0 * float(np.log10(1.0 / max(float(np.mean((np.asarray(a, np.float64)
+                                                              - b) ** 2)), 1e-12)))
+
+    # ---- Ballé-17 R-D of the archived checkpoints on the card, one image
+    # of each against the CPU with the card's tables
+    rd = {}
+    balle = {}
+    for name in BALLE_CKPTS:
+        path = os.path.join(ROOT, "results", "ckpts", f"{name}.ckpt")
+        balle[name] = model = load_balle17(path, device=dev)
+        res = counted(f"kodak {name}", times(2 * EVAL_IMAGES, BALLE_FWD), eval_kodak, model,
+                      images, use_rans=True)
+        cpu = eval_kodak(load_balle17(path, device="cpu"), images[:1], use_rans=True,
+                         rans_bounds=res["rans_bounds"])["per_image"][0]
+        card = res["per_image"][0]
+        check(all(np.isfinite(r["bpp"]) and np.isfinite(r["psnr"]) for r in res["per_image"]),
+              f"{name}: a bpp or PSNR is not finite")
+        check(abs(res["bpp"] - res["bpp_estimated"]) <= BPP_REL_TOL * res["bpp_estimated"],
+              f"{name}: rANS {res['bpp']:.5f} bpp vs estimated {res['bpp_estimated']:.5f}")
+        check(abs(card["psnr"] - cpu["psnr"]) <= EVAL_PSNR_DB
+              and abs(card["bpp"] - cpu["bpp"]) <= EVAL_BPP_REL * cpu["bpp"],
+              f"{name}: card vs CPU PSNR {card['psnr']:.5f} / {cpu['psnr']:.5f} dB, bpp "
+              f"{card['bpp']:.6f} / {cpu['bpp']:.6f}")
+        rd[name] = {k: res[k] for k in ("bpp", "bpp_estimated", "psnr", "ms_ssim", "ms_ssim_db")}
+        rd[name].update(latent_range=list(res["rans_bounds"]),
+                        card_minus_cpu={"psnr_db": card["psnr"] - cpu["psnr"],
+                                        "bpp_rel": card["bpp"] / cpu["bpp"] - 1.0})
+    lam2048, lam128 = balle["lam2048_iter_19000"], balle["lam128_iter_10000"]
+    dist = counted("code_distribution", times(EVAL_IMAGES, BALLE_FWD),
+                   similarity.code_distribution, lam2048, images)
+    check(dist["histogram"].sum() == EVAL_IMAGES * (IMG_H // 16) * (IMG_W // 16) * N_CH
+          and np.isfinite(dist["per_channel_variance"]).all() and dist["gzip_factor"] > 0,
+          "code_distribution: histogram, variance or gzip factor")
+
+    # ---- mixing: A with itself averaged is A (deterministic cuDNN: the
+    # decoder's transposed convs give the same bits on both calls)
+    with cudnn_deterministic():
+        single = counted("eval_single_image", times(EVAL_IMAGES, BALLE_FWD),
+                         mix.eval_single_image, lam2048, images,
+                         dump_dir=os.path.join(work, "best_worst"))
+        avg = counted("average_two_models", times(2 * EVAL_IMAGES, BALLE_FWD),
+                      mix.average_two_models, lam2048, lam2048, images)
+    check(avg["psnr"] == single["psnr"] and avg["ms_ssim"] == single["ms_ssim"],
+          f"average_two_models(A, A) {avg} differs from eval_single_image(A) {single}")
+    check(len(os.listdir(os.path.join(work, "best_worst"))) == 4, "best / worst dump")
+    mixed_model = copy.deepcopy(lam2048)
+    mixed_model.load_state_dict(mix.mix_encoder_decoder(lam128.state_dict(),
+                                                        lam2048.state_dict()))
+    mixed = counted("mix_encoder_decoder", times(EVAL_IMAGES, BALLE_FWD), mix.eval_single_image,
+                    mixed_model, images)
+    check(np.isfinite(mixed["psnr"]) and 0.0 <= mixed["ms_ssim"] <= 1.0,
+          f"mixed encoder / decoder: {mixed}")
+
+    # ---- the diff folder, read back: clip(127 + (orig − recon)·255)
+    src = os.path.join(work, "src")
+    os.makedirs(src)
+    for i, img in enumerate(images):
+        write_png(os.path.join(src, f"{i:02d}.png"), np.rint(img * 255).astype(np.uint8))
+    with cudnn_deterministic():
+        written = counted("create_diff_folder", times(EVAL_IMAGES, BALLE_FWD),
+                          dataset_tools.create_diff_folder, lam2048, src,
+                          os.path.join(work, "diff"))
+        diff_ok = True
+        for i, path in enumerate(written):
+            img = np.rint(images[i] * 255).astype(np.uint8).astype(np.float32) / 255.0
+            with torch.no_grad():
+                recon = lam2048(torch.from_numpy(img[None]).to(dev))["recon"][0].cpu().numpy()
+            want = np.clip(127.0 + (img - recon) * 255.0, 0, 255).astype(np.uint8)
+            with open(path, "rb") as f:
+                diff_ok &= bool(np.array_equal(_read_png(f.read()), want))
+    check(len(written) == EVAL_IMAGES and diff_ok, "create_diff_folder: a PNG reads back wrong")
+
+    # ---- the flagship DSC: ablations, masked MSEs, similarity, both directions
+    dsc = load_dsc(FLAGSHIP, DSC_PRESET, device=dev)
+    cfg = dsc.config
+    si_only = [counted(f"si_only_recon {i}", DSC_FWD, ablation.si_only_recon, dsc, b)
+               for i, (_, b) in enumerate(pairs)]
+    code_only = [counted(f"code_only_recon {i}", DSC_FWD, ablation.code_only_recon, dsc, a)
+                 for i, (a, _) in enumerate(pairs)]
+    check(dsc.config.si_mode == "use", "code_only_recon changed the caller's model")
+
+    def diff_codec(d):
+        data = codec_cli.encode_image(np.ascontiguousarray(d, np.float32), lam2048, device=dev)
+        return codec_cli.decode_image(data, lam2048, device=dev)
+
+    def dsc_recon(x, y):
+        with torch.no_grad():
+            return dsc(image_batch(dsc, x), image_batch(dsc, y))["recon"][0].cpu().numpy()
+
+    two_level, base_psnr = [], []
+    for i, (a, b) in enumerate(pairs):
+        base = counted(f"dsc forward {i}", DSC_FWD, dsc_recon, a, b)
+        final = counted(f"two_level_recon {i}", BALLE_CODEC, ablation.two_level_recon,
+                        base, a, diff_codec)
+        two_level.append(psnr_of(final, a))
+        base_psnr.append(psnr_of(base, a))
+    recons = si_only + code_only
+    check(all(r.shape == lefts[0].shape and np.isfinite(r).all() and r.min() >= 0.0
+              and r.max() <= 1.0 for r in recons), "an ablation's recon is not in [0, 1]")
+    # the greedy search: (C + C - 1 + …) masked forwards over the pairs
+    n_ch = cfg.code_channels
+    n_fwd = sum(n_ch - j for j in range(EVAL_MASKS)) * EVAL_PAIRS
+    chosen = counted("greedy_channel_mask_search", times(n_fwd, DSC_FWD),
+                     ablation.greedy_channel_mask_search, dsc, pairs, EVAL_MASKS)
+    check(len(set(chosen)) == EVAL_MASKS and all(0 <= c < n_ch for c in chosen),
+          f"greedy search chose {chosen}")
+    ch, cw = EVAL_CROP
+    piece = [(a[:ch, :cw].copy(), b[:ch, :cw].copy()) for a, b in pairs[:1]]
+    card_mses = counted("masked_mses", times(n_ch, DSC_FWD), ablation.masked_mses, dsc, piece, [])
+    cpu_dsc = DSCStereoModel(cfg)
+    cpu_dsc.load_state_dict({k: v.cpu() for k, v in dsc.state_dict().items()})
+    cpu_mses = ablation.masked_mses(cpu_dsc.eval(), piece, [])
+    mse_err = max(abs(card_mses[c] - cpu_mses[c]) / cpu_mses[c] for c in cpu_mses)
+    check(mse_err <= EVAL_MSE_RTOL, f"masked MSEs card vs CPU: {mse_err:.2e} relative")
+
+    def first_step_mse(model, ch):
+        """The first greedy step's MSE on the whole first pair with ``ch``
+        masked, as ``masked_mses`` computes it."""
+        a, b = pairs[0]
+        x, y = image_batch(model, a), image_batch(model, b)
+        mask = torch.zeros(n_ch, device=x.device)
+        mask[ch] = 1.0
+        with torch.no_grad():
+            return float(torch.mean((model(x, y, mask_channels=mask)["recon"] - x) ** 2))
+
+    full_card = counted("masked_mse whole pair", DSC_FWD, first_step_mse, dsc, chosen[0])
+    t_cpu = time.perf_counter()
+    full_cpu = first_step_mse(cpu_dsc, chosen[0])
+    full_pair = {"channel": chosen[0], "card": full_card, "cpu": full_cpu,
+                 "rel_err": abs(full_card - full_cpu) / full_cpu,
+                 "cpu_seconds": time.perf_counter() - t_cpu}
+    check(full_pair["rel_err"] <= EVAL_MSE_RTOL, f"masked MSE of channel {chosen[0]} on the "
+          f"whole pair, card vs CPU: {full_pair['rel_err']:.2e} relative")
+    sim = counted("encoder_similarity", times(EVAL_PAIRS, DSC_FWD), similarity.encoder_similarity,
+                  dsc, pairs, dump_channels_dir=os.path.join(work, "channels"))
+    dists = counted("encoder_distances", times(EVAL_PAIRS, DSC_FWD),
+                    similarity.encoder_distances, dsc, pairs)
+    check(0.0 <= sim["normalized_hamming"] <= 1.0 and np.isfinite(dists["latent_l2"])
+          and len(os.listdir(os.path.join(work, "channels"))) == cfg.n,
+          f"similarity: {sim}, {dists}")
+    with cudnn_deterministic():
+        dumped = counted("save_both_direction_recons", times(2 * EVAL_PAIRS, DSC_FWD),
+                         dataset_tools.save_both_direction_recons, dsc, pairs,
+                         os.path.join(work, "both"))
+        both_ok = True
+        for i, (a, b) in enumerate(pairs):
+            for j, (x, y) in enumerate(((a, b), (b, a))):
+                r = dsc_recon(x, y)
+                with open(dumped[2 * i + j], "rb") as f:
+                    both_ok &= bool(np.array_equal(
+                        _read_png(f.read()), (np.clip(r, 0, 1) * 255).astype(np.uint8)))
+    check(len(dumped) == 2 * EVAL_PAIRS and both_ok, "save_both_direction_recons: a PNG reads "
+          "back wrong")
+
+    # ---- reference .pth files: loaded on the card, the same outputs
+    x_img = torch.from_numpy(images[0][None]).to(dev)
+    x_l, x_r = image_batch(dsc, pairs[0][0]), image_batch(dsc, pairs[0][1])
+    pth = {}
+    with cudnn_deterministic(), torch.no_grad():
+        for tag, model, load, fwd in (
+                ("balle17", lam2048, lambda p: load_balle17(p, device=dev),
+                 lambda m: m(x_img)["recon"]),
+                (DSC_PRESET, dsc, lambda p: load_dsc(p, DSC_PRESET, device=dev),
+                 lambda m: m(x_l, x_r)["recon"])):
+            path = os.path.join(work, f"{tag}.pth")
+            torch.save({"model_state_dict": model.state_dict()}, path)
+            pth[tag] = bool(torch.equal(fwd(load(path)), fwd(model)))
+    check(all(pth.values()), f"reference .pth round trip: bit-equal outputs {pth}")
+
+    # ---- NLBlock: four modes at C = 128 on the flagship's latent grid, card
+    # vs CPU, w_z drawn like the other projections (at init it is zero)
+    gen = torch.Generator().manual_seed(EVAL_SEED)
+    grid = (DSC_H // 16, DSC_W // 16)
+    x_nl = torch.randn((1, *grid, cfg.n), generator=gen) * 0.25
+    nl = {}
+    for mode in ("gaussian", "embedded", "dot", "concatenate"):
+        block = NLBlock(cfg.n, mode=mode)
+        for conv in block.children():
+            torch_default_init_(conv, gen)
+        with torch.no_grad():
+            want = block(x_nl)
+            got = counted(f"NLBlock {mode}", (0, 0, 0), lambda: block.to(dev)(x_nl.to(dev)))
+        err = float((got.cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        nl[mode] = {"max_abs_err": err, "largest": scale,
+                    "moved": float((want - x_nl).abs().max())}
+        check(bool(torch.isfinite(got).all()) and err <= NL_TOL * scale
+              and nl[mode]["moved"] > 1e-3, f"NLBlock {mode}: card vs CPU {err:.2e} "
+              f"(largest |value| {scale:.2e}), moved {nl[mode]['moved']:.2e}")
+
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "eval", "ok": True, "images": EVAL_IMAGES, "shape": [IMG_H, IMG_W, 3],
+          "pairs": EVAL_PAIRS, "dsc_shape": [DSC_H, DSC_W, 3], "launches": launches,
+          "launches_by_step": by_step, "balle_rd": rd,
+          "code_distribution": {"gzip_factor": dist["gzip_factor"],
+                                "mean_channel_variance": float(dist["per_channel_variance"]
+                                                               .mean())},
+          "mix": {"single": single, "average_self": avg, "mixed_lam128_lam2048": mixed},
+          "dsc": {"si_only_psnr": [psnr_of(r, a) for r, (a, _) in zip(si_only, pairs)],
+                  "code_only_psnr": [psnr_of(r, a) for r, (a, _) in zip(code_only, pairs)],
+                  "si_assisted_psnr": base_psnr, "two_level_psnr": two_level,
+                  "greedy_chosen": chosen, "masked_mse_rel_err_vs_cpu": mse_err,
+                  "masked_mses_card": card_mses, "masked_mse_whole_pair": full_pair,
+                  "similarity": sim, "distances": dists},
+          "pth_bit_equal": pth, "nlblock": nl, "seconds": seconds})
+    print(f"eval phase seconds: {seconds:.1f}", flush=True)
+    return {"launches": launches}
 
 
 def _fresh_like(torch, model):
@@ -3253,10 +3563,11 @@ def main() -> int:
     hyper_train = hyper_train_phase(torch, dev, tools)
     fusion = dsc_fusion_phase(torch, dev, tools)
     aux = aux_phase(torch, dev, tools, KITTI_TRAIN_DIR)
+    evals = eval_phase(torch, dev, tools)
     paths = {"codec": launches, "train": train_launches, "dsc": dsc_launches,
              "dsc_train": dsc_train_launches, "hyper": hyper_launches,
              "hyper_train": hyper_train["launches"], "dsc_fusion": fusion["launches"],
-             "aux": aux["launches"]}
+             "aux": aux["launches"], "eval": evals["launches"]}
 
     kernels = []
     meta = {
@@ -3313,13 +3624,18 @@ def main() -> int:
                 for st in fusion["k2"]["shapes"]]
         elif name == "gdn":
             entry["max_abs_err"] = max(entry["max_abs_err"], k1_c64["max_abs_err"],
-                                       aux["k1"]["max_abs_err"])
+                                       aux["k1"]["max_abs_err"],
+                                       aux["k1_decoder_only"]["max_abs_err"])
             entry["c64_shapes"] = [{k: st.get(k) for k in ("x", "ms", "plain_ms", "bound_ms")}
                                    for st in k1_c64["shapes"]]
             entry["c512_shapes"] = [
                 {k: st.get(k) for k in ("where", "x", "inverse", "ms", "call_ms", "plain_ms",
                                         "bound_ms", "bound_by")}
                 for st in aux["k1"]["shapes"]]
+            entry["decoder_only_shapes"] = [
+                {k: st.get(k) for k in ("where", "x", "inverse", "ms", "call_ms", "plain_ms",
+                                        "bound_ms", "bound_by")}
+                for st in aux["k1_decoder_only"]["shapes"]]
         else:
             entry.update(launch_floor_ms=row["launch_floor_ms"], dsc_step16=k3_dsc,
                          dsc_validation=dsc_train["k3_validation"], fusion_codes=fusion["k3"])

@@ -48,7 +48,9 @@ regression stage's unclipped output to the base reconstruction and clips.
 Usage (inputs are read as the training loaders read them: PPM and 8-bit
 PNG without Pillow, other formats with it; a ``.ppm`` output is written
 without Pillow; ``--device cpu`` runs the plain path on the CPU; ``--ckpt``
-of a DSC model may also be a train state the port's trainer wrote):
+may also be a train state the port's trainer wrote, or a reference PyTorch
+state_dict, ``.pth`` / ``.pth.tar`` / ``.pt``, loaded by its suffix under the
+reference's partial load, ``train/weights.load_torch_state_dict``):
   python -m iclr_17_compression_tpu_torch.coding.codec_cli \
       encode in.png out.icz --ckpt results/ckpts/lam2048_iter_19000.ckpt
   python -m iclr_17_compression_tpu_torch.coding.codec_cli \
@@ -419,7 +421,9 @@ def _load_model(spec: str, ckpt: str, dev: Optional[str], n: int = 0, m: int = 0
     """The model ``spec`` with the weights of ``ckpt``, in eval mode on
     ``dev``. Ballé-17 and DSC take their widths from the checkpoint; the
     hyperprior and joint models are built at ``n`` / ``m`` (0: 192 / 320)
-    and the checkpoint must match them."""
+    and the checkpoint must match them. A reference ``.pth`` goes by its
+    suffix through ``load_torch_state_dict``, as the JAX CLI routes it
+    through ``torch_import``."""
     from ..train.weights import load_balle17, load_dsc, load_weights
 
     if spec == "balle17":
@@ -467,7 +471,8 @@ def main(argv=None):
     ap.add_argument("dst", nargs="?", help="the output file (encode, decode)")
     ap.add_argument("--ckpt", required=True,
                     help="flax msgpack params of a Ballé-17, hyperprior, joint-AR or DSC model, "
-                         "or a DSC train state the port's trainer wrote")
+                         "a train state the port's trainer wrote, or a reference PyTorch "
+                         "state_dict (.pth, .pth.tar, .pt)")
     ap.add_argument("--model", default="balle17",
                     help="encode / roundtrip: balle17, hyperprior, hyperprior-sigma, joint or a "
                          "DSC preset name (decode reads it from the file)")

@@ -11,7 +11,8 @@ one colour jitter for both eyes), ``StereoHoloPixDataset`` (``left`` →
 ``right`` path pairs, floor to ×32, optional joint crop),
 ``FIFEnhanceDataset`` (the enhancement nets' (warped SI, reconstruction,
 original) triplets), ``StereoPassrDataset`` (stereo SR's (blurred left,
-right, left)), ``batch_iterator``
+right, left)), ``StereoPlusDataset`` (a stereo pair and a random-resized
+crop of a third image, the contrastive negative), ``batch_iterator``
 (shuffle, batch, thread prefetch, ``skip`` for an exact mid-epoch resume;
 tuple items give a tuple of batches) and their helpers. For the same seed,
 epoch and index they produce the same crops as the JAX package: both draw
@@ -26,6 +27,8 @@ gray+alpha, RGB and RGBA PNG (``zlib`` and the five row filters, as
 Pillow's ``convert("RGB")`` gives them) with numpy and the standard
 library, and any other file with Pillow, imported only then. Decoded files
 are kept, up to ``DECODE_CACHE_BYTES``, as the JAX package keeps them.
+``write_png`` writes 8-bit gray or RGB PNG with ``zlib`` alone: the eval and
+dataset tools write their images with it where the JAX package uses Pillow.
 """
 
 import math
@@ -116,6 +119,28 @@ def _read_png(data: bytes) -> Optional[np.ndarray]:
     rows = rows.reshape(h, 1 + w * bpp)
     img = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, bpp))
     return np.repeat(img[..., :1], 3, axis=2) if bpp <= 2 else img[..., :3].copy()
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path: str, u8: np.ndarray) -> None:
+    """Write an (h, w) gray or (h, w, 3) RGB uint8 image as an 8-bit PNG,
+    every row unfiltered, with ``zlib`` alone."""
+    u8 = np.asarray(u8)
+    if u8.dtype != np.uint8 or not (u8.ndim == 2 or (u8.ndim == 3 and u8.shape[2] == 3)):
+        raise ValueError(f"write_png takes (h, w) or (h, w, 3) uint8, got {u8.dtype} "
+                         f"{u8.shape}")
+    h, w = u8.shape[:2]
+    colour = 0 if u8.ndim == 2 else 2
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), u8.reshape(h, -1)], axis=1)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE
+                + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+                + _png_chunk(b"IDAT", zlib.compress(np.ascontiguousarray(rows).tobytes(), 6))
+                + _png_chunk(b"IEND", b""))
 
 
 def _unfilter(types: np.ndarray, filtered: np.ndarray) -> np.ndarray:
@@ -585,6 +610,45 @@ class StereoPassrDataset(_EpochSeeded):
         blurry = _resize(_resize(left, ch // 2, cw // 2), ch, cw)
         return (np.ascontiguousarray(blurry), np.ascontiguousarray(right),
                 np.ascontiguousarray(left))
+
+
+class StereoPlusDataset(_EpochSeeded):
+    """A stereo pair (the right eye matched to the left by basename) and a
+    random-resized crop of a third image, the contrastive negative
+    (reference StereoPlusDataset, datasets.py:365-410). ``random_crop``: the
+    same (ch, cw) window of both eyes (upscaled first where it does not
+    fit)."""
+
+    def __init__(self, left_dir: str, right_dir: str, contrast_dir: str,
+                 random_crop: bool = False, crop: Tuple[int, int] = (368, 368),
+                 contrast_size: int = 368, seed: int = 1234):
+        self.left = _list_images(left_dir)
+        self.right_dir = right_dir
+        self.contrast = _list_images(contrast_dir)
+        if not self.left or not self.contrast:
+            raise FileNotFoundError("empty stereo or contrast folder")
+        self.random_crop = random_crop
+        self.crop = crop
+        self.contrast_size = contrast_size
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.left)
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        rng = self._item_rng(i)
+        lp = self.left[i]
+        a, b = _load(lp), _load(os.path.join(self.right_dir, os.path.basename(lp)))
+        c = _random_resized_crop(_load(self.contrast[i % len(self.contrast)]),
+                                 self.contrast_size, rng)
+        if self.random_crop:
+            ch, cw = self.crop
+            h, w, a, b = _fit_for_crop(ch, cw, a, b)
+            top = rng.randint(0, h - ch)
+            left = rng.randint(0, w - cw)
+            a = a[top: top + ch, left: left + cw]
+            b = b[top: top + ch, left: left + cw]
+        return np.ascontiguousarray(a), np.ascontiguousarray(b), c
 
 
 def _assemble_batch(items):

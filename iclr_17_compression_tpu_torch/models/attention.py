@@ -11,7 +11,10 @@ Counterpart of ``iclr_17_compression_tpu/models/attention.py``
   conv + ReLU (``q_patches``), keys 9×9 patches at stride 3 (``k_patches``),
   similarity −‖q − k‖₂ times a learned ``scale_att``, and the output the
   attention-weighted raw 9×9 value patches folded back onto the query grid
-  (preset ``bottleneck_att_1bpp``, module ``bot_mhsa``).
+  (preset ``bottleneck_att_1bpp``, module ``bot_mhsa``);
+- ``NLBlock``: the non-local block (reference models/bottleneck_Att.py:
+  269-396) in its four modes over 1-3 channels-last spatial dims; no preset
+  or trainer uses it.
 
 The −cdist is the JAX package's centered matmul expansion: the tokens are
 centred on the mean key first, then ‖q‖² − 2q·kᵀ + ‖k‖² (clamped at 0).
@@ -113,3 +116,67 @@ class PatchMatchAttention(nn.Module):
         # refold (N, hq·wq, C·pv·pv) → (N, hq·pv, wq·pv, C), channel-major patches
         out = out.reshape(n, hq, wq, cimg, pv, pv).permute(0, 1, 4, 2, 5, 3)
         return out.reshape(n, hq * pv, wq * pv, cimg)
+
+
+NL_MODES = ("gaussian", "embedded", "dot", "concatenate")
+
+
+def _pointwise(conv: TorchConv, t: torch.Tensor) -> torch.Tensor:
+    """A 1×1 conv over a (N, tokens, C) token axis, as one matmul."""
+    return F.linear(t, conv.weight[:, :, 0, 0], conv.bias)
+
+
+class NLBlock(nn.Module):
+    """Non-local block: z = W_z(y) + x, y the f(x_i, x_j)-weighted sum of
+    g(x_j) over all tokens j. ``mode``: ``gaussian`` (softmax of x_i·x_j),
+    ``embedded`` (softmax of θ(x_i)·φ(x_j)), ``dot`` (θ(x_i)·φ(x_j) / tokens)
+    or ``concatenate`` (ReLU(w·[θ(x_i); φ(x_j)] + b) / tokens). ``dims``: 1, 2
+    or 3 spatial dims, input (N, *spatial, C). Every projection is a 1×1
+    conv (keys ``g``, ``theta``, ``phi``, ``concat_project``, ``w_z``, OIHW),
+    run as one matmul over the flattened tokens; ``w_z`` starts at zero, so
+    the block starts as the identity (the reference's branch without
+    BatchNorm, bottleneck_Att.py:388-391)."""
+
+    def __init__(self, in_channels: int, inter_channels: Optional[int] = None,
+                 mode: str = "embedded", dims: int = 2):
+        super().__init__()
+        if mode not in NL_MODES:
+            raise ValueError(mode)
+        if dims not in (1, 2, 3):
+            raise ValueError(f"dims must be 1, 2, or 3, got {dims}")
+        self.mode, self.dims = mode, dims
+        c_int = inter_channels or max(in_channels // 2, 1)
+        self.g = TorchConv(in_channels, c_int, 1)
+        if mode != "gaussian":
+            self.theta = TorchConv(in_channels, c_int, 1)
+            self.phi = TorchConv(in_channels, c_int, 1)
+        if mode == "concatenate":
+            self.concat_project = TorchConv(2 * c_int, 1, 1)
+        self.w_z = TorchConv(c_int, in_channels, 1)
+        with torch.no_grad():
+            self.w_z.weight.zero_()
+            self.w_z.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() != self.dims + 2:
+            raise ValueError(f"{self.dims}-D NLBlock expects rank-{self.dims + 2} input, "
+                             f"got shape {tuple(x.shape)}")
+        xt = x.reshape(x.shape[0], -1, x.shape[-1])
+        tokens = xt.shape[1]
+        g = _pointwise(self.g, xt)
+        if self.mode == "gaussian":
+            att = torch.softmax(torch.matmul(xt, xt.transpose(1, 2)), dim=-1)
+        else:
+            theta, phi = _pointwise(self.theta, xt), _pointwise(self.phi, xt)
+            if self.mode == "concatenate":
+                # w·[θ_i; φ_j] = w_θ·θ_i + w_φ·φ_j: the (tokens², 2C) concatenation
+                # is never formed
+                w = self.concat_project.weight[0, :, 0, 0]
+                c = theta.shape[-1]
+                f = (torch.matmul(theta, w[:c])[:, :, None] + torch.matmul(phi, w[c:])[:, None, :]
+                     + self.concat_project.bias)
+                att = torch.relu(f) / tokens
+            else:
+                f = torch.matmul(theta, phi.transpose(1, 2))
+                att = torch.softmax(f, dim=-1) if self.mode == "embedded" else f / tokens
+        return _pointwise(self.w_z, torch.matmul(att, g)).reshape(x.shape) + x

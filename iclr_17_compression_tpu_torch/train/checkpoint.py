@@ -45,7 +45,7 @@ from .weights import (
     params_from_jax,
     params_to_jax,
     read_checkpoint,
-    read_port_state,
+    read_weights,
 )
 
 
@@ -99,7 +99,7 @@ def load_params_partial(model: torch.nn.Module, path: str) -> torch.nn.Module:
     port's train-state file, whose key and shape match the model's (the
     reference's partial state_dict load, model.py:26-27); every other
     parameter keeps its value."""
-    sd = read_port_state(path)
+    _, sd = read_weights(path)
     if sd is not None:
         leaves = sd.items()
     else:

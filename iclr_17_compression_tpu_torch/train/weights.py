@@ -23,7 +23,7 @@ of a given ``DSCConfig`` (the inverse of ``import_dsc``): the flax tree
 ``g_a/l1_rbs/conv1/weight`` (HWIO) is the port's ``g_a.1.conv1.weight``
 (OIHW), ``…/l4_att/a_ru0/conv_in`` is ``….4.conv_a.0.conv.0``,
 ``…/l2_rbu/subpel_conv/conv`` is ``….2.subpel_conv.0``. ``load_dsc`` and
-``load_dsc_weights`` read a bare params file (the archived
+``load_weights`` read a bare params file (the archived
 ``results/ckpts/dsc_*_params.msgpack``), a JAX TrainState dict with
 ``params``, or the port's own train-state file (``train/checkpoint.py``'s
 ``save_train_state``: a ``torch.save`` zip whose ``model`` is the state_dict,
@@ -54,22 +54,35 @@ Every port model, the auxiliary ones included, goes through
 layout, for each the inverse of its ``torch_import`` map (``import_fc``,
 ``import_latent_compressor``, ``import_analysis_small``,
 ``import_synthesis_small``, ``import_passr``, ``import_fif``,
-``import_final_enhance``). A linear layer's weight (out, in) is flax's
+``import_final_enhance``; ``NLBlock``'s 1×1 convs are flax's ``g``, ``theta``,
+``phi``, ``concat_project`` and ``w_z``, HWIO). A linear layer's weight (out, in) is flax's
 ``kernel`` (in, out); where the reference flattens a latent in NCHW order and
 the JAX module in NHWC order (``fc``, AnalysisSmall's ``fc1``,
 SynthesisSmall's ``fc2``) its rows or columns go through ``_fc_perm``, as
 ``import_fc`` / ``import_analysis_small`` / ``import_synthesis_small`` take
 them.
+
+A reference PyTorch checkpoint (``.pth``, ``.pth.tar``, ``.pt``: a bare
+state_dict, or one under ``model_state_dict``) holds the port's own keys, so
+``load_torch_state_dict`` loads it as it is, under the reference's partial
+load (reference model.py:26-27, ``torch_import.merge_partial``): a key the
+model and the file share is loaded, a shape that differs raises, a key the
+file lacks keeps the model's value. ``read_weights`` alone decides a file's
+format: such a file by its suffix, as the JAX codec CLI does
+(``_is_torch_ckpt``), the port's own train-state file (``.ckpt``, a
+``torch.save`` zip too) and a flax msgpack by their contents; ``load_weights``
+and the ``load_*`` entry points dispatch on what it says, and load the
+train state and the JAX files strictly.
 """
 
 import struct
 import zipfile
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..models.attention import PatchMatchAttention
+from ..models.attention import NLBlock, PatchMatchAttention
 from ..models.balle17 import Analysis17, Balle17Compressor, Synthesis17
 from ..models.cheng2020 import JointAutoregressive
 from ..models.dsc import DSC_PRESETS, GREC_SPECS, DSCConfig, DSCStereoModel, final_conv_specs
@@ -367,11 +380,17 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 
 def load_balle17(path: str, device: Optional[str] = None):
     """A ``Balle17Compressor`` in eval mode on ``device`` (default ``cuda``)
-    with the weights of a JAX checkpoint or params file."""
+    with the weights of a JAX checkpoint or params file, of the port's
+    train-state file or of a reference ``.pth``; N comes from its shapes."""
     dev = resolve_device(device)
-    sd = params_from_jax(read_checkpoint(path))
+    kind, sd = read_weights(path)
+    if kind == "jax":
+        sd = params_from_jax(read_checkpoint(path))
     model = Balle17Compressor(sd["Encoder.conv1.weight"].shape[0])
-    model.load_state_dict(sd, strict=True)
+    if kind == "pth":
+        load_torch_state_dict(model, sd)
+    else:
+        _load_strict(model, sd)
     return model.to(dev).eval()
 
 
@@ -774,6 +793,8 @@ def layout_of(model: torch.nn.Module) -> Layout:
         return Layout(_final_enhance_flax_path)
     if isinstance(model, PatchMatchAttention):
         return Layout(_patch_attention_flax_path)
+    if isinstance(model, NLBlock):
+        return Layout(lambda key: key.replace(".", "/"))
     raise TypeError(f"no JAX layout for {type(model).__name__}")
 
 
@@ -836,72 +857,108 @@ def load_hyperprior(path: str, quant: str = "round", device: Optional[str] = Non
                     ) -> ScaleHyperprior:
     """A ``ScaleHyperprior`` with quantizer ``quant`` in eval mode on
     ``device`` (default ``cuda``), with the weights of a JAX checkpoint or
-    params file or of the port's train-state file; N and M come from its
-    shapes."""
+    params file, of the port's train-state file or of a reference ``.pth``;
+    N and M come from its shapes."""
     dev = resolve_device(device)
-    sd = read_port_state(path)
-    if sd is None:
+    read = read_weights(path)
+    if read[1] is None:
         g_a = _params_tree(path, "g_a")["g_a"]
         n, m = (int(np.shape(g_a[c]["weight"])[-1]) for c in ("conv1", "conv4"))
     else:
-        n, m = (int(sd[f"Encoder.{c}.weight"].shape[0]) for c in ("conv1", "conv4"))
-    return load_weights(ScaleHyperprior(n, m, quant=quant), path).to(dev).eval()
+        n, m = (int(read[1][f"Encoder.{c}.weight"].shape[0]) for c in ("conv1", "conv4"))
+    return load_weights(ScaleHyperprior(n, m, quant=quant), path, read).to(dev).eval()
 
 
 def load_joint(path: str, device: Optional[str] = None) -> JointAutoregressive:
     """A ``JointAutoregressive`` in eval mode on ``device`` (default
-    ``cuda``), with the weights of a JAX checkpoint or params file or of the
-    port's train-state file; N comes from its shapes."""
+    ``cuda``), with the weights of a JAX checkpoint or params file, of the
+    port's train-state file or of a reference ``.pth``; N comes from its
+    shapes."""
     dev = resolve_device(device)
-    sd = read_port_state(path)
-    if sd is None:
+    read = read_weights(path)
+    if read[1] is None:
         n = int(np.shape(_params_tree(path, "g_a")["g_a"]["rbs0"]["conv1"]["weight"])[-1])
     else:
-        n = int(sd["g_a.0.conv1.weight"].shape[0])
-    return load_weights(JointAutoregressive(n), path).to(dev).eval()
+        n = int(read[1]["g_a.0.conv1.weight"].shape[0])
+    return load_weights(JointAutoregressive(n), path, read).to(dev).eval()
 
 
-def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Load every weight of a port model of any kind (``layout_of``) from a
-    JAX params file, variables dict or TrainState checkpoint of its kind, or
-    from the port's train-state file (strict: no key missing or extra; a DSC
-    model as ``load_dsc_weights``)."""
-    if isinstance(model, DSCStereoModel):
-        return load_dsc_weights(model, path)
-    sd = read_port_state(path)
-    if sd is None:
-        sd = model_params_from_jax(model, read_checkpoint(path))
-    _load_strict(model, sd)
+TORCH_SUFFIXES = (".pth", ".pth.tar", ".pt")
+
+
+def _read_pth(path: str) -> Dict[str, torch.Tensor]:
+    """The state_dict of a reference ``.pth``, on the CPU: the file's dict,
+    or its ``model_state_dict`` (the reference's rich checkpoint,
+    train_2StepsNet.py:204-220)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, Mapping) and "model_state_dict" in sd:
+        sd = sd["model_state_dict"]
+    return dict(sd)
+
+
+def read_weights(path: str) -> Tuple[str, Optional[Dict[str, torch.Tensor]]]:
+    """(kind, state_dict on the CPU) of a weights file, the one place its
+    format is decided: ``"pth"`` for a reference PyTorch checkpoint, by its
+    suffix as the JAX codec CLI's ``_is_torch_ckpt`` decides; ``"port"`` for
+    the port's own train-state file (a ``torch.save`` zip too), its
+    ``model``; ``"jax"`` and None for a flax msgpack, whose state_dict
+    depends on the model it is read for."""
+    if str(path).endswith(TORCH_SUFFIXES):
+        return "pth", _read_pth(path)
+    if zipfile.is_zipfile(path):
+        return "port", torch.load(path, map_location="cpu", weights_only=True)["model"]
+    return "jax", None
+
+
+def load_torch_state_dict(model: torch.nn.Module, path_or_sd) -> torch.nn.Module:
+    """Load a reference state_dict (a ``.pth`` path or the dict) into
+    ``model`` under the reference's partial load: every key the two share
+    is loaded, a shape that differs raises ``ValueError``, a key the file
+    lacks keeps the model's value, a key the model lacks is left out."""
+    sd = path_or_sd if isinstance(path_or_sd, Mapping) else _read_pth(path_or_sd)
+    own = model.state_dict()
+    shared = {}
+    for k, v in sd.items():
+        if k not in own:
+            continue
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"shape mismatch at {k}: {tuple(own[k].shape)} vs {tuple(v.shape)}")
+        shared[k] = v.to(own[k].device, own[k].dtype)
+    model.load_state_dict(shared, strict=False)
     return model
 
 
-def read_port_state(path: str) -> Optional[Dict[str, torch.Tensor]]:
-    """The model state_dict of the port's own train-state file, on the CPU,
-    or None for a file of another format (a flax msgpack)."""
-    if not zipfile.is_zipfile(path):
-        return None
-    return torch.load(path, map_location="cpu", weights_only=True)["model"]
+def _dsc_state_from_jax(model: DSCStereoModel, path: str) -> Dict[str, torch.Tensor]:
+    """The state_dict of ``model`` from a JAX params file, variables dict or
+    TrainState checkpoint. A FIF preset needs the file's ``batch_stats`` too:
+    a file without them raises, as the JAX model does on it."""
+    tree = read_checkpoint(path)
+    stats = tree.get("batch_stats")
+    if model.config.fusion_pre == "fif" and not isinstance(stats, dict):
+        raise ValueError(
+            f"{path}: a {model.config.fusion_pre!r} preset needs the file's batch_stats "
+            "(FIF's running statistics); this file holds only params, as the JAX "
+            "trainer writes them, and the JAX model cannot run on it (ROADMAP Queue 3)")
+    if "params" in tree and "g_a" not in tree:
+        tree = tree["params"]
+    sd = dsc_params_from_jax(tree, model.config)
+    if isinstance(stats, dict):
+        sd.update(dsc_batch_stats_from_jax(stats, model.config))
+    return sd
 
 
-def load_dsc_weights(model: DSCStereoModel, path: str) -> DSCStereoModel:
-    """Load every weight of ``model`` from a JAX params file, variables dict
-    or TrainState checkpoint, or from the port's train-state file (strict:
-    no key missing or extra). A FIF preset needs the file's ``batch_stats``
-    too: a JAX file without them raises, as the JAX model does on it."""
-    sd = read_port_state(path)
-    if sd is None:
-        tree = read_checkpoint(path)
-        stats = tree.get("batch_stats")
-        if model.config.fusion_pre == "fif" and not isinstance(stats, dict):
-            raise ValueError(
-                f"{path}: a {model.config.fusion_pre!r} preset needs the file's batch_stats "
-                "(FIF's running statistics); this file holds only params, as the JAX "
-                "trainer writes them, and the JAX model cannot run on it (ROADMAP Queue 3)")
-        if "params" in tree and "g_a" not in tree:
-            tree = tree["params"]
-        sd = dsc_params_from_jax(tree, model.config)
-        if isinstance(stats, dict):
-            sd.update(dsc_batch_stats_from_jax(stats, model.config))
+def load_weights(model: torch.nn.Module, path: str, read=None) -> torch.nn.Module:
+    """Load every weight of a port model of any kind (``layout_of``) from a
+    JAX params file, variables dict or TrainState checkpoint of its kind, or
+    from the port's train-state file (strict: no key missing or extra), or
+    from a reference ``.pth`` (``load_torch_state_dict``). ``read``: what
+    ``read_weights`` gave for ``path``, where the caller has read it."""
+    kind, sd = read or read_weights(path)
+    if kind == "pth":
+        return load_torch_state_dict(model, sd)
+    if kind == "jax":
+        sd = (_dsc_state_from_jax(model, path) if isinstance(model, DSCStereoModel)
+              else model_params_from_jax(model, read_checkpoint(path)))
     _load_strict(model, sd)
     return model
 
@@ -909,6 +966,7 @@ def load_dsc_weights(model: DSCStereoModel, path: str) -> DSCStereoModel:
 def load_dsc(path: str, preset: str, device: Optional[str] = None) -> DSCStereoModel:
     """A ``DSCStereoModel`` of the ``DSC_PRESETS`` entry ``preset`` in eval
     mode on ``device`` (default ``cuda``), with the weights of a JAX params
-    file or TrainState checkpoint, or of the port's train-state file."""
+    file or TrainState checkpoint, of the port's train-state file, or of a
+    reference ``.pth``."""
     dev = resolve_device(device)
-    return load_dsc_weights(DSCStereoModel(DSC_PRESETS[preset]), path).to(dev).eval()
+    return load_weights(DSCStereoModel(DSC_PRESETS[preset]), path).to(dev).eval()

@@ -31,6 +31,7 @@ convs at C = 192 (``PERF.md``).
 import contextlib
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -38,6 +39,12 @@ def no_tf32() -> None:
     """Run fp32 convolutions and matmuls in full fp32 from now on."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def image_batch(model: torch.nn.Module, img: np.ndarray) -> torch.Tensor:
+    """An HWC image as a (1, H, W, C) float32 tensor on ``model``'s device."""
+    dev = next(model.parameters()).device
+    return torch.from_numpy(np.ascontiguousarray(img, np.float32)[None]).to(dev)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

@@ -6,9 +6,11 @@
 - JAX params → port state_dict → back through the JAX package's own
   ``import_balle17`` gives every leaf exactly; bad trees raise.
 - The port imports nothing of JAX, flax, msgpack, PIL (outside the codec
-  CLI's ``main`` and the dataset reader's ``_load``, for files that are not
-  PPM) or the JAX package, and its entry points raise on a machine without
-  CUDA unless asked for the CPU.
+  CLI's ``main``, the dataset reader's ``_load`` for files that are not PPM
+  or 8-bit PNG, and the eval tools' ``jpeg_anchor_point`` and
+  ``_image_size``, for the JPEG anchor and non-PNG sizes) or the JAX
+  package, and its entry points raise on a machine without CUDA unless
+  asked for the CPU.
 """
 
 import ast
@@ -33,6 +35,8 @@ ROOT = Path(__file__).resolve().parents[1]
 CKPT = ROOT / "results" / "ckpts" / "lam2048_iter_19000.ckpt"
 PORT = ROOT / "iclr_17_compression_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "PIL", "iclr_17_compression_tpu")
+# the functions that may import PIL, inside themselves
+PIL_USERS = ("main", "_load", "jpeg_anchor_point", "_image_size")
 
 
 def _flatten(tree, prefix=""):
@@ -142,8 +146,8 @@ def test_port_sources_import_no_jax():
     for f in files:
         for top, fn in _imports(f):
             if top == "PIL":
-                assert fn in ("main", "_load"), \
-                    f"{f}: PIL imported outside the CLI main and the dataset reader"
+                assert fn in PIL_USERS, \
+                    f"{f}: PIL imported outside the functions that need it ({fn})"
             else:
                 assert top not in BLOCKED, f"{f} imports {top}"
 
@@ -165,6 +169,9 @@ from iclr_17_compression_tpu_torch.train import weights
 from iclr_17_compression_tpu_torch.train import checkpoint, cli, config, observability, state
 from iclr_17_compression_tpu_torch.data import datasets
 from iclr_17_compression_tpu_torch.eval import enhance, kodak, passr, reg_stage, stereo
+from iclr_17_compression_tpu_torch.eval import ablation, metric_cli, mix, rd_plot, similarity
+from iclr_17_compression_tpu_torch.utils import analysis, dataset_tools, svd
+from iclr_17_compression_tpu_torch.models import NLBlock
 from iclr_17_compression_tpu_torch.models import dsc, extra
 from iclr_17_compression_tpu_torch.models import passr as passr_model
 from iclr_17_compression_tpu_torch.nn import blocks
@@ -178,7 +185,9 @@ model = weights.load_balle17({str(CKPT)!r}, device="cpu")
 img = np.full((16, 16, 3), 0.5, np.float32)
 for call in (lambda: resolve_device(), lambda: weights.load_balle17({str(CKPT)!r}),
              lambda: codec_cli.encode_image(img, model),
-             lambda: trainers.train_decoder_only(config.TrainConfig(), "x")):
+             lambda: trainers.train_decoder_only(config.TrainConfig(), "x"),
+             lambda: rd_plot.jpeg_anchor_curve([img]),
+             lambda: metric_cli.main(["-o", "a.png", "-c", "b.png"])):
     try:
         call()
     except RuntimeError as e:
