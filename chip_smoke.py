@@ -95,8 +95,8 @@ Phases, one JSON line each:
   hyper   the scale-hyperprior (both quantizers) and joint-AR codecs at
           N = 192, M = 320 (the codec CLI's defaults) on the port's seeded
           init, every GDN off the identity and the analysis and
-          hyper-analysis outputs spread over many symbols, on 2 synthetic
-          768×512 images: encode_image → bytes → decode_image, with the launch
+          hyper-analysis outputs spread over many symbols, on one synthetic
+          768×512 image: encode_image → bytes → decode_image, with the launch
           counters reset just before and read just after (per image: the
           hyperprior encode K2 3, decode K1 3; joint encode K2 3, decode K2 3;
           K1 0 on joint); checks: ŷ and ẑ round-trip exactly (joint: the
@@ -187,8 +187,31 @@ Phases, one JSON line each:
           lam2048 and the flagship loaded on the card with bit-equal
           outputs; NLBlock in its four modes at C = 128 on the 20×76 latent
           grid against the CPU (1e-4 of its largest |value|)
+  precision  bf16 storage and blocked image I/O: the Ballé-17 headline
+          (io_block = 4, the archived lam2048 weights, 8 synthetic 768×512
+          images) in its four forms (fp32 / bf16 storage × unblocked /
+          blocked), each with its launches per kernel and dtype (K2 3 and K1
+          2 of its own dtype only) and its forward ms and Mpix/s; the DSC
+          flagship's serving split (g_a → g_a22 → K3; the receiver's g_a
+          over the SI image, g_s22, fusion, g_s) on the archived weights, 4
+          synthetic 320×1216 pairs, in fp32 and bf16 (K2 4 + 7 and K3 1 of
+          its dtype only); checks: blocked against unblocked in fp32, bf16
+          against fp32 under the JAX bf16 test's criteria, the DSC split's
+          bf16 K3 symbols against fp32's (share stated) and its recon PSNR,
+          K2 and K1 in bf16 within one bf16 ulp of their plain versions at
+          the headline's stages (conv1 blocked and unblocked, conv2, conv3,
+          both IGDNs) and two DSC sites, K3 in bf16 bit-exact on the DSC
+          code and the Ballé latent, K2 in fp32 at the blocked conv1 (rtol
+          1e-4 / atol 1e-5), off the main paths K1 in bf16 at C = 64, 96,
+          192, 256, 512 and K2 in bf16 at Cout = 192 (unsplit and split)
+          and 256, the precision policy's flags under high and default,
+          restored after. Numbers: bf16 and fp32 kernel times, the
+          plain versions', cuDNN bf16 + plain GDN for K2, bounds at the bf16
+          dense peak, one profiled bf16 headline forward (device ms by
+          kernel, idle share)
 Then the script's seconds, the card's name and power limit, one line with
-every kernel's numbers, and last the line {"ok": true, "device": {...}}.
+every kernel's numbers (the bf16 variants as entries of their own), and
+last the line {"ok": true, "device": {...}}.
 Any failed check exits non-zero. Imports nothing of JAX.
 """
 
@@ -217,11 +240,13 @@ N_IMAGES, IMG_H, IMG_W, N_CH = 4, 512, 768, 128
 # (three TF32 products each), the rest in fp32; K3 is fp32 elementwise.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # The kernels' symbols in the library: K2's conv and its split-K reduction,
-# K1, K3.
+# K1, K3, and their bf16 variants.
 KERNEL_SYMBOLS = ("conv_gdn_kernel", "conv_gdn_reduce_kernel", "gdn_rows_kernel",
-                  "quant_pack_kernel")
+                  "quant_pack_kernel", "conv_gdn_bf16_kernel", "conv_gdn_reduce_bf16_kernel",
+                  "gdn_rows_bf16_kernel", "quant_pack_bf16_kernel")
 # The whole port build (nvcc of the kernels and g++ of the coder) from clean.
 BUILD_LIMIT_S = 60.0
 
@@ -299,14 +324,15 @@ DSC_FLOOR_FACTOR = 4.0
 DSC_CONTROL_PERTURB = 1e-3
 
 # Hyperprior / joint-AR phase: hyperprior, hyperprior-sigma and joint at
-# N = 192, M = 320 (the codec CLI's defaults) on the port's seeded init, two
-# synthetic 768×512 images; every GDN and IGDN moved off the identity (the
-# dsc phase's law), each channel of the analysis transform's last conv
-# centred and scaled to a std of HYPER_Y_STD, and of the hyper-analysis'
-# last conv to HYPER_Z_STD, on the first image, so that y and z spread over
-# many symbols. The card's file of a 128×192 crop is decoded on the CPU
-# where no σ changes its scale index between the devices.
-HYPER_SEED, N_HYPER_IMAGES, HYPER_N, HYPER_M = 4321, 2, 192, 320
+# N = 192, M = 320 (the codec CLI's defaults) on the port's seeded init, one
+# synthetic 768×512 image (it was two; cut for time); every GDN and
+# IGDN moved off the identity (the dsc phase's law), each channel of the
+# analysis transform's last conv centred and scaled to a std of
+# HYPER_Y_STD, and of the hyper-analysis' last conv to HYPER_Z_STD, on the
+# first image, so that y and z spread over many symbols. The card's file of
+# a 128×192 crop is decoded on the CPU where no σ changes its scale index
+# between the devices.
+HYPER_SEED, N_HYPER_IMAGES, HYPER_N, HYPER_M = 4321, 1, 192, 320
 HYPER_Y_STD, HYPER_Z_STD = 3.0, 2.0
 HYPER_CROP = (128, 192)
 # ŷ of the card's file decoded on the CPU: the symbols are equal and the
@@ -378,6 +404,24 @@ BALLE_FWD, DSC_FWD, BALLE_CODEC = (3, 2, 0), (17, 0, 1), (3, 2, 1)
 # the R-D row of PERF.md §2), the masked MSEs rtol 1e-4, NLBlock's output
 # 1e-4 of its largest |value| (cuBLAS and the CPU's fp32 sums).
 EVAL_PSNR_DB, EVAL_BPP_REL, EVAL_MSE_RTOL, NL_TOL = 1e-3, 1e-3, 1e-4, 1e-4
+
+# Precision phase: bf16 storage and blocked image I/O. The Ballé-17 headline
+# (the archived lam2048 weights, PREC_BATCH synthetic 768×512 images) in the
+# four forms (fp32 / bf16 storage × unblocked / io_block 4), and the DSC
+# flagship's serving split (the archived temp_0031bpp weights, PREC_PAIRS
+# synthetic 320×1216 pairs) in fp32 and bf16. Blocked against unblocked in
+# fp32 (the same model, conv1 and deconv3 summed in another order): latent
+# flips at most LATENT_FLIP_FRAC, by 1, the recons within BLOCKED_PSNR_DB of
+# each other, bpp and mse within BLOCKED_RATE_REL. bf16 against fp32: the
+# JAX bf16 test's criteria (recon MSE under 5% of the fp32 recon's
+# distortion, max |diff| under 0.1, bpp within 5%); the DSC split's K3
+# symbols may differ on at most DSC_SYMBOL_SHARE (a code_pre within bf16
+# rounding of a k + ½ step boundary), its recon at least DSC_BF16_PSNR_DB
+# from fp32's. K1 and K2 in bf16 within one bf16 ulp of their plain
+# versions (ATOL where a value sits near zero), K3 bit-exact.
+PREC_SEED, PREC_BATCH, PREC_PAIRS = 1414, 8, 4
+BLOCKED_PSNR_DB, BLOCKED_RATE_REL = 60.0, 1e-3
+DSC_SYMBOL_SHARE, DSC_BF16_PSNR_DB = 0.02, 35.0
 
 
 def emit(obj) -> None:
@@ -2583,6 +2627,463 @@ def eval_phase(torch, dev, tools) -> dict:
     return {"launches": launches}
 
 
+def k2_work_bf16(args, out):
+    """(conv product flops, GDN product flops, elementwise flops, bytes) of
+    one K2 call on bf16 storage: x, the weight and the output 2 bytes an
+    element, the bias and the GDN parameters 4."""
+    x, w, b, gamma_t = args[:4]
+    _, ho, wo, cout = out.shape
+    kk, cin = w.shape[0], w.shape[2]
+    p = out.shape[0] * ho * wo
+    conv = 2.0 * p * kk * kk * cin * cout
+    gdn = 2.0 * p * cout * cout if gamma_t is not None else 0.0
+    elementwise = (p * cout if b is not None else 0.0) + (4.0 * p * cout if gdn else 0.0)
+    nbytes = 2.0 * (x.numel() + w.numel() + out.numel()) + 4.0 * (
+        (cout if b is not None else 0) + (cout * cout + cout if gdn else 0))
+    return conv, gdn, elementwise, nbytes
+
+
+def bound_bf16_ms(bf16_flops: float, tf32x3_flops: float, elementwise_flops: float,
+                  nbytes: float):
+    """The least time of a bf16-storage kernel: its bf16 products at the
+    bf16 dense peak, its fp32-accurate products (K2's GDN norm) as three
+    TF32 products, the elementwise work in fp32, against its bytes."""
+    t_ops = (bf16_flops / PEAK_BF16_FLOPS + 3.0 * tf32x3_flops / PEAK_TF32_FLOPS
+             + elementwise_flops / PEAK_FP32_FLOPS)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bf16_ulp_check(torch, out, ref) -> tuple:
+    """(every element within one bf16 ulp of the plain version's, or within
+    ATOL where the value sits near zero; the share that differ at all; the
+    largest absolute difference)."""
+    out, ref = out.float(), ref.float()
+    big = torch.maximum(out.abs(), ref.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    diff = (out - ref).abs()
+    ok = bool(torch.all((diff <= ulp) | (diff <= ATOL)))
+    return ok, float((diff > 0).float().mean()), float(diff.max())
+
+
+def precision_phase(torch, dev, tools) -> dict:
+    """bf16 storage and blocked image I/O on the card (see the module
+    docstring). ``tools`` holds the harness of ``main``: check, emit,
+    time_ms, call_ms, compare, new_row, floor_ms. Returns the bf16 kernel
+    rows, the fp32 K2 row at the blocked conv1 and the bf16 launches."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from iclr_17_compression_tpu_torch.models.balle17 import Balle17Compressor
+    from iclr_17_compression_tpu_torch.models.dsc import DSCDecoder, quantize_code
+    from iclr_17_compression_tpu_torch.ops import precision
+    from iclr_17_compression_tpu_torch.ops.conv import depth_to_space, space_to_depth
+    from iclr_17_compression_tpu_torch.ops.gdn import gdn_reparam
+    from iclr_17_compression_tpu_torch.ops.kernels import conv_gdn_kernel as k2
+    from iclr_17_compression_tpu_torch.ops.kernels import gdn_kernel as k1
+    from iclr_17_compression_tpu_torch.ops.kernels import quant_pack_kernel as k3
+    from iclr_17_compression_tpu_torch.train.weights import load_balle17, load_dsc
+
+    check, emit, time_ms, call_ms = tools.check, tools.emit, tools.time_ms, tools.call_ms
+    bf = torch.bfloat16
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(PREC_SEED)
+    keys = ("conv_gdn", "gdn", "quantize_pack")
+
+    def counts():
+        return {"conv_gdn": (k2.conv_gdn.launches, k2.conv_gdn.launches_bf16),
+                "gdn": (k1.gdn_fused.launches, k1.gdn_fused.launches_bf16),
+                "quantize_pack": (k3.quantize_pack.launches, k3.quantize_pack.launches_bf16)}
+
+    def zero_counts():
+        for fn in (k2.conv_gdn, k1.gdn_fused, k3.quantize_pack):
+            fn.launches = fn.launches_bf16 = 0
+
+    def by_dtype(c):
+        """{kernel: {"fp32": n, "bf16": n}} of a counts() reading."""
+        return {k: {"fp32": tot - b16, "bf16": b16} for k, (tot, b16) in c.items()}
+
+    # ---- the Ballé-17 headline: the archived lam2048 weights, batch 8 at
+    # 768×512, in the four forms (fp32 / bf16 storage × unblocked / io_block 4)
+    base = load_balle17(CKPT, device="cuda")
+    blocked = Balle17Compressor(N_CH, io_block=4).to(dev).eval()
+    blocked.load_state_dict(base.state_dict())
+    models = {("fp32", 1): base, ("fp32", 4): blocked,
+              ("bf16", 1): precision.cast_storage(copy.deepcopy(base), bf),
+              ("bf16", 4): precision.cast_storage(copy.deepcopy(blocked), bf)}
+    imgs = torch.from_numpy(np.stack([smooth_image(rng) for _ in range(PREC_BATCH)])).to(dev)
+    inputs = {(dt, s): (space_to_depth(imgs, s) if s > 1 else imgs).to(
+        torch.float32 if dt == "fp32" else bf).contiguous() for dt, s in models}
+    outs, forms, form_launches = {}, {}, {}
+    with torch.no_grad():
+        for form, model in models.items():
+            zero_counts()
+            out = model(inputs[form])
+            torch.cuda.synchronize()
+            form_launches[f"{form[0]}_io{form[1]}"] = by_dtype(counts())
+            recon = out["recon"].float()
+            outs[form] = {"recon": depth_to_space(recon, form[1]) if form[1] > 1 else recon,
+                          "latent": out["latent"].float(), "bpp": float(out["bpp"]),
+                          "mse": float(out["mse"])}
+            fwd_ms = time_ms(lambda: model(inputs[form]), warmup=2, reps=5, batch=2)
+            forms[f"{form[0]}_io{form[1]}"] = {
+                "forward_ms": fwd_ms,
+                "mpix_per_s": PREC_BATCH * IMG_H * IMG_W / (fwd_ms * 1e3),
+                "bpp": outs[form]["bpp"], "mse": outs[form]["mse"]}
+    for name, got in form_launches.items():
+        dt = name[:4]
+        other = "fp32" if dt == "bf16" else "bf16"
+        want = {"conv_gdn": 3, "gdn": 2, "quantize_pack": 0}
+        check(all(got[k][dt] == want[k] and got[k][other] == 0 for k in keys),
+              f"Ballé {name}: launches {got}, expected K2 3 and K1 2 of {dt} only")
+    x32 = imgs
+    # blocked against unblocked in fp32: the same model up to conv1's and
+    # deconv3's sum order
+    a, b = outs[("fp32", 1)], outs[("fp32", 4)]
+    flips = (a["latent"] != b["latent"])
+    blk = {"latent_flip_share": float(flips.float().mean()),
+           "latent_max_step": float((a["latent"] - b["latent"]).abs().max()),
+           "recon_psnr_db": float(10 * torch.log10(1 / ((a["recon"] - b["recon"]) ** 2).mean()
+                                               .clamp_min(1e-20))),
+           "bpp_rel": abs(a["bpp"] - b["bpp"]) / a["bpp"], "mse_rel": abs(a["mse"] - b["mse"]) / a["mse"]}
+    check(blk["latent_flip_share"] <= LATENT_FLIP_FRAC and blk["latent_max_step"] <= 1,
+          f"blocked vs unblocked fp32 latents: {blk}")
+    check(blk["recon_psnr_db"] >= BLOCKED_PSNR_DB and blk["bpp_rel"] <= BLOCKED_RATE_REL
+          and blk["mse_rel"] <= BLOCKED_RATE_REL, f"blocked vs unblocked fp32: {blk}")
+    # bf16 against fp32 in each layout, under the JAX bf16 test's criteria
+    crit = {}
+    for s in (1, 4):
+        r32, rbf = outs[("fp32", s)], outs[("bf16", s)]
+        d2 = ((r32["recon"] - rbf["recon"]) ** 2).mean()
+        dist = ((r32["recon"] - x32) ** 2).mean()
+        c = {"mse_ratio": float(d2 / dist), "max_abs": float((r32["recon"] - rbf["recon"]).abs().max()),
+             "bpp_rel": abs(r32["bpp"] - rbf["bpp"]) / max(r32["bpp"], 1e-9),
+             "latent_flip_share": float((r32["latent"] != rbf["latent"]).float().mean()),
+             "psnr_vs_fp32_db": float(10 * torch.log10(1 / d2.clamp_min(1e-20)))}
+        check(c["mse_ratio"] < 0.05 and c["max_abs"] < 0.1 and c["bpp_rel"] < 0.05,
+              f"Ballé bf16 vs fp32 io_block={s}: {c}")
+        crit[f"io{s}"] = c
+
+    # where the bf16 headline's device time goes
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models[("bf16", 4)](inputs[("bf16", 4)])
+        torch.cuda.synchronize()
+        prof_wall = 1e3 * (time.perf_counter() - t0)
+    prof_by_kernel = device_ms_by_kernel(torch, prof)
+    prof_busy = sum(prof_by_kernel.values())
+
+    # ---- the kernels against their plain versions at the headline's shapes
+    rows = {"conv_gdn_bf16": tools.new_row(library=True),
+            "gdn_bf16": tools.new_row(library=False)}
+    for row in rows.values():
+        row.update(share_diff=0.0, bf16_flops=0.0, tf32x3_flops=0.0)
+
+    def add(row, shape, conv, gdn, elementwise, nbytes):
+        b_ms, b_by = bound_bf16_ms(conv, gdn, elementwise, nbytes)
+        shape.update(bound_ms=b_ms, bound_by=b_by)
+        for key in ("ms", "call_ms", "plain_ms", "library_ms"):
+            if row.get(key) is not None and key in shape:
+                row[key] += shape[key]
+        row["bound_ms"] += b_ms
+        row["bf16_flops"] += conv
+        row["tf32x3_flops"] += gdn
+        row["flops"] += conv + gdn + elementwise
+        row["bytes"] += nbytes
+        row["bound_by"] = bound_bf16_ms(row["bf16_flops"], row["tf32x3_flops"],
+                                        row["flops"] - row["bf16_flops"] - row["tf32x3_flops"],
+                                        row["bytes"])[1]
+        row["shapes"].append(shape)
+
+    def hold_bf16(out, ref, what, row):
+        check(out.dtype == bf and bool(torch.isfinite(out.float()).all()), f"{what}: {out.dtype}")
+        ok, share, err = bf16_ulp_check(torch, out, ref)
+        check(ok, f"{what}: beyond one bf16 ulp of the plain version (max abs {err:.3e})")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["share_diff"] = max(row["share_diff"], share)
+        return share
+
+    def measure_k2_bf16(args, where, row):
+        out = k2.conv_gdn(*args)
+        again = k2.conv_gdn(*args)
+        ref = k2.conv_gdn_plain(*args)
+        torch.cuda.synchronize()
+        share = hold_bf16(out, ref, f"K2 bf16 {where}", row)
+        check(torch.equal(out, again), f"K2 bf16 {where}: two calls differ")
+        x, w, b, gamma_t, beta, stride, pad = args[:7]
+        inverse = bool(args[7]) if len(args) > 7 else False
+        oihw = w.permute(3, 2, 0, 1).contiguous()
+        xc = x.permute(0, 3, 1, 2)
+
+        def library():  # cuDNN's bf16 conv, then the plain GDN in fp32 rounded to bf16
+            y = torch.nn.functional.conv2d(xc, oihw, None if b is None else b.to(bf),
+                                           stride=stride, padding=pad)
+            if gamma_t is not None:
+                k1.gdn_fused_plain(y.permute(0, 2, 3, 1).float(), gamma_t, beta, inverse).to(bf)
+
+        _, ho, wo, cout = out.shape
+        shape = {"where": where, "x": list(x.shape), "w": list(w.shape), "stride": stride,
+                 "gdn": gamma_t is not None, "share_diff": share,
+                 "splits": k2.plan_splits(out.shape[0] * ho * wo, w.shape[0] ** 2,
+                                          k2.block_slots(0, cout, True)),
+                 "ms": time_ms(lambda: k2.conv_gdn(*args)),
+                 "call_ms": call_ms(lambda: k2.conv_gdn(*args)),
+                 "plain_ms": time_ms(lambda: k2.conv_gdn_plain(*args)),
+                 "library_ms": time_ms(library)}
+        xf, wf = x.float(), w.float()
+        fargs = (xf, wf) + tuple(args[2:])
+        shape["fp32_ms"] = time_ms(lambda: k2.conv_gdn(*fargs))
+        add(row, shape, *k2_work_bf16(args, out))
+
+    def measure_k1_bf16(x, gdn, where, row):
+        beta, gamma = gdn_reparam(gdn.params())
+        gamma_t, beta, inv = gamma.t().contiguous().to(bf), beta.float(), gdn.inverse
+        out = k1.gdn_fused(x, gamma_t, beta, inv)
+        again = k1.gdn_fused(x, gamma_t, beta, inv)
+        ref = k1.gdn_fused_plain(x, gamma_t, beta, inv)
+        torch.cuda.synchronize()
+        share = hold_bf16(out, ref, f"K1 bf16 {where}", row)
+        check(torch.equal(out, again), f"K1 bf16 {where}: two calls differ")
+        xf, gf = x.float(), gamma_t.float()
+        c = x.shape[-1]
+        p = x.numel() // c
+        shape = {"where": where, "x": list(x.shape), "inverse": inv, "share_diff": share,
+                 "ms": time_ms(lambda: k1.gdn_fused(x, gamma_t, beta, inv)),
+                 "call_ms": call_ms(lambda: k1.gdn_fused(x, gamma_t, beta, inv)),
+                 "plain_ms": time_ms(lambda: k1.gdn_fused_plain(x, gamma_t, beta, inv)),
+                 "fp32_ms": time_ms(lambda: k1.gdn_fused(xf, gf, beta, inv))}
+        add(row, shape, 2.0 * p * c * c, 0.0, 4.0 * p * c, 2.0 * 2 * x.numel() + 2.0 * c * c + 4.0 * c)
+
+    mb = models[("bf16", 4)]
+    with torch.no_grad():
+        enc = mb.Encoder
+        xb = inputs[("bf16", 4)]
+        y = xb
+        stages = []
+        for conv, gdn, where in ((enc.conv1, enc.gdn1, "balle conv1 blocked 3x3 s1"),
+                                 (enc.conv2, enc.gdn2, "balle conv2 5x5 s2"),
+                                 (enc.conv3, None, "balle conv3 5x5 s2")):
+            if gdn is not None:
+                beta, gamma = gdn_reparam(gdn.params())
+                gamma_t, beta = gamma.t().contiguous().float(), beta.float()
+            else:
+                gamma_t = beta = None
+            if conv.input_block > 1:
+                w, stride, pad = conv.blocked_weight(), 1, 1
+            else:
+                w, stride, pad = conv.weight.permute(2, 3, 1, 0), conv.stride[0], conv.padding[0]
+            b = None if conv.bias is None else conv.bias.float()
+            args = (y, w.to(bf).contiguous(), b, gamma_t, beta, stride, pad)
+            stages.append((args, where))
+            y = k2.conv_gdn_plain(*args)
+        # the unblocked conv1 (Cin = 3: ordinary loads into shared memory)
+        c1 = models[("bf16", 1)].Encoder
+        beta, gamma = gdn_reparam(c1.gdn1.params())
+        stages.append(((inputs[("bf16", 1)], c1.conv1.weight.permute(2, 3, 1, 0).contiguous(),
+                        c1.conv1.bias.float(), gamma.t().contiguous().float(), beta.float(), 4, 4),
+                       "balle conv1 9x9 s4 (unblocked)"))
+        for args, where in stages:
+            measure_k2_bf16(args, where, rows["conv_gdn_bf16"])
+        lat = torch.round(y)
+        dec = mb.Decoder
+        z = dec.deconv1(lat)
+        measure_k1_bf16(z.contiguous(), dec.igdn1, "balle igdn1", rows["gdn_bf16"])
+        z = dec.deconv2(dec.igdn1(z))
+        measure_k1_bf16(z.contiguous(), dec.igdn2, "balle igdn2", rows["gdn_bf16"])
+
+        # fp32 K2 at the blocked conv1 (rtol 1e-4 / atol 1e-5, as every K2 check)
+        fp_row = tools.new_row(library=True)
+        args32 = tuple(t.float() if isinstance(t, torch.Tensor) else t for t in stages[0][0])
+        out = k2.conv_gdn(*args32)
+        ref = k2.conv_gdn_plain(*args32)
+        torch.cuda.synchronize()
+        tools.compare(out, ref, "K2 fp32 blocked conv1", fp_row)
+        oihw = args32[1].permute(3, 2, 0, 1).contiguous()
+        fp_row.update(
+            x=list(args32[0].shape), w=list(args32[1].shape),
+            splits=k2.plan_splits(out.shape[0] * out.shape[1] * out.shape[2], 9,
+                                  k2.block_slots(0, N_CH)),
+            ms=time_ms(lambda: k2.conv_gdn(*args32)),
+            call_ms=call_ms(lambda: k2.conv_gdn(*args32)),
+            plain_ms=time_ms(lambda: k2.conv_gdn_plain(*args32)),
+            library_ms=time_ms(lambda: k1.gdn_fused_plain(torch.nn.functional.conv2d(
+                args32[0].permute(0, 3, 1, 2), oihw, args32[2], padding=1).permute(0, 2, 3, 1),
+                args32[3], args32[4])))
+        mma, elementwise, nbytes = k2_work(args32, out)
+        fp_row["bound_ms"], fp_row["bound_by"] = bound_3xtf32_ms(mma, elementwise, nbytes)
+
+    # ---- the DSC flagship's serving split in bf16 and fp32: the archived
+    # weights, batch 4 at 320×1216
+    from iclr_17_compression_tpu_torch.models.dsc import DSC_PRESETS
+
+    dsc32 = load_dsc(FLAGSHIP, DSC_PRESET, device="cuda")
+    dscbf = precision.cast_storage(copy.deepcopy(dsc32), bf)
+    cfg = DSC_PRESETS[DSC_PRESET]
+    lefts = [smooth_image(rng, DSC_H, DSC_W) for _ in range(PREC_PAIRS)]
+    im1 = torch.from_numpy(np.stack(lefts)).to(dev)
+    im2 = torch.from_numpy(np.stack([shift_pair(a, rng) for a in lefts])).to(dev)
+    split = {}
+    with torch.no_grad():
+        for dt, model in (("fp32", dsc32), ("bf16", dscbf)):
+            a1, a2 = (im1, im2) if dt == "fp32" else (im1.to(bf), im2.to(bf))
+            receiver = DSCDecoder(cfg, model=model)
+
+            def serve():
+                symbols, code = quantize_code(model.encode(a1), cfg)
+                return symbols, code, receiver(code, a2)
+
+            zero_counts()
+            symbols, code, recon = serve()
+            torch.cuda.synchronize()
+            got = by_dtype(counts())
+            other = "fp32" if dt == "bf16" else "bf16"
+            check(all(got[k][other] == 0 for k in keys) and got["conv_gdn"][dt] == 11
+                  and got["quantize_pack"][dt] == 1 and got["gdn"][dt] == 0,
+                  f"DSC split {dt}: launches {got}, expected K2 4 + 7 and K3 1 of {dt} only")
+            serve_ms = time_ms(serve, warmup=2, reps=5, batch=1)
+            split[dt] = {"symbols": symbols, "recon": recon.float(), "code": code,
+                         "launches": got, "serving_ms": serve_ms,
+                         "mpix_per_s": PREC_PAIRS * DSC_H * DSC_W / (serve_ms * 1e3)}
+    s32, sbf = split["fp32"], split["bf16"]
+    sym_share = float((s32["symbols"] != sbf["symbols"]).float().mean())
+    d2 = ((s32["recon"] - sbf["recon"]) ** 2).mean()
+    dsc_crit = {"symbol_share_differ": sym_share, "symbols": int(s32["symbols"].numel()),
+                "recon_psnr_vs_fp32_db": float(10 * torch.log10(1 / d2.clamp_min(1e-20))),
+                "mse_ratio": float(d2 / ((s32["recon"] - im1) ** 2).mean()),
+                "max_abs": float((s32["recon"] - sbf["recon"]).abs().max())}
+    check(sym_share <= DSC_SYMBOL_SHARE and dsc_crit["recon_psnr_vs_fp32_db"] >= DSC_BF16_PSNR_DB
+          and dsc_crit["mse_ratio"] < 0.05 and dsc_crit["max_abs"] < 0.1,
+          f"DSC bf16 split vs fp32: {dsc_crit}")
+
+    # K3 bf16 on the DSC code (step 16, 8-bit) and the Ballé latent (step 1,
+    # 16-bit), bit-exact against the plain version
+    with torch.no_grad():
+        code_pre = dscbf.encode(im1.to(bf)).contiguous()
+        lat16 = models[("bf16", 4)].Encoder(inputs[("bf16", 4)]).contiguous()
+        k3_row = {"shapes": [], "max_abs_err": 0.0, "ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "library_ms": None}
+        for x, step, clip, bits, where in ((code_pre, 16.0, 128.0, 8, "dsc code"),
+                                           (lat16, 1.0, 32767.0, 16, "balle latent")):
+            sym, deq = k3.quantize_pack(x, step, clip, bits)
+            rsym, rdeq = k3.quantize_pack_plain(x, step, clip, bits)
+            torch.cuda.synchronize()
+            check(torch.equal(sym, rsym) and torch.equal(deq, rdeq) and deq.dtype == bf,
+                  f"K3 bf16 {where}: not bit-exact")
+            n = x.numel()
+            b_ms, b_by = bound_ms(5.0 * n, (5.0 if bits == 8 else 6.0) * n)
+            shape = {"where": where, "x": list(x.shape), "step": step, "bits": bits,
+                     "ms": time_ms(lambda: k3.quantize_pack(x, step, clip, bits)),
+                     "call_ms": call_ms(lambda: k3.quantize_pack(x, step, clip, bits)),
+                     "plain_ms": time_ms(lambda: k3.quantize_pack_plain(x, step, clip, bits)),
+                     "fp32_ms": time_ms(lambda: k3.quantize_pack(x.float(), step, clip, bits)),
+                     "bound_ms": b_ms, "bound_by": b_by}
+            for key in ("ms", "call_ms", "plain_ms", "bound_ms"):
+                k3_row[key] += shape[key]
+            k3_row["bound_by"] = b_by
+            k3_row["shapes"].append(shape)
+        k3_row["launch_floor_ms"] = tools.floor_ms
+    rows["quantize_pack_bf16"] = k3_row
+
+    # the DSC K2 sites in bf16 against plain: g_a's last stride block and
+    # g_s's first upsample block at the split's shapes
+    from iclr_17_compression_tpu_torch.nn.blocks import ResidualBlockUpsample, ResidualBlockWithStride
+
+    with torch.no_grad():
+        hooks, seen = [], []
+        sites = [m for m in dscbf.modules()
+                 if isinstance(m, (ResidualBlockWithStride, ResidualBlockUpsample))]
+        for site in (sites[0], sites[-1]):
+            hooks.append(site.register_forward_pre_hook(
+                lambda mod, a: seen.append((mod, a[0])) if len(seen) < 2 else None))
+        DSCDecoder(cfg, model=dscbf)(sbf["code"], im2.to(bf))  # g_a over the SI, then g_s
+        for h in hooks:
+            h.remove()
+        for site, xin in seen:
+            args = block_k2_args(site, xin)
+            args = (args[0], args[1].to(bf).contiguous(), args[2].float(), args[3].float(),
+                    args[4].float()) + tuple(args[5:])
+            kind = "rbs conv2 + GDN" if hasattr(site, "gdn") else "rbu conv + IGDN"
+            measure_k2_bf16(args, f"dsc {kind} {list(xin.shape)}", rows["conv_gdn_bf16"])
+
+    # off the main paths: K1 bf16 at the other widths it takes (C % 32 == 0
+    # up to 512: γᵀ's fragments in shared memory up to 256, read from device
+    # memory past it), K2 bf16 at Cout = 192 unsplit and split and at 256
+    gen = torch.Generator().manual_seed(PREC_SEED)
+    off_k1, off_k2 = [], []
+    with torch.no_grad():
+        for c in (64, 96, 192, 256, 512):
+            x = (torch.randn((2, 16, 24, c), generator=gen) * 0.8).to(dev, bf)
+            gamma_t = (torch.rand((c, c), generator=gen) * 0.03).to(dev, bf)
+            beta = (torch.rand(c, generator=gen) + 0.5).to(dev)
+            for inverse in (False, True):
+                out = k1.gdn_fused(x, gamma_t, beta, inverse)
+                again = k1.gdn_fused(x, gamma_t, beta, inverse)
+                ref = k1.gdn_fused_plain(x, gamma_t, beta, inverse)
+                torch.cuda.synchronize()
+                hold_bf16(out, ref, f"K1 bf16 C={c} inverse={inverse}", rows["gdn_bf16"])
+                check(torch.equal(out, again), f"K1 bf16 C={c}: two calls differ")
+            off_k1.append(f"C={c} 2x16x24")
+        for (h, wd, k, stride, cout) in ((256, 288, 5, 2, 192), (128, 192, 5, 2, 192),
+                                         (64, 96, 3, 1, 256)):
+            xs = (torch.randn((1, h, wd, N_CH), generator=gen) * 0.5).to(dev, bf)
+            ws = (torch.randn((k, k, N_CH, cout), generator=gen) / (k * k * N_CH) ** 0.5).to(
+                dev, bf)
+            bs = (torch.randn(cout, generator=gen) * 0.01).to(dev)
+            gs = (torch.rand((cout, cout), generator=gen) * 0.02).to(dev)
+            betas = (torch.rand(cout, generator=gen) + 0.5).to(dev)
+            splits = k2.plan_splits((h // stride) * (wd // stride), k * k,
+                                    k2.block_slots(0, cout, True))
+            for inverse in (False, True):
+                args = (xs, ws, bs, gs, betas, stride, k // 2, inverse)
+                out = k2.conv_gdn(*args)
+                again = k2.conv_gdn(*args)
+                ref = k2.conv_gdn_plain(*args)
+                torch.cuda.synchronize()
+                hold_bf16(out, ref, f"K2 bf16 Cout={cout} {h}x{wd} inverse={inverse}",
+                          rows["conv_gdn_bf16"])
+                check(torch.equal(out, again), f"K2 bf16 Cout={cout} {h}x{wd}: two calls differ")
+            off_k2.append(f"Cout={cout} {h}x{wd} {k}x{k} s{stride} splits={splits}")
+    rows["gdn_bf16"]["checked_off_path"] = off_k1
+    rows["conv_gdn_bf16"]["checked_off_path"] = off_k2
+
+    # the policy's flags under high and default, restored after
+    flags = {}
+    before = precision.current_flags()
+    for name in ("high", "default"):
+        with precision.precision_scope(name), torch.no_grad():
+            base(inputs[("fp32", 1)][:1])  # a forward applies the policy again
+            flags[name] = list(precision.current_flags())
+    after = precision.current_flags()
+    check(flags == {"high": [True, "high"], "default": [True, "medium"]}
+          and before == after == (False, "highest"),
+          f"policy flags: before {before}, under {flags}, after {after}")
+
+    seconds = time.perf_counter() - t_phase
+    launches = {k: form_launches["bf16_io4"][k]["bf16"] + split["bf16"]["launches"][k]["bf16"]
+                for k in keys}
+    check(all(launches[k] > 0 for k in keys), f"bf16 launches on the main paths: {launches}")
+    result = {"phase": "precision", "ok": True, "batch": PREC_BATCH, "shape": [IMG_H, IMG_W, 3],
+              "dsc_pairs": PREC_PAIRS, "dsc_shape": [DSC_H, DSC_W, 3], "forms": forms,
+              "form_launches": form_launches, "blocked_vs_unblocked_fp32": blk,
+              "bf16_vs_fp32": crit,
+              "dsc_split": {dt: {k: v for k, v in split[dt].items()
+                                 if k in ("launches", "serving_ms", "mpix_per_s")}
+                            for dt in split},
+              "dsc_bf16_vs_fp32": dsc_crit,
+              "profile_bf16_io4": {"wall_ms": prof_wall, "device_busy_ms": prof_busy,
+                                   "device_idle_share": 1.0 - prof_busy / prof_wall,
+                                   "device_ms_by_kernel": dict(sorted(
+                                       prof_by_kernel.items(), key=lambda kv: -kv[1])[:12])},
+              "policy_flags": flags, "bf16_launches": launches,
+              "k2_bf16": rows["conv_gdn_bf16"], "k1_bf16": rows["gdn_bf16"],
+              "k3_bf16": k3_row, "k2_fp32_blocked_conv1": fp_row, "seconds": seconds}
+    emit(result)
+    print(f"precision phase seconds: {seconds:.1f}", flush=True)
+    return {"rows": rows, "k2_fp32_blocked_conv1": fp_row, "launches": launches}
+
+
 def _fresh_like(torch, model):
     """A copy of ``model`` (its kind, widths and device) with every
     parameter moved by 1."""
@@ -2633,7 +3134,10 @@ def main() -> int:
     ptxas = ptxas_report((_build.BUILD_DIR / "libiclr17c_kernels.so.log").read_text())
     dyn_smem = {"conv_gdn_kernel": lib.iclr17c_conv_gdn_smem_bytes(N_CH),
                 "conv_gdn_reduce_kernel": lib.iclr17c_gdn_smem_bytes(N_CH),
-                "gdn_rows_kernel": lib.iclr17c_gdn_smem_bytes(N_CH)}
+                "gdn_rows_kernel": lib.iclr17c_gdn_smem_bytes(N_CH),
+                "conv_gdn_bf16_kernel": lib.iclr17c_conv_gdn_smem_bytes_bf16(N_CH),
+                "conv_gdn_reduce_bf16_kernel": lib.iclr17c_gdn_smem_bytes(N_CH),
+                "gdn_rows_bf16_kernel": lib.iclr17c_gdn_bf16_smem_bytes(N_CH)}
     for name, nbytes in dyn_smem.items():
         ptxas.setdefault(name, {})["dynamic_smem_bytes_c128"] = nbytes
     emit({"phase": "build", "kernels_s": round(t_kernels, 3), "rans_s": round(t_rans, 3),
@@ -3555,7 +4059,7 @@ def main() -> int:
 
     tools = types.SimpleNamespace(check=check, emit=emit, time_ms=time_ms, call_ms=call_ms,
                                   measure_k2=measure_k2, measure_k1=measure_k1, new_row=new_row,
-                                  bound_ms=bound_ms, floor_ms=floor_ms)
+                                  bound_ms=bound_ms, floor_ms=floor_ms, compare=compare)
     dsc_train = dsc_train_phase(torch, dev, tools)
     dsc_train_launches = dsc_train["launches"]
     hyper = hyper_phase(torch, dev, tools)
@@ -3564,6 +4068,7 @@ def main() -> int:
     fusion = dsc_fusion_phase(torch, dev, tools)
     aux = aux_phase(torch, dev, tools, KITTI_TRAIN_DIR)
     evals = eval_phase(torch, dev, tools)
+    prec = precision_phase(torch, dev, tools)
     paths = {"codec": launches, "train": train_launches, "dsc": dsc_launches,
              "dsc_train": dsc_train_launches, "hyper": hyper_launches,
              "hyper_train": hyper_train["launches"], "dsc_fusion": fusion["launches"],
@@ -3639,6 +4144,30 @@ def main() -> int:
         else:
             entry.update(launch_floor_ms=row["launch_floor_ms"], dsc_step16=k3_dsc,
                          dsc_validation=dsc_train["k3_validation"], fusion_codes=fusion["k3"])
+        if name == "conv_gdn":
+            fp = prec["k2_fp32_blocked_conv1"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], fp["max_abs_err"])
+            entry["blocked_conv1"] = {k: fp.get(k) for k in (
+                "x", "w", "splits", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err", "max_rel_err")}
+        kernels.append(entry)
+    # the bf16 variants: their launches on the precision phase's two main
+    # paths (the Ballé headline in bf16 with io_block 4, the DSC serving split
+    # in bf16); bound at the bf16 dense peak and 2 bytes an element
+    for name in ("conv_gdn", "gdn", "quantize_pack"):
+        row = prec["rows"][name + "_bf16"]
+        entry = {"name": name + "_bf16", "route": "cuda", "source": meta[name][0],
+                 "replaces": meta[name][1], "launches": prec["launches"][name],
+                 "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                 "library_ms": row["library_ms"], "bound_route": "bf16",
+                 "shapes": [{k: st.get(k) for k in (
+                     "where", "x", "splits", "ms", "call_ms", "plain_ms", "library_ms", "fp32_ms",
+                     "bound_ms", "bound_by", "share_diff") if k in st} for st in row["shapes"]]}
+        if name == "quantize_pack":
+            entry["launch_floor_ms"] = row["launch_floor_ms"]
+        else:
+            entry["share_diff"] = row["share_diff"]
         kernels.append(entry)
     print(f"chip_smoke seconds: {time.perf_counter() - t_script:.1f}", flush=True)
     print(smi, flush=True)

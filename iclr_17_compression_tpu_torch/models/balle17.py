@@ -14,11 +14,20 @@ Counterpart of ``iclr_17_compression_tpu/models/balle17.py``:
 On CUDA the analysis transform runs as three K2 launches
 (``analysis17_fused``) and each IGDN as one K1 launch, forward and under
 autograd alike; on the CPU every stage is plain PyTorch. Every forward on a
-CUDA tensor turns TF32 off for the process (``utils.device.no_tf32``), so
-the cuDNN convolutions of the forward and of the backward that follows run
-in fp32, as the JAX package computes. Module names give the reference
-state_dict keys (``Encoder.conv1.weight``, ``Decoder.igdn2.gamma``,
+CUDA tensor applies the precision policy's flags
+(``utils.device.precision_on_cuda``; at the default, TF32 off), so the cuDNN
+convolutions of the forward and of the backward that follows run in fp32,
+as the JAX package computes. Module names give the reference state_dict
+keys (``Encoder.conv1.weight``, ``Decoder.igdn2.gamma``,
 ``bitEstimator.f1.h``).
+
+``io_block = 4`` is the JAX package's blocked image I/O: the model takes
+``ops.conv.space_to_depth(image, 4)`` and returns a blocked recon; conv1 and
+deconv3 run as 3×3 stride-1 convs over 48 channels (conv1 as K2 on CUDA)
+with the canonical parameters reinterpreted, so checkpoints are shared with
+the unblocked graph. Under ``ops.precision.cast_storage(model,
+torch.bfloat16)`` and a bf16 image the forward runs bf16 storage (K1, K2
+and K3 in their bf16 variants on CUDA); the rate term stays fp32.
 """
 
 import math
@@ -31,14 +40,9 @@ from ..nn.layers import GDN, BitEstimator, TorchConv, TorchConvTranspose, init_m
 from ..ops import quant
 from ..ops.entropy import estimate_bits
 from ..ops.kernels.conv_gdn_kernel import analysis17_fused
-from ..utils.device import no_tf32
+from ..utils.device import precision_on_cuda
 
 QUANT_MODES = ("noise-round", "ste", "binarize")
-
-
-def _fp32_on_cuda(x: torch.Tensor) -> None:
-    if x.device.type == "cuda":
-        no_tf32()
 
 
 class Analysis17(nn.Module):
@@ -46,18 +50,19 @@ class Analysis17(nn.Module):
     reference's Analysis_net_17_new: sigmoid → binarizer, returning
     (code, pre_binarize)."""
 
-    def __init__(self, out_channel_n: int = 128, binarize: bool = False):
+    def __init__(self, out_channel_n: int = 128, binarize: bool = False, input_block: int = 1):
         super().__init__()
         n = out_channel_n
         self.binarize = binarize
-        self.conv1 = TorchConv(3, n, 9, stride=4, padding=4, gain=math.sqrt(2 * (3 + n) / 6))
+        self.conv1 = TorchConv(3, n, 9, stride=4, padding=4, gain=math.sqrt(2 * (3 + n) / 6),
+                               input_block=input_block)
         self.gdn1 = GDN(n)
         self.conv2 = TorchConv(n, n, 5, stride=2, padding=2, gain=math.sqrt(2))
         self.gdn2 = GDN(n)
         self.conv3 = TorchConv(n, n, 5, stride=2, padding=2, bias=False, gain=math.sqrt(2))
 
     def forward(self, x: torch.Tensor):
-        _fp32_on_cuda(x)
+        precision_on_cuda(x)
         if x.device.type == "cuda":
             x = analysis17_fused(self, x)
         else:
@@ -71,9 +76,10 @@ class Analysis17(nn.Module):
 
 
 class Synthesis17(nn.Module):
-    """3-stage synthesis transform (×16), NHWC."""
+    """3-stage synthesis transform (×16), NHWC; ``output_block = 4`` emits
+    the recon space-to-depth-blocked."""
 
-    def __init__(self, out_channel_n: int = 128):
+    def __init__(self, out_channel_n: int = 128, output_block: int = 1):
         super().__init__()
         n = out_channel_n
         sq2 = math.sqrt(2)
@@ -84,10 +90,10 @@ class Synthesis17(nn.Module):
                                           gain=sq2)
         self.igdn2 = GDN(n, inverse=True)
         self.deconv3 = TorchConvTranspose(n, 3, 9, stride=4, padding=4, output_padding=3,
-                                          gain=sq2)
+                                          gain=sq2, output_block=output_block)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _fp32_on_cuda(x)
+        precision_on_cuda(x)
         x = self.igdn1(self.deconv1(x))
         x = self.igdn2(self.deconv2(x))
         return self.deconv3(x)
@@ -103,17 +109,22 @@ class Balle17Compressor(nn.Module):
                ``binarize``, latent elements per pixel
       pre_binarize : the sigmoid before the binarizer (``binarize`` only)
     ``generator`` draws the training noise of ``noise-round`` (the
-    counterpart of the JAX model's explicit ``rng``).
+    counterpart of the JAX model's explicit ``rng``). ``io_block = 4``:
+    blocked image I/O (image and recon ``space_to_depth(·, 4)``); the
+    parameters, mse and bpp are those of the unblocked graph.
     """
 
-    def __init__(self, out_channel_n: int = 128, quant: str = "noise-round"):
+    def __init__(self, out_channel_n: int = 128, quant: str = "noise-round",
+                 io_block: int = 1):
         super().__init__()
         if quant not in QUANT_MODES:
             raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
         self.out_channel_n = out_channel_n
         self.quant = quant
-        self.Encoder = Analysis17(out_channel_n, binarize=quant == "binarize")
-        self.Decoder = Synthesis17(out_channel_n)
+        self.io_block = io_block
+        self.Encoder = Analysis17(out_channel_n, binarize=quant == "binarize",
+                                  input_block=io_block)
+        self.Decoder = Synthesis17(out_channel_n, output_block=io_block)
         self.bitEstimator = BitEstimator(out_channel_n)
 
     def init_(self, generator: torch.Generator) -> "Balle17Compressor":
@@ -123,8 +134,9 @@ class Balle17Compressor(nn.Module):
 
     def forward(self, image: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        _fp32_on_cuda(image)
+        precision_on_cuda(image)
         n, h, w, _ = image.shape
+        n_pix = n * h * w * self.io_block * self.io_block
         out = {}
         if self.quant == "binarize":
             latent, out["pre_binarize"] = self.Encoder(image)
@@ -140,10 +152,10 @@ class Balle17Compressor(nn.Module):
         out.update(recon=torch.clamp(recon, 0.0, 1.0), latent=latent,
                    mse=torch.mean((recon - image) ** 2))
         if self.quant == "binarize":
-            out["bpp"] = torch.tensor(latent.numel() / (n * h * w), device=image.device)
+            out["bpp"] = torch.tensor(latent.numel() / n_pix, device=image.device)
         else:
             # rate term in fp32 always: the CDF difference of two near-equal
             # sigmoids cancels catastrophically in lower precision
             total_bits, _ = estimate_bits(latent.float(), self.bitEstimator.params())
-            out["bpp"] = total_bits / (n * h * w)
+            out["bpp"] = total_bits / n_pix
         return out

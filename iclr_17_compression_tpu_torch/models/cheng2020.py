@@ -15,7 +15,7 @@ Counterpart of ``iclr_17_compression_tpu/models/cheng2020.py``:
 On CUDA each ``ResidualBlockWithStride`` / ``ResidualBlockUpsample`` conv +
 (I)GDN pair is one K2 launch (``nn/blocks.py``): three in ``g_a``, three in
 ``g_s``; every other conv is ``F.conv2d``. Every forward on a CUDA tensor
-turns TF32 off for the process.
+applies the precision policy's flags (TF32 off at the default).
 
 ``compress`` / ``decompress`` write and read real streams. The transforms
 and the hyper path run on the model's device (forward convolutions only,
@@ -51,7 +51,8 @@ from ..nn.layers import BitEstimator, MaskedConv
 from ..ops import quant
 from ..ops.conv import oihw_to_hwio
 from ..ops.entropy import LOG2
-from .hyperprior import _device, _fp32_on_cuda, _host, z_codec
+from ..utils.device import precision_on_cuda
+from .hyperprior import _device, _host, z_codec
 
 AR_BACKENDS = ("native", "numpy")
 
@@ -159,7 +160,7 @@ class JointAutoregressive(nn.Module):
         (recon clipped, latent ŷ, hyper_latent ẑ, sigma, mu, mse, bpp_y,
         bpp_z, bpp). The context runs in one parallel masked conv.
         ``train``: the noise quantizers, drawn from ``generator``."""
-        _fp32_on_cuda(image)
+        precision_on_cuda(image)
         n_img, h, w, _ = image.shape
         y = self.g_a(image)
         z = self.h_a(y)

@@ -46,7 +46,7 @@ from ..nn.layers import TorchConv
 from ..ops import quant
 from ..ops.kernels.quant_pack_kernel import quantize_pack
 from ..ops.metrics import ms_ssim
-from ..utils.device import no_tf32
+from ..utils.device import precision_on_cuda
 from .attention import PatchMatchAttention, bottleneck_attention
 from .enhance import FIF
 from .passr import PAM
@@ -268,12 +268,6 @@ def _receiver_stacks(cfg: DSCConfig) -> Tuple[str, ...]:
     return tuple(names)
 
 
-
-def _fp32_on_cuda(x: torch.Tensor) -> None:
-    if x.device.type == "cuda":
-        no_tf32()
-
-
 class DSCStereoModel(nn.Module):
     """Two-branch DSC codec; behaviour set by ``config``.
 
@@ -323,14 +317,14 @@ class DSCStereoModel(nn.Module):
 
     def encode(self, im1: torch.Tensor) -> torch.Tensor:
         """The transmitter: ``g_a22(g_a(im1))``, the code before quantization."""
-        _fp32_on_cuda(im1)
+        precision_on_cuda(im1)
         return self.g_a22(self.g_a(im1))
 
     def forward(self, im1: torch.Tensor, im2: torch.Tensor, train: bool = False,
                 mask_channels: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         cfg = self.config
-        _fp32_on_cuda(im1)
+        precision_on_cuda(im1)
         z1 = self.g_a(im1)
         z2 = _si_encoder(self)(im2)
         out = {"z1": z1, "z2": z2}
@@ -415,7 +409,7 @@ class DSCDecoder(nn.Module):
 
     def forward(self, code: torch.Tensor, im2: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        _fp32_on_cuda(im2)
+        precision_on_cuda(im2)
         z2 = _si_encoder(self)(im2)
         z1_hat = self.g_s22(code)
         z2_hat = self.g_s22(self.g_a22(z2)) if cfg.fusion == "cat3" else None

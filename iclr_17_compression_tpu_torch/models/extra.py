@@ -38,7 +38,7 @@ from ..nn.layers import (GDN, BitEstimator, TorchConv, TorchConvTranspose, init_
                          torch_default_init_)
 from ..ops.conv import nchw, nhwc
 from ..ops.entropy import estimate_bits
-from ..utils.device import no_tf32
+from ..utils.device import precision_on_cuda
 from .balle17 import Analysis17, Synthesis17
 
 # The linear layers' truncated normal: flax's lecun_normal scales the
@@ -56,11 +56,6 @@ class Linear(nn.Linear):
             nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std,
                                   generator=generator)
             self.bias.zero_()
-
-
-def _fp32_on_cuda(x: torch.Tensor) -> None:
-    if x.device.type == "cuda":
-        no_tf32()
 
 
 class ImageCompressorFC(nn.Module):
@@ -83,7 +78,7 @@ class ImageCompressorFC(nn.Module):
         return init_modules_(self, generator)
 
     def forward(self, image: torch.Tensor, train: bool = False) -> Dict[str, torch.Tensor]:
-        _fp32_on_cuda(image)
+        precision_on_cuda(image)
         n_img, h, w, _ = image.shape
         feature = self.Encoder(image)
         latent = feature if train else torch.round(feature)
@@ -118,7 +113,7 @@ class LatentCompressor(nn.Module):
         return self
 
     def forward(self, z1: torch.Tensor, z2: torch.Tensor) -> Dict[str, torch.Tensor]:
-        _fp32_on_cuda(z1)
+        precision_on_cuda(z1)
         recon_z = self.fc_combine_zx_zy(torch.cat([z1, z2], dim=-1))
         return {"recon_z": recon_z, "z1_down": self.conv_down_zx(z1),
                 "mse": torch.mean((recon_z - z1) ** 2)}
@@ -148,7 +143,7 @@ class AnalysisSmall(nn.Module):
         return init_modules_(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _fp32_on_cuda(x)
+        precision_on_cuda(x)
         x = self.gdn1(self.conv1(x))
         x = self.gdn2(self.conv2(x))
         x = self.gdn3(self.conv3(x))
@@ -179,7 +174,7 @@ class SynthesisSmall(nn.Module):
         return init_modules_(self, generator)
 
     def forward(self, code: torch.Tensor) -> torch.Tensor:
-        _fp32_on_cuda(code)
+        precision_on_cuda(code)
         x = self.fc2(self.fc1(code))
         x = nhwc(x.reshape(x.shape[0], 16, 16, 16))
         x = self.igdn1(self.deconv1(x))

@@ -14,7 +14,8 @@ give the reference keys that ``import_hyperprior`` maps: ``Encoder``
 (g_a), ``Decoder`` (g_s), ``priorEncoder`` (h_a), ``priorDecoder`` (h_s),
 ``bitEstimator_z``. On CUDA the encoder's three conv + GDN stages are K2
 launches and the decoder's three IGDNs K1 launches (``transforms18.py``);
-every forward on a CUDA tensor turns TF32 off for the process.
+every forward on a CUDA tensor applies the precision policy's flags
+(TF32 off at the default).
 
 ``compress`` / ``decompress`` write and read real streams: ẑ against the
 BitEstimator's tables (built on the CPU in fp32), ŷ against the σ-indexed
@@ -46,8 +47,7 @@ from ..coding.gaussian import (default_laplace_codec, default_scale_table, scale
 from ..nn.layers import BitEstimator, init_modules_
 from ..ops import quant
 from ..ops.entropy import LOG2
-from ..utils.device import cudnn_deterministic, no_tf32
-from .balle17 import _fp32_on_cuda
+from ..utils.device import apply_precision, cudnn_deterministic, precision_on_cuda
 from .transforms18 import Analysis18, AnalysisPrior, Synthesis18, SynthesisPrior
 
 QUANT_MODES = ("round", "sigma-norm")
@@ -95,7 +95,7 @@ class ScaleHyperprior(nn.Module):
         """The forward on an NHWC batch in [0, 1]: the JAX model's dict
         (recon clipped, latent ŷ, hyper_latent ẑ, sigma, mse, bpp_y, bpp_z,
         bpp). ``train``: the noise quantizers, drawn from ``generator``."""
-        _fp32_on_cuda(image)
+        precision_on_cuda(image)
         n_img, h, w, _ = image.shape
         y = self.Encoder(image)
         z = self.priorEncoder(y)
@@ -144,10 +144,10 @@ def z_codec(model: nn.Module, z_min: int, z_max: int):
 
 
 def _device(model: nn.Module) -> torch.device:
-    """The model's device (TF32 turned off if it is a card)."""
+    """The model's device (the precision policy applied if it is a card)."""
     dev = next(model.parameters()).device
     if dev.type == "cuda":
-        no_tf32()
+        apply_precision()
     return dev
 
 

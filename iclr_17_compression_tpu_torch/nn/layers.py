@@ -72,26 +72,64 @@ class _JaxInit:
 
 class TorchConv(_JaxInit, nn.Conv2d):
     """``nn.Conv2d`` taking and returning NHWC; ``gain`` is the training
-    init's xavier gain."""
+    init's xavier gain.
 
-    def __init__(self, *args, gain: float = 1.0, **kw):
+    ``input_block = s`` (stride s, kernel 2s+1, padding s: the Ballé-17
+    conv1): the input comes blocked by ``ops.conv.space_to_depth(x, s)`` and
+    the conv runs as a 3×3 stride-1 conv over s²·Cin channels with the
+    weight ``block_conv_weight`` gives. The parameter keeps its canonical
+    OIHW shape, so checkpoints serve both graphs."""
+
+    def __init__(self, *args, gain: float = 1.0, input_block: int = 1, **kw):
         super().__init__(*args, **kw)
         self.gain = gain
+        self.input_block = input_block
+        s = input_block
+        if s > 1 and (self.kernel_size != (2 * s + 1,) * 2 or self.stride != (s, s)
+                      or self.padding != (s, s) or self.dilation != (1, 1)
+                      or self.groups != 1):
+            raise ValueError("input_block covers the kernel 2s+1 / stride s / padding s conv")
+
+    def blocked_weight(self) -> torch.Tensor:
+        """The HWIO weight of the blocked 3×3 stride-1 conv."""
+        return ops_conv.block_conv_weight(ops_conv.oihw_to_hwio(self.weight), self.input_block)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.input_block > 1:
+            return ops_conv.conv2d(x, ops_conv.hwio_to_oihw(self.blocked_weight()), self.bias,
+                                   stride=1, padding=1)
         return ops_conv.conv2d(x, self.weight, self.bias, stride=self.stride,
                                padding=self.padding, dilation=self.dilation)
 
 
 class TorchConvTranspose(_JaxInit, nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` taking and returning NHWC; ``gain`` is the
-    training init's xavier gain."""
+    training init's xavier gain.
 
-    def __init__(self, *args, gain: float = 1.0, **kw):
+    ``output_block = s`` (stride s, kernel 2s+1, padding s, output_padding
+    s−1: the Ballé-17 deconv3): the output comes blocked, (B, H, W,
+    s²·Cout), from a 3×3 stride-1 conv with the weight
+    ``block_deconv_weight`` gives and the bias tiled s² times; un-block it
+    with ``ops.conv.depth_to_space(y, s)``. The parameter keeps its
+    canonical shape."""
+
+    def __init__(self, *args, gain: float = 1.0, output_block: int = 1, **kw):
         super().__init__(*args, **kw)
         self.gain = gain
+        self.output_block = output_block
+        s = output_block
+        if s > 1 and (self.kernel_size != (2 * s + 1,) * 2 or self.stride != (s, s)
+                      or self.padding != (s, s) or self.output_padding != (s - 1, s - 1)
+                      or self.dilation != (1, 1) or self.groups != 1):
+            raise ValueError("output_block covers the kernel 2s+1 / stride s / padding s / "
+                             "output_padding s-1 transposed conv")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.output_block
+        if s > 1:
+            wb = ops_conv.block_deconv_weight(ops_conv.deconv_torch_to_hwio(self.weight), s)
+            bb = None if self.bias is None else self.bias.repeat(s * s)
+            return ops_conv.conv2d(x, ops_conv.hwio_to_oihw(wb), bb, stride=1, padding=1)
         return ops_conv.conv_transpose2d(
             x, self.weight, self.bias, stride=self.stride, padding=self.padding,
             output_padding=self.output_padding,

@@ -9,7 +9,9 @@ the gated-gradient ``lower_bound`` before being squared back.
 
 ``gdn`` dispatches by the tensor's device: a CPU tensor takes the plain
 version, a CUDA tensor the K1 kernel (``kernels/gdn_kernel.py``). There is no
-switch and no fallback.
+switch and no fallback. As the Pallas wrapper does, it hands the kernel γᵀ
+in x's element type and β in fp32 (no-ops on fp32 storage; under bf16
+storage the reparameterization itself runs in bf16, as in JAX).
 """
 
 from typing import NamedTuple
@@ -56,10 +58,10 @@ def gdn_reparam(params: GDNParams):
 def gdn_plain(x: torch.Tensor, params: GDNParams, inverse: bool = False) -> torch.Tensor:
     """The plain PyTorch version (the twin of ``gdn_xla``)."""
     beta, gamma = gdn_reparam(params)
-    return gdn_fused_plain(x, gamma.t(), beta, inverse)
+    return gdn_fused_plain(x, gamma.t().to(x.dtype), beta.float(), inverse)
 
 
 def gdn(x: torch.Tensor, params: GDNParams, inverse: bool = False) -> torch.Tensor:
     """(I)GDN over the last axis of a (..., C) tensor, dispatched by device."""
     beta, gamma = gdn_reparam(params)
-    return gdn_fused(x, gamma.t().contiguous(), beta, inverse)
+    return gdn_fused(x, gamma.t().contiguous().to(x.dtype), beta.float(), inverse)

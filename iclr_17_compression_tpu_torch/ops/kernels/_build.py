@@ -96,25 +96,32 @@ def build(name: str, compiler: str, flags: list, sources: list, deps: list = ())
 
 @functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
-    """The CUDA kernels K1-K3 and an empty kernel, whose launch is the
-    floor under K3's time (built on first call)."""
+    """The CUDA kernels K1-K3, each in fp32 and bf16, and an empty kernel,
+    whose launch is the floor under K3's time (built on first call)."""
     sources = sorted(CSRC.glob("*.cu"))
     path, _ = build(
         "libiclr17c_kernels.so", _nvcc(), NVCC_FLAGS, sources, sorted(CSRC.glob("*.cuh"))
     )
     lib = ctypes.CDLL(str(path))
-    lib.iclr17c_gdn.restype = _i
-    lib.iclr17c_gdn.argtypes = [_c, _c, _c, _c, _ll, _i, _i, _c]
-    lib.iclr17c_conv_gdn.restype = _i
-    lib.iclr17c_conv_gdn.argtypes = [_c] * 7 + [_i] * 13 + [_c]
-    for fn in (lib.iclr17c_conv_gdn_smem_bytes, lib.iclr17c_gdn_smem_bytes):
+    for fn in (lib.iclr17c_gdn, lib.iclr17c_gdn_bf16):
+        fn.restype = _i
+        fn.argtypes = [_c, _c, _c, _c, _ll, _i, _i, _c]
+    for fn in (lib.iclr17c_conv_gdn, lib.iclr17c_conv_gdn_bf16):
+        fn.restype = _i
+        fn.argtypes = [_c] * 7 + [_i] * 13 + [_c]
+    for fn in (lib.iclr17c_conv_gdn_smem_bytes, lib.iclr17c_conv_gdn_smem_bytes_bf16,
+               lib.iclr17c_gdn_smem_bytes, lib.iclr17c_gdn_bf16_smem_bytes):
         fn.restype = ctypes.c_size_t
         fn.argtypes = [_i]
-    lib.iclr17c_conv_gdn_blocks_per_sm.restype = _i
-    lib.iclr17c_conv_gdn_blocks_per_sm.argtypes = [_i]
+    for fn in (lib.iclr17c_conv_gdn_blocks_per_sm, lib.iclr17c_conv_gdn_blocks_per_sm_bf16):
+        fn.restype = _i
+        fn.argtypes = [_i]
     for fn in (lib.iclr17c_quant_pack, lib.iclr17c_quant_pack16):
         fn.restype = _i
         fn.argtypes = [_c, _c, _c, _ll, ctypes.c_float, _i, _c]
+    for fn in (lib.iclr17c_quant_pack_bf16, lib.iclr17c_quant_pack16_bf16):
+        fn.restype = _i
+        fn.argtypes = [_c, _c, _c, _ll, ctypes.c_float, ctypes.c_float, _i, _c]
     lib.iclr17c_empty.restype = _i
     lib.iclr17c_empty.argtypes = [_c]
     return lib
@@ -139,6 +146,19 @@ def check_launch(err: int, what: str) -> None:
     runs, and a later synchronize would not report it)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+# The element types the kernels take; each wrapper names, for the type of its
+# input, the types of its other operands (the Pallas wrappers' dtype flow).
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_dtype(what: str, x) -> torch.dtype:
+    """The element type of ``x`` if a kernel variant takes it, else raise:
+    a tensor of another type is never converted to one the kernel takes."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{what}: the kernels take float32 or bfloat16, got {x.dtype}")
+    return x.dtype
 
 
 def check_tensor(name: str, t, shape: tuple = None, dtype=torch.float32) -> None:

@@ -23,6 +23,21 @@ A stage with too few 64-pixel tiles to fill the card splits its K (the k·k
 taps) into ``plan_splits`` parts of whole taps; the wrapper allocates the
 fp32 partials and the C launcher reduces them in fixed order inside the
 same call.
+
+Two element types, as the Pallas kernel takes any: fp32 (products in
+3xTF32), or bf16 x and weight with fp32 bias, γᵀ and β (the Pallas wrapper
+casts the weight to x's type and keeps the bias and the GDN parameters in
+fp32). In bf16 the conv products run as one bf16 tensor-core pass
+accumulating in fp32, the bias and the (I)GDN epilogue stay fp32 (3xTF32
+norm), split-K partials stay fp32, and only the store rounds to bf16.
+Launches count in ``conv_gdn.launches``, the bf16 ones also in
+``launches_bf16``.
+
+Blocked image I/O: ``conv_gdn_module`` runs a ``TorchConv`` with
+``input_block = s`` (the Ballé-17 conv1 over ``space_to_depth(x, 4)``) as a
+3×3 stride-1 K2 call over s²·Cin channels with ``block_conv_weight``; the
+reinterpretation is outside the Function, so the gradient reaches the
+canonical OIHW weight.
 """
 
 import functools
@@ -60,10 +75,13 @@ def plan_splits(pixels: int, taps: int, slots: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def block_slots(index: int, cout: int) -> int:
-    """Blocks of the kernel that card ``index`` runs at once at ``cout``
-    output channels: its SMs times the blocks an SM holds."""
-    per_sm = _build.kernels().iclr17c_conv_gdn_blocks_per_sm(cout)
+def block_slots(index: int, cout: int, bf16: bool = False) -> int:
+    """Blocks of the kernel (its bf16 variant with ``bf16``) that card
+    ``index`` runs at once at ``cout`` output channels: its SMs times the
+    blocks an SM holds."""
+    lib = _build.kernels()
+    per_sm = (lib.iclr17c_conv_gdn_blocks_per_sm_bf16 if bf16
+              else lib.iclr17c_conv_gdn_blocks_per_sm)(cout)
     if per_sm < 1:
         raise RuntimeError(f"conv_gdn: no block of the kernel fits an SM at Cout={cout}")
     return per_sm * torch.cuda.get_device_properties(index).multi_processor_count
@@ -72,7 +90,14 @@ def block_slots(index: int, cout: int) -> int:
 def conv_gdn_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                    gamma_t: Optional[torch.Tensor], beta: Optional[torch.Tensor],
                    stride: int, padding: int, inverse: bool = False) -> torch.Tensor:
-    """The plain PyTorch version: ``F.conv2d`` then the plain GDN."""
+    """The plain PyTorch version: ``F.conv2d`` then the plain GDN. On bf16
+    ``x`` the bf16 operands are upcast and the conv, bias and GDN computed in
+    fp32, rounded to bf16 once (the kernel's rounding points)."""
+    if x.dtype == torch.bfloat16:
+        y = conv_gdn_plain(x.float(), w.float(), None if b is None else b.float(),
+                           None if gamma_t is None else gamma_t.float(),
+                           None if beta is None else beta.float(), stride, padding, inverse)
+        return y.to(torch.bfloat16)
     y = conv2d(x, hwio_to_oihw(w), b, stride=stride, padding=padding)
     if gamma_t is not None:
         y = gdn_fused_plain(y, gamma_t, beta, inverse)
@@ -114,22 +139,25 @@ def _launch(x, w, b, gamma_t, beta, stride, padding, inverse):
     ho = (h + 2 * padding - k) // stride + 1
     wo = (wd + 2 * padding - k) // stride + 1
     gdn_on = gamma_t is not None
-    _build.check_tensor("x", x)
-    _build.check_tensor("w", w)
+    dtype = _build.kernel_dtype("conv_gdn", x)
+    bf16 = dtype == torch.bfloat16
+    _build.check_tensor("x", x, dtype=dtype)
+    _build.check_tensor("w", w, dtype=dtype)
     if b is not None:
         _build.check_tensor("b", b, (cout,))
     if gdn_on:
         _build.check_tensor("gamma_t", gamma_t, (cout, cout))
         _build.check_tensor("beta", beta, (cout,))
-    out = torch.empty((n, ho, wo, cout), device=x.device, dtype=torch.float32)
+    out = torch.empty((n, ho, wo, cout), device=x.device, dtype=dtype)
     p = n * ho * wo
     lib = _build.kernels()
+    launch = lib.iclr17c_conv_gdn_bf16 if bf16 else lib.iclr17c_conv_gdn
     with torch.cuda.device(x.device):
-        splits = plan_splits(p, k * k, block_slots(torch.cuda.current_device(), cout))
+        splits = plan_splits(p, k * k, block_slots(torch.cuda.current_device(), cout, bf16))
         partials = None
         if splits > 1:
             partials = torch.empty((splits, p, cout), device=x.device, dtype=torch.float32)
-        err = lib.iclr17c_conv_gdn(
+        err = launch(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             gamma_t.data_ptr() if gdn_on else None, beta.data_ptr() if gdn_on else None,
             out.data_ptr(), None if partials is None else partials.data_ptr(), splits,
@@ -138,30 +166,41 @@ def _launch(x, w, b, gamma_t, beta, stride, padding, inverse):
         )
     _build.check_launch(err, "conv_gdn")
     conv_gdn.launches += 1  # forward launches only: the backward runs plain PyTorch
+    conv_gdn.launches_bf16 += bf16
     return out
 
 
 conv_gdn.launches = 0
+conv_gdn.launches_bf16 = 0
 
 
 def conv_gdn_module(x: torch.Tensor, conv, gdn=None) -> torch.Tensor:
     """A ``TorchConv`` module followed by a ``GDN`` module (or none) as one
     ``conv_gdn`` call, with the conv's stride and padding and the GDN's
-    direction. The gradient reaches the OIHW weight through the
-    ``oihw_to_hwio`` permute and the stored GDN parameters through
-    ``gdn_reparam``, both outside the Function."""
+    direction; a conv with ``input_block`` > 1 as the 3×3 stride-1 blocked
+    conv. The gradient reaches the OIHW weight through the ``oihw_to_hwio``
+    permute (and ``block_conv_weight``) and the stored GDN parameters
+    through ``gdn_reparam``, all outside the Function. As the Pallas
+    wrapper, it hands the kernel the weight in x's element type and the
+    bias, γᵀ and β in fp32 (no-ops on fp32 storage)."""
     gamma_t = beta = None
     if gdn is not None:
         beta, gamma = gdn_reparam(gdn.params())
-        gamma_t = gamma.t().contiguous()
-    return conv_gdn(x, oihw_to_hwio(conv.weight).contiguous(), conv.bias, gamma_t, beta,
-                    conv.stride[0], conv.padding[0], gdn is not None and gdn.inverse)
+        gamma_t, beta = gamma.t().contiguous().float(), beta.float()
+    if getattr(conv, "input_block", 1) > 1:
+        w, stride, padding = conv.blocked_weight(), 1, 1
+    else:
+        w, stride, padding = oihw_to_hwio(conv.weight), conv.stride[0], conv.padding[0]
+    b = None if conv.bias is None else conv.bias.float()
+    return conv_gdn(x, w.to(x.dtype).contiguous(), b, gamma_t, beta, stride, padding,
+                    gdn is not None and gdn.inverse)
 
 
 def analysis17_fused(encoder, x: torch.Tensor) -> torch.Tensor:
     """The Ballé-17 analysis transform as three ``conv_gdn`` calls, driven
-    from an ``Analysis17`` module: conv1 9×9 s4 + GDN, conv2 5×5 s2 + GDN,
-    conv3 5×5 s2 (no bias, no GDN). NHWC in, NHWC latent out."""
+    from an ``Analysis17`` module: conv1 9×9 s4 + GDN (3×3 s1 over 48
+    channels when the input comes blocked), conv2 5×5 s2 + GDN, conv3 5×5
+    s2 (no bias, no GDN). NHWC in, NHWC latent out."""
     y = conv_gdn_module(x, encoder.conv1, encoder.gdn1)
     y = conv_gdn_module(y, encoder.conv2, encoder.gdn2)
     return conv_gdn_module(y, encoder.conv3)

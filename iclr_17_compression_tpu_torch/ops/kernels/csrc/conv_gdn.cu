@@ -42,6 +42,21 @@
 // The tile was chosen with nvcc -Xptxas -v: 8 warps of 32 x 32 at Cout = 128
 // fit in 127 registers a thread with no spills, so two blocks share an SM
 // (107 KB of shared memory each).
+//
+// bf16 storage (conv_gdn_bf16_kernel, the same body instantiated for bf16):
+// x and the weight are bf16, the bias, gamma_t and beta fp32, as the Pallas
+// wrapper hands them (conv_gdn_kernel.py:249-261). The conv products run as
+// one bf16 mma.sync m16n8k16 pass with fp32 accumulators, each 32-deep K
+// step summed from zero and added to the fp32 accumulator (no hi/lo split:
+// bf16 products are exact in fp32); the bias, the 3xTF32 (I)GDN epilogue and
+// the split-K partials stay fp32, and the store alone rounds to bf16. The
+// ring holds bf16 tiles (a 32-deep step is 64 bytes of a pixel row): with
+// Cin % 8 == 0 a pixel's row of a step is four 16-byte cp.async copies of 8
+// channels (a tap of the blocked conv1's Cin = 48 is six of them, so a step
+// straddles taps at whole copies); with Cin = 3 (6 bytes a pixel, which no
+// cp.async size divides) the A tile is gathered with ordinary loads into
+// shared memory. Bound: half the bytes of fp32, and the products at the
+// bf16 dense rate, so operations at the Ballé-17 stages.
 
 #include <cuda_runtime.h>
 
@@ -51,26 +66,38 @@ namespace iclr17c {
 
 constexpr int BM = 64;      // output pixels a block: 2 warps of 32
 constexpr int STAGES = 4;   // depth of the cp.async ring
+constexpr int LDKH = BK + 8;  // padded row of a bf16 [m][BK] tile (80 bytes)
+
+// bf16 [k][C] B tile rows: C + 8 elements, 16-byte aligned for C % 8 == 0.
+__host__ __device__ constexpr int ldbh_of(int C) { return C + 8; }
 
 struct ConvArgs {
-  const float* x;        // (N, H, W, Cin)
-  const float* w;        // (ksz, ksz, Cin, C) HWIO = (K, C)
+  const void* x;         // (N, H, W, Cin), fp32 or bf16
+  const void* w;         // (ksz, ksz, Cin, C) HWIO = (K, C), as x
   const float* bias;     // (C,) or null
   const float* gamma_t;  // (C, C) or null: no GDN
   const float* beta;     // (C,)
-  float* out;            // (N, Ho, Wo, C)
+  void* out;             // (N, Ho, Wo, C), as x
   float* part;           // (splits, P, C) when splits > 1
   int N, H, W, Cin, Ho, Wo, C, ksz, stride, pad, splits, inverse;
 };
 
-// The ring, or after the main loop the output tile and a 2-slot gamma_t ring.
-static size_t conv_smem_floats(int C) {
-  const size_t ring = static_cast<size_t>(STAGES) * (BM * LDK + BK * ldb_of(C));
-  const size_t epilogue = static_cast<size_t>(BM) * lda_of(C) + 2ull * BK * ldb_of(C);
+// The ring, or after the main loop the output tile and a 2-slot gamma_t
+// ring, in bytes; the ring of the bf16 variant holds bf16 tiles.
+template <typename T>
+static size_t conv_smem_bytes(int C) {
+  const size_t ring = sizeof(T) == 4
+      ? 4ull * STAGES * (BM * LDK + BK * ldb_of(C))
+      : 2ull * STAGES * (BM * LDKH + BK * ldbh_of(C));
+  const size_t epilogue = 4ull * (static_cast<size_t>(BM) * lda_of(C) + 2ull * BK * ldb_of(C));
   return ring > epilogue ? ring : epilogue;
 }
 
-__global__ void __launch_bounds__(512) conv_gdn_kernel(ConvArgs a) {
+// The kernel's body for element type T: float (3xTF32 products) or
+// __nv_bfloat16 (bf16 products); the epilogue is fp32 for both.
+template <typename T>
+__device__ __forceinline__ void conv_gdn_body(const ConvArgs& a) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ __align__(16) float smem[];
   __shared__ int pn[BM], piy[BM], pix[BM];  // per output pixel: image, top, left
 
@@ -82,9 +109,11 @@ __global__ void __launch_bounds__(512) conv_gdn_kernel(ConvArgs a) {
   const int col0 = WARP_N * (warp >> 1);
   const int C = a.C;
   const int Cin = a.Cin;
-  const int ldb = ldb_of(C);
-  const int a_tile = BM * LDK;
-  const int stage = a_tile + BK * ldb;
+  const int ldb = kBf16 ? ldbh_of(C) : ldb_of(C);
+  const int lda = kBf16 ? LDKH : LDK;
+  const int a_tile = BM * lda;
+  const int stage = a_tile + BK * ldb;  // elements of T
+  const T* const xg = static_cast<const T*>(a.x);
   const long long hw = static_cast<long long>(a.Ho) * a.Wo;
   const long long P = hw * a.N;
   const long long pix0 = static_cast<long long>(blockIdx.x) * BM;
@@ -113,41 +142,76 @@ __global__ void __launch_bounds__(512) conv_gdn_kernel(ConvArgs a) {
   __syncthreads();
 
   // the source of input element (pixel row m, K index kg), or null for zero
-  auto a_src = [&](int m, int kg, int dy, int dx, int ci) -> const float* {
+  auto a_src = [&](int m, int kg, int dy, int dx, int ci) -> const T* {
     const int n = pn[m];
     const int iy = piy[m] + dy;
     const int ix = pix[m] + dx;
     if (kg >= kend || n < 0 || iy < 0 || iy >= a.H || ix < 0 || ix >= a.W) return nullptr;
-    return a.x + ((static_cast<long long>(n) * a.H + iy) * a.W + ix) * Cin + ci;
+    return xg + ((static_cast<long long>(n) * a.H + iy) * a.W + ix) * Cin + ci;
   };
 
   auto load_stage = [&](int slot, int step) {
-    float* as = smem + slot * stage;
     const int k0 = kbeg + step * BK;
-    load_rows_async(as + a_tile, ldb, a.w, k0, kend, BK, C, tid, nthreads);
-    if (Cin % 4 == 0) {
-      // 8 copies of 16 bytes a pixel row; thread tid always takes unit tid % 8
-      const int u = tid & 7;
-      const int kg = k0 + 4 * u;
-      const int tap = kg / Cin;
-      const int ci = kg - tap * Cin;
-      const int dy = tap / a.ksz;
-      const int dx = tap - dy * a.ksz;
-      for (int m = tid >> 3; m < BM; m += nthreads >> 3) {
-        const float* src = a_src(m, kg, dy, dx, ci);
-        cp_async16(as + m * LDK + 4 * u, src ? src : a.x, src != nullptr);
+    if constexpr (!kBf16) {
+      float* as = smem + slot * stage;
+      load_rows_async(as + a_tile, ldb, static_cast<const float*>(a.w), k0, kend, BK, C, tid,
+                      nthreads);
+      if (Cin % 4 == 0) {
+        // 8 copies of 16 bytes a pixel row; thread tid always takes unit tid % 8
+        const int u = tid & 7;
+        const int kg = k0 + 4 * u;
+        const int tap = kg / Cin;
+        const int ci = kg - tap * Cin;
+        const int dy = tap / a.ksz;
+        const int dx = tap - dy * a.ksz;
+        for (int m = tid >> 3; m < BM; m += nthreads >> 3) {
+          const float* src = a_src(m, kg, dy, dx, ci);
+          cp_async16(as + m * LDK + 4 * u, src ? src : xg, src != nullptr);
+        }
+      } else {
+        // one 4-byte copy an element; thread tid always takes column tid % 32
+        const int kk = tid & 31;
+        const int kg = k0 + kk;
+        const int tap = kg / Cin;
+        const int ci = kg - tap * Cin;
+        const int dy = tap / a.ksz;
+        const int dx = tap - dy * a.ksz;
+        for (int m = tid >> 5; m < BM; m += nthreads >> 5) {
+          const float* src = a_src(m, kg, dy, dx, ci);
+          cp_async4(as + m * LDK + kk, src ? src : xg, src != nullptr);
+        }
       }
     } else {
-      // one 4-byte copy an element; thread tid always takes column tid % 32
-      const int kk = tid & 31;
-      const int kg = k0 + kk;
-      const int tap = kg / Cin;
-      const int ci = kg - tap * Cin;
-      const int dy = tap / a.ksz;
-      const int dx = tap - dy * a.ksz;
-      for (int m = tid >> 5; m < BM; m += nthreads >> 5) {
-        const float* src = a_src(m, kg, dy, dx, ci);
-        cp_async4(as + m * LDK + kk, src ? src : a.x, src != nullptr);
+      uint16_t* as = reinterpret_cast<uint16_t*>(smem) + slot * stage;
+      load_rows_async_bf16(as + a_tile, ldb, static_cast<const uint16_t*>(a.w), k0, kend, BK, C,
+                           tid, nthreads);
+      if (Cin % 8 == 0) {
+        // 4 copies of 16 bytes (8 channels) a pixel row; thread tid always
+        // takes unit tid % 4
+        const int u = tid & 3;
+        const int kg = k0 + 8 * u;
+        const int tap = kg / Cin;
+        const int ci = kg - tap * Cin;
+        const int dy = tap / a.ksz;
+        const int dx = tap - dy * a.ksz;
+        for (int m = tid >> 2; m < BM; m += nthreads >> 2) {
+          const T* src = a_src(m, kg, dy, dx, ci);
+          cp_async16(as + m * LDKH + 8 * u, src ? src : xg, src != nullptr);
+        }
+      } else {
+        // one ordinary 2-byte load an element (no cp.async size divides a
+        // 6-byte RGB pixel); thread tid always takes column tid % 32. The
+        // stores are visible after the barrier that precedes this slot's step.
+        const int kk = tid & 31;
+        const int kg = k0 + kk;
+        const int tap = kg / Cin;
+        const int ci = kg - tap * Cin;
+        const int dy = tap / a.ksz;
+        const int dx = tap - dy * a.ksz;
+        for (int m = tid >> 5; m < BM; m += nthreads >> 5) {
+          const T* src = a_src(m, kg, dy, dx, ci);
+          as[m * LDKH + kk] = src ? __ldg(reinterpret_cast<const unsigned short*>(src)) : 0;
+        }
       }
     }
   };
@@ -170,14 +234,19 @@ __global__ void __launch_bounds__(512) conv_gdn_kernel(ConvArgs a) {
     const int ahead = step + STAGES - 1;
     if (ahead < steps) load_stage(ahead % STAGES, ahead);
     cp_async_commit();
-    const float* as = smem + (step % STAGES) * stage;
-    mma_chunk<false>(acc, as + row0 * LDK, LDK, as + a_tile + col0, ldb, lane);
+    if constexpr (!kBf16) {
+      const float* as = smem + (step % STAGES) * stage;
+      mma_chunk<false>(acc, as + row0 * LDK, LDK, as + a_tile + col0, ldb, lane);
+    } else {
+      const uint16_t* as = reinterpret_cast<const uint16_t*>(smem) + (step % STAGES) * stage;
+      mma_chunk_bf16(acc, as + row0 * LDKH, LDKH, as + a_tile + col0, ldb, lane);
+    }
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free
 
   const int ldt = lda_of(C);
-  float* tile = smem;  // [BM][ldt], then the gamma_t ring
+  float* tile = smem;  // [BM][ldt] fp32, then the gamma_t ring
   if (a.splits > 1) {
     frag_to_smem(acc, tile + row0 * ldt + col0, ldt, lane);
     __syncthreads();
@@ -215,28 +284,72 @@ __global__ void __launch_bounds__(512) conv_gdn_kernel(ConvArgs a) {
   }
   frag_to_smem(acc, tile + row0 * ldt + col0, ldt, lane);
   __syncthreads();
-  store_rows(tile, ldt, a.out, pix0, P, BM, C, tid, nthreads);
+  store_rows(tile, ldt, static_cast<T*>(a.out), pix0, P, BM, C, tid, nthreads);
+}
+
+__global__ void __launch_bounds__(512) conv_gdn_kernel(ConvArgs a) { conv_gdn_body<float>(a); }
+__global__ void __launch_bounds__(512) conv_gdn_bf16_kernel(ConvArgs a) {
+  conv_gdn_body<__nv_bfloat16>(a);
 }
 
 static bool conv_smem_set[64];
+static bool conv_bf16_smem_set[64];
+
+// Blocks of K2 (its bf16 variant with bf16) at C output channels that one SM
+// holds at once (registers, threads and shared memory), for the wrapper's
+// split-K plan.
+static int blocks_per_sm(int C, bool bf16) {
+  if (C <= 0 || C % 32 != 0 || C > 256) return -1;
+  auto kernel = bf16 ? conv_gdn_bf16_kernel : conv_gdn_kernel;
+  if (allow_smem(kernel, bf16 ? conv_bf16_smem_set : conv_smem_set) != cudaSuccess) return -1;
+  const size_t smem = bf16 ? conv_smem_bytes<__nv_bfloat16>(C) : conv_smem_bytes<float>(C);
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 2 * C, smem) != cudaSuccess)
+    return -1;
+  return per_sm;
+}
+
+// Launch K2 (its bf16 variant with bf16) on `stream`: the conv kernel, and
+// for splits > 1 the reduction (conv_gdn_reduce_kernel or its bf16-storing
+// variant, gdn.cu).
+static int launch_conv_gdn(bool bf16, const void* x, const void* w, const float* bias,
+                           const float* gamma_t, const float* beta, void* out, float* partials,
+                           int splits, int N, int H, int W, int Cin, int Ho, int Wo, int C,
+                           int ksz, int stride, int pad, int gdn_on, int inverse, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || Ho <= 0 || Wo <= 0 || Cin <= 0 || C <= 0 ||
+      C % 32 != 0 || C > 256 || ksz <= 0 || stride <= 0 || pad < 0 || splits < 1 ||
+      splits > ksz * ksz || splits > 65535 || (splits > 1 && partials == nullptr) ||
+      (gdn_on && (gamma_t == nullptr || beta == nullptr)))
+    return cudaErrorInvalidValue;
+  auto kernel = bf16 ? conv_gdn_bf16_kernel : conv_gdn_kernel;
+  cudaError_t err = allow_smem(kernel, bf16 ? conv_bf16_smem_set : conv_smem_set);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long P = static_cast<long long>(N) * Ho * Wo;
+  const long long tiles = (P + BM - 1) / BM;
+  const size_t smem = bf16 ? conv_smem_bytes<__nv_bfloat16>(C) : conv_smem_bytes<float>(C);
+  ConvArgs a{x, w, bias, gdn_on ? gamma_t : nullptr, beta, out, partials,
+             N, H, W, Cin, Ho, Wo, C, ksz, stride, pad, splits, inverse};
+  kernel<<<dim3(static_cast<unsigned int>(tiles), splits), 2 * C, smem, s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
+  return gdn_rows_launch(partials, splits, P * C, bias, gdn_on ? gamma_t : nullptr, beta, out,
+                         bf16, P, C, inverse, s);
+}
 
 }  // namespace iclr17c
 
 extern "C" size_t iclr17c_conv_gdn_smem_bytes(int C) {
-  return sizeof(float) * iclr17c::conv_smem_floats(C);
+  return iclr17c::conv_smem_bytes<float>(C);
+}
+extern "C" size_t iclr17c_conv_gdn_smem_bytes_bf16(int C) {
+  return iclr17c::conv_smem_bytes<__nv_bfloat16>(C);
 }
 
 // Blocks of K2 at C output channels that one SM holds at once (registers,
 // threads and shared memory), for the wrapper's split-K plan.
-extern "C" int iclr17c_conv_gdn_blocks_per_sm(int C) {
-  using namespace iclr17c;
-  if (C <= 0 || C % 32 != 0 || C > 256) return -1;
-  if (allow_smem(conv_gdn_kernel, conv_smem_set) != cudaSuccess) return -1;
-  int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_gdn_kernel, 2 * C,
-                                                    iclr17c_conv_gdn_smem_bytes(C)) != cudaSuccess)
-    return -1;
-  return per_sm;
+extern "C" int iclr17c_conv_gdn_blocks_per_sm(int C) { return iclr17c::blocks_per_sm(C, false); }
+extern "C" int iclr17c_conv_gdn_blocks_per_sm_bf16(int C) {
+  return iclr17c::blocks_per_sm(C, true);
 }
 
 // Launch K2 on `stream`. x: (N, H, W, Cin); w: (ksz, ksz, Cin, C) HWIO;
@@ -249,22 +362,18 @@ extern "C" int iclr17c_conv_gdn(const float* x, const float* w, const float* bia
                                 float* partials, int splits, int N, int H, int W, int Cin,
                                 int Ho, int Wo, int C, int ksz, int stride, int pad,
                                 int gdn_on, int inverse, void* stream) {
-  using namespace iclr17c;
-  if (N <= 0 || H <= 0 || W <= 0 || Ho <= 0 || Wo <= 0 || Cin <= 0 || C <= 0 ||
-      C % 32 != 0 || C > 256 || ksz <= 0 || stride <= 0 || pad < 0 || splits < 1 ||
-      splits > ksz * ksz || splits > 65535 || (splits > 1 && partials == nullptr) ||
-      (gdn_on && (gamma_t == nullptr || beta == nullptr)))
-    return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(conv_gdn_kernel, conv_smem_set);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long P = static_cast<long long>(N) * Ho * Wo;
-  const long long tiles = (P + BM - 1) / BM;
-  ConvArgs a{x, w, bias, gdn_on ? gamma_t : nullptr, beta, out, partials,
-             N, H, W, Cin, Ho, Wo, C, ksz, stride, pad, splits, inverse};
-  conv_gdn_kernel<<<dim3(static_cast<unsigned int>(tiles), splits), 2 * C,
-                    iclr17c_conv_gdn_smem_bytes(C), s>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
-  return gdn_rows_launch(partials, splits, P * C, bias, gdn_on ? gamma_t : nullptr, beta, out,
-                         P, C, inverse, s);
+  return iclr17c::launch_conv_gdn(false, x, w, bias, gamma_t, beta, out, partials, splits, N,
+                                  H, W, Cin, Ho, Wo, C, ksz, stride, pad, gdn_on, inverse,
+                                  stream);
+}
+
+// K2's bf16 variant: x, w and out bf16; bias, gamma_t, beta and the
+// partials fp32; the same shapes and return.
+extern "C" int iclr17c_conv_gdn_bf16(const void* x, const void* w, const float* bias,
+                                     const float* gamma_t, const float* beta, void* out,
+                                     float* partials, int splits, int N, int H, int W, int Cin,
+                                     int Ho, int Wo, int C, int ksz, int stride, int pad,
+                                     int gdn_on, int inverse, void* stream) {
+  return iclr17c::launch_conv_gdn(true, x, w, bias, gamma_t, beta, out, partials, splits, N, H,
+                                  W, Cin, Ho, Wo, C, ksz, stride, pad, gdn_on, inverse, stream);
 }

@@ -15,7 +15,16 @@
 // Bound on an H100: 9 (or 10) bytes of traffic and no real arithmetic per
 // element, so memory, and at the Ballé-17 latent size (196,608 elements,
 // 1.8 MB) the launch itself. A grid-stride loop of coalesced scalar accesses.
+//
+// bf16 storage (quant_pack_bf16_kernel): _qp_kernel's arithmetic on a bf16
+// x, where the Python floats 1/step and step meet bf16 arrays as bf16: v =
+// bf16(x * bf16(1/step)) (the product of two bf16 is exact in fp32, so one
+// rounding), sym = clip(rint(v), -lim, lim) with the integer lim, deq =
+// bf16(sym * bf16(step)) (exact in fp32 below 2^16 symbols, one rounding).
+// The wrapper passes bf16(1/step) and bf16(step) as floats. 5 (or 6) bytes
+// an element.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -32,6 +41,40 @@ __global__ void quant_pack_kernel(const float* __restrict__ x, Sym* __restrict__
     sym[i] = static_cast<Sym>(static_cast<int>(q + lim));
     deq[i] = q * step;
   }
+}
+
+template <typename Sym>
+__global__ void quant_pack_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                                       Sym* __restrict__ sym, __nv_bfloat16* __restrict__ deq,
+                                       long long n, float inv_step, float step, float lim) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float v = __bfloat162float(__float2bfloat16_rn(__bfloat162float(x[i]) * inv_step));
+    const float q = fminf(fmaxf(rintf(v), -lim), lim);
+    sym[i] = static_cast<Sym>(static_cast<int>(q + lim));
+    deq[i] = __float2bfloat16_rn(q * step);
+  }
+}
+
+// Blocks of a grid-stride launch over n elements, 256 threads each.
+inline unsigned int qp_blocks(long long n) {
+  long long blocks = (n + 255) / 256;
+  if (blocks > 132 * 32) blocks = 132 * 32;
+  return static_cast<unsigned int>(blocks);
+}
+
+template <typename Sym>
+int launch_quant_pack_bf16(const void* x, Sym* sym, void* deq, long long n, float inv_step,
+                           float step, int lim, void* stream) {
+  constexpr long long kSymbols = 1LL << (8 * sizeof(Sym));
+  if (n <= 0 || !(step > 0.f) || !(inv_step > 0.f) || lim < 0 || 2LL * lim + 1 > kSymbols) {
+    return cudaErrorInvalidValue;
+  }
+  quant_pack_bf16_kernel<Sym><<<qp_blocks(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), sym, static_cast<__nv_bfloat16*>(deq), n, inv_step,
+      step, static_cast<float>(lim));
+  return cudaGetLastError();
 }
 
 template <typename Sym>
@@ -75,4 +118,17 @@ extern "C" int iclr17c_quant_pack(const float* x, uint8_t* sym, float* deq, long
 extern "C" int iclr17c_quant_pack16(const float* x, uint16_t* sym, float* deq, long long n,
                                     float step, int lim, void* stream) {
   return iclr17c::launch_quant_pack(x, sym, deq, n, step, lim, stream);
+}
+
+// K3's bf16 variant: x and deq bf16, uint8 symbols; inv_step = bf16(1/step)
+// and step = bf16(step) as floats.
+extern "C" int iclr17c_quant_pack_bf16(const void* x, uint8_t* sym, void* deq, long long n,
+                                       float inv_step, float step, int lim, void* stream) {
+  return iclr17c::launch_quant_pack_bf16(x, sym, deq, n, inv_step, step, lim, stream);
+}
+
+// The same with uint16 symbols.
+extern "C" int iclr17c_quant_pack16_bf16(const void* x, uint16_t* sym, void* deq, long long n,
+                                         float inv_step, float step, int lim, void* stream) {
+  return iclr17c::launch_quant_pack_bf16(x, sym, deq, n, inv_step, step, lim, stream);
 }

@@ -10,6 +10,13 @@ already un-reparameterized by ``ops.gdn.gdn_reparam``:
 ``gdn_fused`` takes a tensor of any leading shape (..., C). A CPU tensor goes
 to ``gdn_fused_plain``; a CUDA tensor launches the kernel or raises.
 
+Two element types, as the Pallas kernel takes any (its wrapper casts γᵀ to
+x's type and β to fp32): fp32 x, γᵀ and β (products in 3xTF32), or bf16 x
+and γᵀ with fp32 β, where x² is rounded to bf16, the norm product runs as
+one bf16 tensor-core pass accumulating in fp32, and y is computed in fp32
+and rounded to bf16 once (``_gdn_kernel``'s rounding points). Launches
+count in ``gdn_fused.launches``, the bf16 ones also in ``launches_bf16``.
+
 Gradients: ``gdn_fused`` is a ``torch.autograd.Function`` on both devices.
 Its backward is the counterpart of ``_gdn_fused_bwd``, which the JAX package
 writes as the XLA VJP of ``gdn_xla`` (there is no Pallas backward): it
@@ -25,9 +32,23 @@ from . import _build
 
 def gdn_fused_plain(x: torch.Tensor, gamma_t: torch.Tensor, beta: torch.Tensor,
                     inverse: bool = False) -> torch.Tensor:
-    """The plain PyTorch version (the twin of ``gdn_xla`` after reparam)."""
+    """The plain PyTorch version (the twin of ``gdn_xla`` after reparam); on
+    bf16 ``x``, ``gdn_bf16_plain``."""
+    if x.dtype == torch.bfloat16:
+        return gdn_bf16_plain(x, gamma_t, beta, inverse)
     norm = torch.sqrt(torch.matmul(x * x, gamma_t) + beta)
     return x * norm if inverse else x / norm
+
+
+def gdn_bf16_plain(x: torch.Tensor, gamma_t: torch.Tensor, beta: torch.Tensor,
+                   inverse: bool = False) -> torch.Tensor:
+    """The bf16 variant at the Pallas kernel's rounding points: x² rounded to
+    bf16, γᵀ cast to bf16, the product accumulated in fp32, β in fp32, y in
+    fp32 rounded to bf16 once."""
+    x2 = (x * x).float()
+    norm = torch.matmul(x2, gamma_t.to(torch.bfloat16).float()) + beta.float()
+    r = torch.sqrt(norm) if inverse else torch.rsqrt(norm)
+    return (x.float() * r).to(torch.bfloat16)
 
 
 def plain_vjp(plain, inputs, needs_grad, grad_out):
@@ -72,19 +93,24 @@ def _launch(x, gamma_t, beta, inverse):
     c = x.shape[-1]
     if c % 32 or c > 512:
         raise ValueError(f"gdn_fused: the kernel takes C % 32 == 0 and C <= 512, got C={c}")
-    _build.check_tensor("x", x)
-    _build.check_tensor("gamma_t", gamma_t, (c, c))
+    dtype = _build.kernel_dtype("gdn_fused", x)
+    _build.check_tensor("x", x, dtype=dtype)
+    _build.check_tensor("gamma_t", gamma_t, (c, c), dtype=dtype)
     _build.check_tensor("beta", beta, (c,))
     out = torch.empty_like(x)
     lib = _build.kernels()
+    bf16 = dtype == torch.bfloat16
+    launch = lib.iclr17c_gdn_bf16 if bf16 else lib.iclr17c_gdn
     with torch.cuda.device(x.device):
-        err = lib.iclr17c_gdn(
+        err = launch(
             x.data_ptr(), gamma_t.data_ptr(), beta.data_ptr(), out.data_ptr(),
             x.numel() // c, c, int(inverse), torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, "gdn_fused")
     gdn_fused.launches += 1  # forward launches only: the backward runs plain PyTorch
+    gdn_fused.launches_bf16 += bf16
     return out
 
 
 gdn_fused.launches = 0
+gdn_fused.launches_bf16 = 0

@@ -8,8 +8,9 @@ depthwise filter (``win_size`` = min(win, H, W)), the contrast term
 ``prod(cs_l^w_l for l < L) · ssim_L^w_L``. NHWC in, a scalar out.
 
 The filters are ``F.conv2d(groups=C)`` in fp32, as the JAX package runs
-them in XLA outside any Pallas kernel; on a CUDA tensor they turn TF32 off
-first (``utils.device.no_tf32``), as the JAX package pins them to HIGHEST.
+them in XLA outside any Pallas kernel; on a CUDA tensor they set the
+precision policy's flags first (``utils.device.apply_precision``: TF32 off
+at the default, as the JAX package pins them to HIGHEST).
 ``ms_ssim_db`` is the reference's reporting scale -10·log10(1 - v).
 """
 
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.device import no_tf32
+from ..utils.device import apply_precision
 
 MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
@@ -62,7 +63,7 @@ def _ssim_nchw(img1, img2, win_size, data_range):
 
 def _nchw32(img: torch.Tensor) -> torch.Tensor:
     if img.device.type == "cuda":
-        no_tf32()
+        apply_precision()
     return img.float().permute(0, 3, 1, 2)
 
 

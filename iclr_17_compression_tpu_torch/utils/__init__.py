@@ -4,7 +4,7 @@ counterpart here)."""
 from .analysis import conditional_entropy, uncertainty_coefficient
 from .dataset_tools import (check_image_sizes, create_diff_folder, save_both_direction_recons,
                             warp_side_information)
-from .device import no_tf32, resolve_device
+from .device import apply_precision, resolve_device
 from .svd import compose_requantized, decompose_top_i, low_rank_code, rank_rate_bits
 
 __all__ = [
@@ -18,6 +18,6 @@ __all__ = [
     "create_diff_folder",
     "save_both_direction_recons",
     "warp_side_information",
-    "no_tf32",
+    "apply_precision",
     "resolve_device",
 ]

@@ -4,14 +4,16 @@ Entry points run on the card unless the caller asks for the CPU: with no
 CUDA device and no explicit ``device="cpu"`` they raise, and never drift to
 the CPU.
 
-The JAX package computes in fp32 at precision HIGHEST. On an H100, PyTorch
-runs fp32 convolutions through cuDNN in TF32 unless told otherwise, which
-moves the decoder about 1e-3 away from the reference. ``no_tf32`` turns
-TF32 off, for cuDNN and for matmuls, for the whole process; ``resolve_device``
-calls it, and so does every port model's forward on a CUDA tensor. The flags
-are global on purpose: autograd runs a model's cuDNN backward after its
-forward has returned, under whatever flags hold then, so a context manager
-around the forward alone would leave the backward in TF32.
+The JAX package computes in fp32 at precision HIGHEST unless its policy
+says otherwise (``ops/precision.py``). On an H100, PyTorch runs fp32
+convolutions through cuDNN in TF32 unless told otherwise, which moves the
+decoder about 1e-3 away from the reference. ``apply_precision`` sets cuDNN's
+and cuBLAS's flags to the policy (at the default, ``highest``: TF32 off) for
+the whole process; ``resolve_device`` calls it, and so does every port
+model's forward on a CUDA tensor (``precision_on_cuda``). The flags are global
+on purpose: autograd runs a model's cuDNN backward after its forward has
+returned, under whatever flags hold then, so a context manager around the
+forward alone would leave the backward in TF32.
 
 ``cudnn_deterministic`` is a context manager for a computation whose
 encoder and decoder must give the same floats (the hyperprior's σ): cuDNN
@@ -34,11 +36,13 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..ops.precision import apply_precision
 
-def no_tf32() -> None:
-    """Run fp32 convolutions and matmuls in full fp32 from now on."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+
+def precision_on_cuda(x: torch.Tensor) -> None:
+    """Apply the precision policy's flags where ``x`` lies on the card."""
+    if x.device.type == "cuda":
+        apply_precision()
 
 
 def image_batch(model: torch.nn.Module, img: np.ndarray) -> torch.Tensor:
@@ -56,7 +60,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
                 "no CUDA device: the port runs on the GPU; pass device='cpu' "
                 "to run the plain PyTorch path on the CPU"
             )
-        no_tf32()
+        apply_precision()
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
