@@ -29,7 +29,8 @@ mu, sigma and the coded symbols match bit for bit. The host backend is the
 caller's explicit choice, ``"native"`` (``coding/ar_native.py``, the
 default) or ``"numpy"``: the two differ in the last bits, so a file must be
 decoded with the backend that encoded it, and a backend that cannot load
-raises.
+raises. On bf16-stored weights the codec computes in fp32 with the
+bf16-rounded weights, as the hyperprior's (``ops.precision.promoted``).
 
 Training (``train=True``) replaces both roundings by additive U(±½)
 noise drawn from one explicit generator, ẑ's first and then ŷ's (JAX's
@@ -51,6 +52,7 @@ from ..nn.layers import BitEstimator, MaskedConv
 from ..ops import quant
 from ..ops.conv import oihw_to_hwio
 from ..ops.entropy import LOG2
+from ..ops.precision import promoted
 from ..utils.device import precision_on_cuda
 from .hyperprior import _device, _host, z_codec
 
@@ -369,9 +371,10 @@ def compress(model: JointAutoregressive, image: torch.Tensor, return_y_hat: bool
     encoder's ŷ (h, w, M), which the decoder must reproduce bit for bit."""
     if image.shape[0] != 1:
         raise ValueError("compress() codes one image at a time")
+    model = promoted(model)
     dev = _device(model)
     host = _HostARContext(model, backend)
-    y_t = model.g_a(image.to(dev))
+    y_t = model.g_a(image.to(dev, torch.float32))
     z = _host(model.h_a(y_t))
     y = _host(y_t)
     z_hat = np.round(z)
@@ -392,6 +395,7 @@ def decompress(model: JointAutoregressive, comp: CompressedImage, return_y_hat: 
     host, with the AR host ``backend`` the file was encoded with.
     ``quantize_fetch`` rounds to the uint8 display grid on the device and
     fetches one byte a channel (returned as float / 255)."""
+    model = promoted(model)
     dev = _device(model)
     host = _HostARContext(model, backend)
     z_hat = decode_latent(z_codec(model, comp.z_min, comp.z_max), comp.z_stream,

@@ -217,17 +217,22 @@ FUSION_MODULES = {"none": [], "fif": ["fif"], "bot_att": ["final_conv"],
                   "patch_att": ["bot_mhsa", "final_conv"], "pam": ["pam"]}
 
 
+def _z_cat(cfg: DSCConfig, z1_hat, z2, z2_hat):
+    """The fusion net's input: cat(ẑ1, z2) (or the SI ablations' zeros in
+    one of them), or cat(ẑ1, ẑ2, z2) for ``cat3``."""
+    if cfg.fusion == "cat3":
+        return torch.cat([z1_hat, z2_hat, z2], dim=-1)
+    si = torch.zeros_like(z2) if cfg.si_mode == "zero_si" else z2
+    zc = torch.zeros_like(z1_hat) if cfg.si_mode == "zero_code" else z1_hat
+    return torch.cat([zc, si], dim=-1)
+
+
 def _fuse_and_synthesize(cfg: DSCConfig, mods: nn.Module, z1_hat, z2, z2_hat, im2,
                          train: bool = False):
     """SI fusion + synthesis, the receiver's tail shared by the full model
     and ``DSCDecoder``: (fused, recon_raw), the recon unclipped. ``train``
     reaches FIF's batch statistics only."""
-    if cfg.fusion == "cat3":
-        z_cat = torch.cat([z1_hat, z2_hat, z2], dim=-1)
-    else:
-        si = torch.zeros_like(z2) if cfg.si_mode == "zero_si" else z2
-        zc = torch.zeros_like(z1_hat) if cfg.si_mode == "zero_code" else z1_hat
-        z_cat = torch.cat([zc, si], dim=-1)
+    z_cat = _z_cat(cfg, z1_hat, z2, z2_hat)
     if cfg.fusion_pre == "fif":
         z_cat = mods.fif(z_cat, train)
     fused = mods.g_z1hat_z2(z_cat)

@@ -27,7 +27,10 @@ from the same ẑ on the same device with the same deterministic cuDNN
 algorithms (``ScaleHyperprior.sigma``), so their table indices agree. A file
 written on one device and read on another decodes only where no σ lands on
 the other side of a table edge (the JAX package has the same property
-across its backends).
+across its backends). On bf16-stored weights (``ops.precision.cast_storage``)
+the codec computes in fp32 with the bf16-rounded weights
+(``ops.precision.promoted``: the JAX functions refuse such weights), while
+the eval forward of a bf16 image runs in bf16 throughout, as JAX's does.
 
 Training (``train=True``) replaces both roundings by additive U(±½)
 noise drawn from one explicit generator, ẑ's first and then ŷ's (or
@@ -47,6 +50,7 @@ from ..coding.gaussian import (default_laplace_codec, default_scale_table, scale
 from ..nn.layers import BitEstimator, init_modules_
 from ..ops import quant
 from ..ops.entropy import LOG2
+from ..ops.precision import promoted
 from ..utils.device import apply_precision, cudnn_deterministic, precision_on_cuda
 from .transforms18 import Analysis18, AnalysisPrior, Synthesis18, SynthesisPrior
 
@@ -157,7 +161,9 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 @torch.no_grad()
 def sigma_of(model: ScaleHyperprior, z_hat: np.ndarray) -> np.ndarray:
-    """σ of an (h, w, N) ẑ on the host, computed on the model's device."""
+    """σ of an (h, w, N) ẑ on the host, computed on the model's device (in
+    fp32, on bf16-stored weights too: ``ops.precision.promoted``)."""
+    model = promoted(model)
     return _host(model.sigma(torch.from_numpy(z_hat[None]).to(_device(model))))
 
 
@@ -168,7 +174,8 @@ def compress(model: ScaleHyperprior, image: torch.Tensor, return_y_hat: bool = F
     encoder's ŷ (h, w, M), which the decoder must reproduce."""
     if image.shape[0] != 1:
         raise ValueError("compress() codes one image at a time")
-    y_t = model.Encoder(image.to(_device(model)))
+    model = promoted(model)
+    y_t = model.Encoder(image.to(_device(model), torch.float32))
     z = _host(model.priorEncoder(y_t))
     y = _host(y_t)
     z_hat = np.round(z)
@@ -195,6 +202,7 @@ def decompress(model: ScaleHyperprior, comp: CompressedHyper, return_y_hat: bool
     """Decode streams to the reconstruction (1, H, W, 3) in [0, 1], on the
     host (and ŷ (h, w, M) with ``return_y_hat``); the transforms run on the
     model's device."""
+    model = promoted(model)
     dev = _device(model)
     z_hat = decode_latent(z_codec(model, comp.z_min, comp.z_max), comp.z_stream,
                           comp.z_shape).astype(np.float32)

@@ -108,7 +108,7 @@ def kernels() -> ctypes.CDLL:
         fn.argtypes = [_c, _c, _c, _c, _ll, _i, _i, _c]
     for fn in (lib.iclr17c_conv_gdn, lib.iclr17c_conv_gdn_bf16):
         fn.restype = _i
-        fn.argtypes = [_c] * 7 + [_i] * 13 + [_c]
+        fn.argtypes = [_c] * 7 + [_i] * 14 + [_c]
     for fn in (lib.iclr17c_conv_gdn_smem_bytes, lib.iclr17c_conv_gdn_smem_bytes_bf16,
                lib.iclr17c_gdn_smem_bytes, lib.iclr17c_gdn_bf16_smem_bytes):
         fn.restype = ctypes.c_size_t

@@ -47,7 +47,7 @@ import torch
 
 from . import _build
 from .gdn_kernel import gdn_fused_plain, plain_vjp
-from ..conv import conv2d, hwio_to_oihw, oihw_to_hwio
+from ..conv import _pair, conv2d, hwio_to_oihw, oihw_to_hwio
 from ..gdn import gdn_reparam
 
 
@@ -89,7 +89,7 @@ def block_slots(index: int, cout: int, bf16: bool = False) -> int:
 
 def conv_gdn_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                    gamma_t: Optional[torch.Tensor], beta: Optional[torch.Tensor],
-                   stride: int, padding: int, inverse: bool = False) -> torch.Tensor:
+                   stride: int, padding, inverse: bool = False) -> torch.Tensor:
     """The plain PyTorch version: ``F.conv2d`` then the plain GDN. On bf16
     ``x`` the bf16 operands are upcast and the conv, bias and GDN computed in
     fp32, rounded to bf16 once (the kernel's rounding points)."""
@@ -98,7 +98,7 @@ def conv_gdn_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                            None if gamma_t is None else gamma_t.float(),
                            None if beta is None else beta.float(), stride, padding, inverse)
         return y.to(torch.bfloat16)
-    y = conv2d(x, hwio_to_oihw(w), b, stride=stride, padding=padding)
+    y = conv2d(x, hwio_to_oihw(w), b, stride=stride, padding=_pair(padding))
     if gamma_t is not None:
         y = gdn_fused_plain(y, gamma_t, beta, inverse)
     return y
@@ -123,9 +123,11 @@ class _ConvGDN(torch.autograd.Function):
 
 def conv_gdn(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
              gamma_t: Optional[torch.Tensor], beta: Optional[torch.Tensor],
-             stride: int, padding: int, inverse: bool = False) -> torch.Tensor:
+             stride: int, padding, inverse: bool = False) -> torch.Tensor:
     """Conv (+ bias) (+ (I)GDN): the kernel on CUDA, the plain version on CPU;
-    differentiable in every tensor argument on both."""
+    differentiable in every tensor argument on both. ``padding``: one int,
+    or (above and below, left and right), as a tile that carries its
+    neighbours' columns needs (p, 0)."""
     return _ConvGDN.apply(x, w, b, gamma_t, beta, stride, padding, inverse)
 
 
@@ -136,8 +138,11 @@ def _launch(x, w, b, gamma_t, beta, stride, padding, inverse):
         raise ValueError(f"conv_gdn: weight {tuple(w.shape)} does not fit input {tuple(x.shape)}")
     if cout % 32 or cout > 256:
         raise ValueError(f"conv_gdn: the kernel takes Cout % 32 == 0 and Cout <= 256, got {cout}")
-    ho = (h + 2 * padding - k) // stride + 1
-    wo = (wd + 2 * padding - k) // stride + 1
+    pad_h, pad_w = _pair(padding)
+    ho = (h + 2 * pad_h - k) // stride + 1
+    wo = (wd + 2 * pad_w - k) // stride + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"conv_gdn: input {tuple(x.shape)} gives an empty output")
     gdn_on = gamma_t is not None
     dtype = _build.kernel_dtype("conv_gdn", x)
     bf16 = dtype == torch.bfloat16
@@ -161,7 +166,7 @@ def _launch(x, w, b, gamma_t, beta, stride, padding, inverse):
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             gamma_t.data_ptr() if gdn_on else None, beta.data_ptr() if gdn_on else None,
             out.data_ptr(), None if partials is None else partials.data_ptr(), splits,
-            n, h, wd, cin, ho, wo, cout, k, stride, padding,
+            n, h, wd, cin, ho, wo, cout, k, stride, pad_h, pad_w,
             int(gdn_on), int(inverse), torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, "conv_gdn")
@@ -174,11 +179,13 @@ conv_gdn.launches = 0
 conv_gdn.launches_bf16 = 0
 
 
-def conv_gdn_module(x: torch.Tensor, conv, gdn=None) -> torch.Tensor:
+def conv_gdn_module(x: torch.Tensor, conv, gdn=None, padding=None) -> torch.Tensor:
     """A ``TorchConv`` module followed by a ``GDN`` module (or none) as one
-    ``conv_gdn`` call, with the conv's stride and padding and the GDN's
-    direction; a conv with ``input_block`` > 1 as the 3×3 stride-1 blocked
-    conv. The gradient reaches the OIHW weight through the ``oihw_to_hwio``
+    ``conv_gdn`` call, with the conv's stride and padding (``padding``, an
+    (above and below, left and right) pair, where given: a tile that carries
+    its neighbours' columns) and the GDN's direction; a conv with
+    ``input_block`` > 1 as the 3×3 stride-1 blocked conv. The gradient
+    reaches the OIHW weight through the ``oihw_to_hwio``
     permute (and ``block_conv_weight``) and the stored GDN parameters
     through ``gdn_reparam``, all outside the Function. As the Pallas
     wrapper, it hands the kernel the weight in x's element type and the
@@ -188,12 +195,12 @@ def conv_gdn_module(x: torch.Tensor, conv, gdn=None) -> torch.Tensor:
         beta, gamma = gdn_reparam(gdn.params())
         gamma_t, beta = gamma.t().contiguous().float(), beta.float()
     if getattr(conv, "input_block", 1) > 1:
-        w, stride, padding = conv.blocked_weight(), 1, 1
+        w, stride, own = conv.blocked_weight(), 1, 1
     else:
-        w, stride, padding = oihw_to_hwio(conv.weight), conv.stride[0], conv.padding[0]
+        w, stride, own = oihw_to_hwio(conv.weight), conv.stride[0], conv.padding[0]
     b = None if conv.bias is None else conv.bias.float()
-    return conv_gdn(x, w.to(x.dtype).contiguous(), b, gamma_t, beta, stride, padding,
-                    gdn is not None and gdn.inverse)
+    return conv_gdn(x, w.to(x.dtype).contiguous(), b, gamma_t, beta, stride,
+                    own if padding is None else padding, gdn is not None and gdn.inverse)
 
 
 def analysis17_fused(encoder, x: torch.Tensor) -> torch.Tensor:

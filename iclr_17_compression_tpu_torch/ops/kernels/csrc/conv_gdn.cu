@@ -79,7 +79,7 @@ struct ConvArgs {
   const float* beta;     // (C,)
   void* out;             // (N, Ho, Wo, C), as x
   float* part;           // (splits, P, C) when splits > 1
-  int N, H, W, Cin, Ho, Wo, C, ksz, stride, pad, splits, inverse;
+  int N, H, W, Cin, Ho, Wo, C, ksz, stride, pad_h, pad_w, splits, inverse;
 };
 
 // The ring, or after the main loop the output tile and a 2-slot gamma_t
@@ -131,8 +131,8 @@ __device__ __forceinline__ void conv_gdn_body(const ConvArgs& a) {
       const int n = static_cast<int>(p / hw);
       const int r = static_cast<int>(p - n * hw);
       pn[m] = n;
-      piy[m] = (r / a.Wo) * a.stride - a.pad;
-      pix[m] = (r % a.Wo) * a.stride - a.pad;
+      piy[m] = (r / a.Wo) * a.stride - a.pad_h;
+      pix[m] = (r % a.Wo) * a.stride - a.pad_w;
     } else {
       pn[m] = -1;
       piy[m] = 0;
@@ -315,9 +315,11 @@ static int blocks_per_sm(int C, bool bf16) {
 static int launch_conv_gdn(bool bf16, const void* x, const void* w, const float* bias,
                            const float* gamma_t, const float* beta, void* out, float* partials,
                            int splits, int N, int H, int W, int Cin, int Ho, int Wo, int C,
-                           int ksz, int stride, int pad, int gdn_on, int inverse, void* stream) {
+                           int ksz, int stride, int pad_h, int pad_w, int gdn_on, int inverse,
+                           void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || Ho <= 0 || Wo <= 0 || Cin <= 0 || C <= 0 ||
-      C % 32 != 0 || C > 256 || ksz <= 0 || stride <= 0 || pad < 0 || splits < 1 ||
+      C % 32 != 0 || C > 256 || ksz <= 0 || stride <= 0 || pad_h < 0 || pad_w < 0 ||
+      splits < 1 ||
       splits > ksz * ksz || splits > 65535 || (splits > 1 && partials == nullptr) ||
       (gdn_on && (gamma_t == nullptr || beta == nullptr)))
     return cudaErrorInvalidValue;
@@ -329,7 +331,7 @@ static int launch_conv_gdn(bool bf16, const void* x, const void* w, const float*
   const long long tiles = (P + BM - 1) / BM;
   const size_t smem = bf16 ? conv_smem_bytes<__nv_bfloat16>(C) : conv_smem_bytes<float>(C);
   ConvArgs a{x, w, bias, gdn_on ? gamma_t : nullptr, beta, out, partials,
-             N, H, W, Cin, Ho, Wo, C, ksz, stride, pad, splits, inverse};
+             N, H, W, Cin, Ho, Wo, C, ksz, stride, pad_h, pad_w, splits, inverse};
   kernel<<<dim3(static_cast<unsigned int>(tiles), splits), 2 * C, smem, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
   return gdn_rows_launch(partials, splits, P * C, bias, gdn_on ? gamma_t : nullptr, beta, out,
@@ -354,17 +356,18 @@ extern "C" int iclr17c_conv_gdn_blocks_per_sm_bf16(int C) {
 
 // Launch K2 on `stream`. x: (N, H, W, Cin); w: (ksz, ksz, Cin, C) HWIO;
 // bias: (C,) or null; gamma_t (C, C) and beta (C,) are read only when gdn_on.
-// out: (N, Ho, Wo, C). With splits > 1, `partials` is a (splits, N*Ho*Wo, C)
+// pad_h / pad_w: the zero padding above and below / left and right (a tile
+// that carries its neighbours' columns takes pad_w = 0). out: (N, Ho, Wo, C). With splits > 1, `partials` is a (splits, N*Ho*Wo, C)
 // fp32 scratch and a second launch (conv_gdn_reduce_kernel, gdn.cu) reduces it.
 // Returns the cudaError_t of the launches (0 = success).
 extern "C" int iclr17c_conv_gdn(const float* x, const float* w, const float* bias,
                                 const float* gamma_t, const float* beta, float* out,
                                 float* partials, int splits, int N, int H, int W, int Cin,
-                                int Ho, int Wo, int C, int ksz, int stride, int pad,
-                                int gdn_on, int inverse, void* stream) {
+                                int Ho, int Wo, int C, int ksz, int stride, int pad_h,
+                                int pad_w, int gdn_on, int inverse, void* stream) {
   return iclr17c::launch_conv_gdn(false, x, w, bias, gamma_t, beta, out, partials, splits, N,
-                                  H, W, Cin, Ho, Wo, C, ksz, stride, pad, gdn_on, inverse,
-                                  stream);
+                                  H, W, Cin, Ho, Wo, C, ksz, stride, pad_h, pad_w, gdn_on,
+                                  inverse, stream);
 }
 
 // K2's bf16 variant: x, w and out bf16; bias, gamma_t, beta and the
@@ -372,8 +375,9 @@ extern "C" int iclr17c_conv_gdn(const float* x, const float* w, const float* bia
 extern "C" int iclr17c_conv_gdn_bf16(const void* x, const void* w, const float* bias,
                                      const float* gamma_t, const float* beta, void* out,
                                      float* partials, int splits, int N, int H, int W, int Cin,
-                                     int Ho, int Wo, int C, int ksz, int stride, int pad,
-                                     int gdn_on, int inverse, void* stream) {
+                                     int Ho, int Wo, int C, int ksz, int stride, int pad_h,
+                                     int pad_w, int gdn_on, int inverse, void* stream) {
   return iclr17c::launch_conv_gdn(true, x, w, bias, gamma_t, beta, out, partials, splits, N, H,
-                                  W, Cin, Ho, Wo, C, ksz, stride, pad, gdn_on, inverse, stream);
+                                  W, Cin, Ho, Wo, C, ksz, stride, pad_h, pad_w, gdn_on, inverse,
+                                  stream);
 }

@@ -26,9 +26,18 @@ kernels' dots take no ``precision=`` argument.
 inputs cast once, so that every activation lives in device memory as bf16
 and K1, K2 and K3 run their bf16 variants. Keep training in fp32 (the JAX
 package's policy: bf16 gradients diverge).
+
+``promoted`` is what the file codecs of the hyperprior and joint models run
+on bf16-stored weights. Their stages pass fp32 host arrays to each other;
+the JAX functions (``compress`` / ``decompress``) hand those to convs with
+bf16 weights, which ``lax.conv_general_dilated`` refuses (it requires equal
+dtypes, whatever the image's dtype). The port computes what dtype
+promotion would: fp32 with the bf16-rounded weights, held in the tests
+against the JAX functions on the same weights upcast to fp32.
 """
 
 import contextlib
+import copy
 import os
 from typing import Optional
 
@@ -113,3 +122,14 @@ def cast_storage(obj, dtype: torch.dtype):
         items = [cast_storage(v, dtype) for v in obj]
         return type(obj)(*items) if hasattr(obj, "_fields") else type(obj)(items)
     return obj
+
+
+def promoted(module: torch.nn.Module) -> torch.nn.Module:
+    """``module`` itself where every floating-point parameter and buffer is
+    fp32; else a copy with each of them upcast to fp32 (exact), so that the
+    computation runs in the promotion of fp32 inputs and the stored
+    weights."""
+    tensors = list(module.parameters()) + list(module.buffers())
+    if all(t.dtype == torch.float32 for t in tensors if t.is_floating_point()):
+        return module
+    return copy.deepcopy(module).float()

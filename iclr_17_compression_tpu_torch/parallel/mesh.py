@@ -1,0 +1,157 @@
+"""The tile half of the device mesh: a list of devices that an image's tiles
+live on, one process driving them all.
+
+Counterpart of the tile axis of ``iclr_17_compression_tpu/parallel/mesh.py``.
+JAX runs one controller over a ``Mesh(('data', 'tile'))`` and lets GSPMD
+place each shard; here ``Mesh`` is the same ``(n_data, n_tile)`` grid of
+``torch.device``s, and an image split along W (or H) is a Python list of
+tensors, tile ``t`` on ``mesh.tile_devices()[t]``. There is no
+``torch.distributed``: a halo exchange (``halo.py``) copies a neighbour's
+edge to the tile's device, a plain copy on one card and a peer copy across
+cards. So N tiles run on one H100 (``["cuda:0"] * n``) or on N, with the
+same code, and the tests run them on ``["cpu"] * n``.
+
+``split_tiles`` / ``gather_tiles`` take the place of ``tile_sharding``: the
+split is ``np.array_split``'s, ragged where the extent does not divide.
+``replicated`` takes the place of ``replicated``: each distinct tile device
+gets the module (the module itself on its own device, no copy).
+``validate_tile_extent`` is a copy of the JAX check.
+
+The data axis (``batch_sharding``, ``batch_and_tile_sharding``,
+``training_mesh``, ``shard_train_step``, ``put_replicated``, ``put_batch``)
+is ROADMAP item 20b.
+"""
+
+import copy
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+Device = Union[str, torch.device]
+
+# NHWC axis of each tiled image axis
+TILE_AXES = {"width": 2, "height": 1}
+
+
+def tile_dim(axis: Union[str, int]) -> int:
+    """The NHWC dimension of ``axis`` ("width", "height", or 2 / 1)."""
+    if axis in TILE_AXES:
+        return TILE_AXES[axis]
+    if axis in (1, 2):
+        return int(axis)
+    raise ValueError(f"tile axis must be 'width' or 'height', got {axis!r}")
+
+
+class Mesh:
+    """An ``(n_data, n_tile)`` grid of devices with axes ("data", "tile"),
+    as the JAX ``Mesh`` it stands for; ``shape`` maps each axis name to its
+    size."""
+
+    axis_names = ("data", "tile")
+
+    def __init__(self, devices: np.ndarray):
+        if devices.ndim != 2:
+            raise ValueError(f"a mesh is a 2-D grid of devices, got shape {devices.shape}")
+        self.devices = devices
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def tile_devices(self, row: int = 0) -> List[torch.device]:
+        """The devices of the tile axis at data index ``row``."""
+        return list(self.devices[row])
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, {[str(d) for d in self.devices.ravel()]})"
+
+
+def _devices(mesh_or_devices) -> List[torch.device]:
+    if isinstance(mesh_or_devices, Mesh):
+        return mesh_or_devices.tile_devices()
+    return [torch.device(d) for d in mesh_or_devices]
+
+
+def make_mesh(n_data: Optional[int] = None, n_tile: int = 1,
+              devices: Optional[Sequence[Device]] = None) -> Mesh:
+    """A ("data", "tile") mesh over ``devices`` (every CUDA device by
+    default; raises without one). A device may repeat: ``["cuda:0"] * 4``
+    is four tiles on one card."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass devices=['cpu'] * n to tile on the CPU")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if n_data is None:
+        n_data = len(devices) // n_tile
+    if n_data * n_tile != len(devices):
+        raise ValueError(f"mesh {n_data}x{n_tile} != {len(devices)} devices")
+    grid = np.empty(len(devices), dtype=object)
+    grid[:] = devices
+    return Mesh(grid.reshape(n_data, n_tile))
+
+
+def split_tiles(x: torch.Tensor, mesh_or_devices, axis: Union[str, int] = "width"
+                ) -> List[torch.Tensor]:
+    """An NHWC tensor cut into one tile per tile device along ``axis``
+    (``np.array_split``'s ragged split), each tile contiguous on its
+    device."""
+    devices = _devices(mesh_or_devices)
+    parts = torch.tensor_split(x, len(devices), dim=tile_dim(axis))
+    return [p.to(d).contiguous() for p, d in zip(parts, devices)]
+
+
+def gather_tiles(tiles: Sequence[torch.Tensor], axis: Union[str, int] = "width",
+                 device: Optional[Device] = None) -> torch.Tensor:
+    """The tiles joined along ``axis`` on ``device`` (the first tile's by
+    default)."""
+    dev = tiles[0].device if device is None else torch.device(device)
+    return torch.cat([t.to(dev) for t in tiles], dim=tile_dim(axis))
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one ("cuda" is "cuda:0")."""
+    return a.type == b.type and (a.type != "cuda" or (a.index or 0) == (b.index or 0))
+
+
+def replicated(module: torch.nn.Module, mesh_or_devices) -> List[torch.nn.Module]:
+    """The module on each tile device: ``module`` itself where it already
+    lies there, else one copy a distinct device."""
+    own = next(module.parameters()).device
+    copies = {}
+    out = []
+    for d in _devices(mesh_or_devices):
+        if same_device(d, own):
+            out.append(module)
+            continue
+        key = (d.type, d.index or 0)
+        if key not in copies:
+            copies[key] = copy.deepcopy(module).to(d)
+        out.append(copies[key])
+    return out
+
+
+def validate_tile_extent(width: int, n_tile: int, total_div: int, min_shard: int = 2):
+    """Refuse spatial tilings in GSPMD's silent-wrong-answer regime (the JAX
+    check, copied with its semantics).
+
+    When a W-shard of the deepest latent is narrower than a conv kernel's
+    halo, XLA's partitioner produces numerically wrong results without any
+    error. The port's exchanges read past a narrow neighbour (``halo.py``)
+    and do not have that failure, but a shard of under ``min_shard`` latent
+    columns is refused all the same, as in JAX.
+
+    ``total_div``: the codec's total spatial downsampling (16 for the
+    Ballé/Cheng latent, 32 for the DSC code tensor).
+    """
+    if n_tile <= 1:
+        return
+    shard = (width // total_div) // n_tile
+    if shard < min_shard:
+        raise ValueError(
+            f"mesh_tile={n_tile} gives deepest-latent W shards of {shard} px "
+            f"(width {width}, ÷{total_div}); shards narrower than {min_shard} px "
+            "fall into GSPMD's halo>shard regime which silently mis-computes. "
+            "Use fewer tiles or wider images."
+        )

@@ -28,9 +28,9 @@ an FFT route for the joint's 3×3 convs at C = 192, 32× slower a step on an
 H100; the hyperprior's 5×5 convs are as fast without it).
 
 Runs on CUDA (``resolve_device``: it raises without a card) unless a loop
-is given ``device="cpu"``. One card: the JAX package's data×tile mesh has
-no counterpart yet (ROADMAP item 20), so ``mesh_data`` must be None or 1
-and ``mesh_tile`` 1.
+is given ``device="cpu"``. One card: the JAX package's training mesh has
+no counterpart yet (ROADMAP item 20b; the tile axis serves through
+``parallel/``), so ``mesh_data`` must be None or 1 and ``mesh_tile`` 1.
 
 Resume: ``--resume <dir-or-ckpt>`` restores the model, the Adam moments and
 the step, and from the sidecar the epoch and mid-epoch batch offset
@@ -93,7 +93,7 @@ SINGLE_IMAGE_MODELS = ("balle17", "hyperprior", "joint")
 def check_supported(cfg: TrainConfig) -> None:
     """Raise for what the port does not train, naming its ROADMAP entry:
     ``fif_0031bpp`` in ``train_dsc`` (Queue 3: the JAX trainer keeps no
-    batch statistics), a mesh (item 20)."""
+    batch statistics), a mesh (item 20b)."""
     if cfg.model.startswith("dsc:"):
         preset = DSC_PRESETS[cfg.model.split(":", 1)[1]]
         if preset.fusion_pre == "fif":
@@ -106,7 +106,8 @@ def check_supported(cfg: TrainConfig) -> None:
     if cfg.mesh_data not in (None, 1) or cfg.mesh_tile != 1:
         raise NotImplementedError(
             f"mesh_data={cfg.mesh_data}, mesh_tile={cfg.mesh_tile}: the port trains on one "
-            "card (data and tile parallelism are ROADMAP item 20)")
+            "card (the training mesh is ROADMAP item 20b; tiled serving is in "
+            "iclr_17_compression_tpu_torch.parallel)")
 
 
 def _restore(state: TrainState, resume: str):
