@@ -77,7 +77,8 @@ Phases, one JSON line each:
           Function against the plain path on the card within 4× a floor
           measured in the same run (the plain path against itself with K2's
           outputs moved by K2's own error, the largest of four seeded
-          draws; DSC_GRAD_TOL), on the largest
+          draws; DSC_GRAD_TOL; every pass of the gate under deterministic
+          cuDNN, where the plain path must repeat bit for bit), on the largest
           and on the median tensor's gap, and a control at TF32's error
           (1e-3 relative) beyond one of the two gates; K2 at the training
           sites (five shapes) and K3 at the validation code against plain;
@@ -204,13 +205,19 @@ Phases, one JSON line each:
           both IGDNs) and two DSC sites, K3 in bf16 bit-exact on the DSC
           code and the Ballé latent, K2 in fp32 at the blocked conv1 (rtol
           1e-4 / atol 1e-5), off the main paths K1 in bf16 at C = 64, 96,
-          192, 256, 512 and K2 in bf16 at Cout = 192 (unsplit and split)
-          and 256, the precision policy's flags under high and default,
+          192, 256, 512 and K2 in bf16 at Cout = 192 (tiles of 128 and 64
+          pixels) and 256, K2 bf16's SASS (wgmma, HGMMA, in every instance, no bf16
+          mma.sync), the precision policy's flags under high and default,
           restored after. Numbers: bf16 and fp32 kernel times, the
           plain versions', cuDNN bf16 + plain GDN for K2, bounds at the bf16
-          dense peak, one profiled bf16 headline forward (device ms by
-          kernel, idle share). Then the joint-AR and hyperprior codecs on
-          bf16 storage (ROADMAP item 22): the JAX bench_joint configuration
+          dense peak, the plan K2 bf16's wrapper launched (its tile of 64 or
+          128 pixels; K never split, no partials), ptxas's registers, shared
+          memory and spills of both bf16 kernels, one profiled bf16 headline
+          forward (device ms by kernel, idle share; its trace must hold the
+          three K2 bf16 launches within TRACE_K2_BAND of their CUDA-event
+          time). Then the
+          joint-AR and hyperprior codecs on bf16 storage (ROADMAP item 22):
+          the JAX bench_joint configuration
           (N = 192, 16 synthetic 512×768 images, bf16 storage and bf16
           images; the hyperprior at N = 192, M = 320 on the same images) on a
           fresh seeded init, with bench_joint_host_codec's realism fix (y
@@ -283,8 +290,8 @@ PEAK_HBM_BYTES = 3.35e12
 # The kernels' symbols in the library: K2's conv and its split-K reduction,
 # K1, K3, and their bf16 variants.
 KERNEL_SYMBOLS = ("conv_gdn_kernel", "conv_gdn_reduce_kernel", "gdn_rows_kernel",
-                  "quant_pack_kernel", "conv_gdn_bf16_kernel", "conv_gdn_reduce_bf16_kernel",
-                  "gdn_rows_bf16_kernel", "quant_pack_bf16_kernel")
+                  "quant_pack_kernel", "conv_gdn_bf16_kernel", "gdn_rows_bf16_kernel",
+                  "quant_pack_bf16_kernel")
 # The whole port build (nvcc of the kernels and g++ of the coder) from clean.
 BUILD_LIMIT_S = 60.0
 
@@ -461,8 +468,17 @@ EVAL_PSNR_DB, EVAL_BPP_REL, EVAL_MSE_RTOL, NL_TOL = 1e-3, 1e-3, 1e-4, 1e-4
 # symbols may differ on at most DSC_SYMBOL_SHARE (a code_pre within bf16
 # rounding of a k + ½ step boundary), its recon at least DSC_BF16_PSNR_DB
 # from fp32's. K1 and K2 in bf16 within one bf16 ulp of their plain
-# versions (ATOL where a value sits near zero), K3 bit-exact.
+# versions (ATOL where a value sits near zero), K3 bit-exact. The profiled
+# bf16 headline forward's trace must hold its three K2 bf16 launches, their
+# device time within TRACE_K2_BAND of the three stages' time by CUDA events
+# (a kernel the trace cannot see would drop out of its busy and idle share).
+# That forward is traced in a fresh process (headline_trace, started before
+# the eval phase so that its set-up overlaps it): late in this script the
+# in-process trace of it held neither its three K2 bf16 launches nor its K3
+# one, while fresh processes' traces held them all.
 PREC_SEED, PREC_BATCH, PREC_PAIRS = 1414, 8, 4
+TRACE_K2_BAND = (0.7, 1.5)
+TRACE_CHILD_S = 300
 BLOCKED_PSNR_DB, BLOCKED_RATE_REL = 60.0, 1e-3
 DSC_SYMBOL_SHARE, DSC_BF16_PSNR_DB = 0.02, 35.0
 
@@ -529,14 +545,25 @@ def bound_3xtf32_ms(mma_flops: float, elementwise_flops: float, nbytes: float):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def kernel_name(symbol: str) -> str:
+    """A kernel's name from its mangled symbol: the name of KERNEL_SYMBOLS it
+    carries, with the template arguments of an instance (``<128,2>``)."""
+    base = next((k for k in KERNEL_SYMBOLS if k in symbol), None)
+    if base is None:
+        return symbol
+    t = re.match(r"I((?:Li\d+E)+)E", symbol[symbol.index(base) + len(base):])
+    return f"{base}<{','.join(re.findall(r'Li(\d+)E', t.group(1)))}>" if t else base
+
+
 def ptxas_report(log: str) -> dict:
-    """Registers, static shared memory and spills of each kernel, from the
-    ``nvcc -Xptxas -v`` output the build keeps."""
+    """Registers, static shared memory and spills of each kernel (each
+    instance of a template), from the ``nvcc -Xptxas -v`` output the build
+    keeps."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = next((k for k in KERNEL_SYMBOLS if k in m.group(1)), m.group(1))
+            name = kernel_name(m.group(1))
             out[name] = {}
             continue
         if name is None:
@@ -551,6 +578,30 @@ def ptxas_report(log: str) -> dict:
             out[name]["registers"] = int(m.group(1))
             sm = re.search(r"(\d+) bytes smem", line)
             out[name]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def sass_report(lib_path) -> dict:
+    """Tensor-core instructions in each kernel's SASS, from the CUDA
+    toolkit's ``cuobjdump --dump-sass`` of the built library: {kernel:
+    {"HGMMA": n (wgmma), "HMMA": n (mma.sync), "HMMA_BF16": n (its bf16
+    form)}}."""
+    from iclr_17_compression_tpu_torch.ops.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "--dump-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = {"HGMMA": 0, "HMMA": 0, "HMMA_BF16": 0}
+        elif name is not None and "HGMMA" in line:
+            out[name]["HGMMA"] += 1
+        elif name is not None and "HMMA" in line:
+            out[name]["HMMA"] += 1
+            out[name]["HMMA_BF16"] += ".BF16" in line
     return out
 
 
@@ -655,6 +706,76 @@ def device_ms_by_kernel(torch, prof) -> dict:
     return by_kernel
 
 
+def trace_launch_lead_ms(torch, prof):
+    """The least time, in ms, from a kernel's launch call (``cudaLaunch*``,
+    host clock) to the kernel's start (card clock) over a ``torch.profiler``
+    run's kernels: a few microseconds where the two clocks agree, below
+    zero where the card's timestamps run ahead of the host's. None where
+    the trace pairs no kernel with its launch."""
+    launch = {e.id: e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CPU
+              and e.name.startswith("cudaLaunch")}
+    leads = [e.time_range.start - launch[e.id] for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.id in launch]
+    return min(leads) / 1e3 if leads else None
+
+
+def start_headline_trace():
+    """``headline_trace`` in a fresh process (a ``subprocess.Popen``), which
+    sets up (CUDA, the model, the images) at once and traces when it reads
+    "go" on its standard input; it prints its result as one JSON line."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke\n"
+         "r = chip_smoke.headline_trace(wait=True)\nif r:\n    print(json.dumps(r))"],
+        cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def headline_trace(wait: bool = False) -> dict:
+    """One ``torch.profiler`` trace of the bf16 headline forward (the
+    archived lam2048 at io_block 4, bf16 storage, the precision phase's
+    PREC_BATCH images), after three untraced ones, in this process:
+    {"wall_ms", "device_ms_by_kernel", "k2_bf16_ms": each K2 bf16 launch's
+    device ms, "launch_lead_ms"}; with ``wait``, set up first and then wait
+    for "go" on the standard input ({} on anything else). The precision
+    phase runs it in a fresh process (``start_headline_trace``), whose trace
+    holds every kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from iclr_17_compression_tpu_torch.models.balle17 import Balle17Compressor
+    from iclr_17_compression_tpu_torch.ops import precision
+    from iclr_17_compression_tpu_torch.ops.conv import space_to_depth
+    from iclr_17_compression_tpu_torch.train.weights import load_balle17
+    from iclr_17_compression_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(PREC_SEED)
+    imgs = torch.from_numpy(np.stack([smooth_image(rng) for _ in range(PREC_BATCH)])).to(dev)
+    model = Balle17Compressor(N_CH, io_block=4).to(dev).eval()
+    model.load_state_dict(load_balle17(CKPT, device="cuda").state_dict())
+    model = precision.cast_storage(model, torch.bfloat16)
+    x = space_to_depth(imgs, 4).to(torch.bfloat16).contiguous()
+    torch.cuda.synchronize()
+    if wait and sys.stdin.readline().strip() != "go":
+        return {}
+    with torch.no_grad():
+        for _ in range(3):
+            model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    return {"wall_ms": wall_ms, "device_ms_by_kernel": device_ms_by_kernel(torch, prof),
+            "k2_bf16_ms": [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and "conv_gdn_bf16_kernel" in e.name],
+            "launch_lead_ms": trace_launch_lead_ms(torch, prof)}
+
+
 def block_k2_args(block, xin) -> tuple:
     """The K2 call of a ResidualBlockWithStride (conv2 + GDN) or a
     ResidualBlockUpsample (conv + IGDN) on the block's input ``xin``:
@@ -700,7 +821,9 @@ def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
                     reg_steps: int = REG_STEPS) -> dict:
     """DSC training on the card (see the module docstring). ``tools`` holds
     the harness of ``main``: check, emit, time_ms, call_ms, measure_k2,
-    new_row, bound_ms, floor_ms. Returns the K2 and K3 rows and launches."""
+    new_row, bound_ms, floor_ms. The gradient gate's passes run under
+    ``cudnn_deterministic``, where the plain path repeats bit for bit (a
+    check). Returns the K2 and K3 rows and launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from iclr_17_compression_tpu_torch.coding import codec_cli
@@ -719,6 +842,7 @@ def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
                                                            make_dsc_train_step, step_generator)
     from iclr_17_compression_tpu_torch.train.weights import (dsc_params_to_jax, load_dsc,
                                                              msgpack_dumps)
+    from iclr_17_compression_tpu_torch.utils.device import cudnn_deterministic
 
     check, emit = tools.check, tools.emit
     t_phase = time.perf_counter()
@@ -923,10 +1047,11 @@ def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
 
         k2.conv_gdn = {"kernel": real, "plain": k2.conv_gdn_plain, "perturbed": perturbed}[path]
         try:
-            m.zero_grad(set_to_none=True)
-            out = m(im1, im2, train=True, generator=step_generator(cfg.seed, 7, dev))
-            loss = out["loss_full"] + out["loss"]
-            loss.backward()
+            with cudnn_deterministic():
+                m.zero_grad(set_to_none=True)
+                out = m(im1, im2, train=True, generator=step_generator(cfg.seed, 7, dev))
+                loss = out["loss_full"] + out["loss"]
+                loss.backward()
         finally:
             k2.conv_gdn = real
         return float(loss.detach()), {k: p.grad.clone() for k, p in m.named_parameters()}
@@ -943,9 +1068,11 @@ def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
     def parity_of(m, control: bool = False):
         """(the kernel's (largest, median) gap against plain, the floor's,
         the gate on each, the five worst tensors, the control's gaps or
-        None) of model ``m``: the hyper_train phase's two statistics. The
-        floor of each statistic is the largest over DSC_PERTURB_SEEDS'
-        draws of the perturbation."""
+        None, and with ``control`` a record: whether the plain path repeated
+        bit for bit, the gate's premise, and the first draw's floor) of model
+        ``m``: the hyper_train phase's two statistics. The
+        floor of each statistic is the largest over DSC_PERTURB_SEEDS' draws
+        of the perturbation."""
         before = k2.conv_gdn.launches
         _, g_kernel = grads(m, "kernel")
         check(k2.conv_gdn.launches - before == 17, "gradient parity: the kernel path ran no K2")
@@ -958,11 +1085,20 @@ def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
         missed = (stats(grads(m, "perturbed", DSC_CONTROL_PERTURB)[1], g_plain)
                   if control else None)
         gate = (max(DSC_GRAD_TOL, DSC_FLOOR_FACTOR * floor[0]), DSC_FLOOR_FACTOR * floor[1])
-        return (max(kp.values()), statistics.median(kp.values())), floor, gate, worst, missed
+        record = None
+        if control:  # the gated model: the plain path's repeat, the gate's premise
+            g_again = grads(m, "plain")[1]
+            record = {"plain_repeats_bit_equal": all(torch.equal(g_plain[k], g_again[k])
+                                                     for k in g_plain),
+                      "one_draw_floor": draws[0]}
+        return ((max(kp.values()), statistics.median(kp.values())), floor, gate, worst, missed,
+                record)
 
     parity = build_model(cfg.model, device=dev, seed=cfg.seed)
     parity.load_state_dict(model.state_dict())  # the trained weights
-    gap, floor, gate, worst, control_gap = parity_of(parity, control=True)
+    gap, floor, gate, worst, control_gap, repeat = parity_of(parity, control=True)
+    check(repeat["plain_repeats_bit_equal"], "gradient parity: the plain path's gradients did not repeat bit for bit "
+                  "under cudnn_deterministic")
     del parity
 
     # TF32 on (PyTorch's defaults), a model moved to the card by hand: its
@@ -971,7 +1107,7 @@ def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
     tf32_model = DSCStereoModel(preset).cuda()
     tf32_model.load_state_dict(model.state_dict())
     flags_before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    tf32_gap, tf32_floor, tf32_gate, _, _ = parity_of(tf32_model)
+    tf32_gap, tf32_floor, tf32_gate, _, _, _ = parity_of(tf32_model)
     flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     del tf32_model
 
@@ -1105,7 +1241,8 @@ def dsc_train_phase(torch, dev, tools, h: int = KITTI_H, w: int = KITTI_W,
                               "median_gap": gap[1], "floor": floor, "gate": gate,
                               "worst": worst,
                               "control_perturb": DSC_CONTROL_PERTURB,
-                              "control_gap": control_gap},
+                              "control_gap": control_gap,
+                              **repeat},
               "tf32_check": {"flags_before": flags_before, "flags_after_forward": flags,
                              "grad_gap": tf32_gap, "floor": tf32_floor, "gate": tf32_gate},
               "reg_stage": {"steps": len(reg_steps_seen),
@@ -2816,7 +2953,7 @@ def realism_fix_(torch, model, x) -> None:
             model.entropy_parameters[4].bias[: model.n] += REALISM_SIGMA_BIAS
 
 
-def precision_phase(torch, dev, tools) -> dict:
+def precision_phase(torch, dev, tools, trace_child=None) -> dict:
     """bf16 storage and blocked image I/O on the card (see the module
     docstring). ``tools`` holds the harness of ``main``: check, emit,
     time_ms, call_ms, compare, new_row, floor_ms. Returns the bf16 kernel
@@ -2915,14 +3052,21 @@ def precision_phase(torch, dev, tools) -> dict:
               f"Ballé bf16 vs fp32 io_block={s}: {c}")
         crit[f"io{s}"] = c
 
-    # where the bf16 headline's device time goes
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        models[("bf16", 4)](inputs[("bf16", 4)])
-        torch.cuda.synchronize()
-        prof_wall = 1e3 * (time.perf_counter() - t0)
-    prof_by_kernel = device_ms_by_kernel(torch, prof)
+    # where the bf16 headline's device time goes: one forward traced in a
+    # fresh process, set up beforehand (start_headline_trace)
+    torch.cuda.empty_cache()
+    if trace_child is None:
+        trace_child = start_headline_trace()
+    try:
+        out, err = trace_child.communicate("go\n", timeout=TRACE_CHILD_S)
+    except subprocess.TimeoutExpired:
+        trace_child.kill()
+        out, err = trace_child.communicate()
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    check(trace_child.returncode == 0 and bool(lines),
+          f"the bf16 headline's traced process failed: {err[-2000:]}")
+    trace = json.loads(lines[-1])
+    prof_by_kernel, prof_wall = trace["device_ms_by_kernel"], trace["wall_ms"]
     prof_busy = sum(prof_by_kernel.values())
 
     # ---- the kernels against their plain versions at the headline's shapes
@@ -2976,13 +3120,15 @@ def precision_phase(torch, dev, tools) -> dict:
         _, ho, wo, cout = out.shape
         shape = {"where": where, "x": list(x.shape), "w": list(w.shape), "stride": stride,
                  "gdn": gamma_t is not None, "share_diff": share,
-                 "splits": k2.plan_splits(out.shape[0] * ho * wo, w.shape[0] ** 2,
-                                          k2.block_slots(0, cout, True)),
+                 # the wrapper's plan: its tile, no K split, no partials
+                 "bm": k2.tile_bf16(out.shape[0] * ho * wo, w.shape[0] ** 2 * w.shape[2], cout,
+                                    k2.sm_count(0)),
+                 "splits": 1, "partial_bytes": 0,
                  "ms": time_ms(lambda: k2.conv_gdn(*args)),
                  "call_ms": call_ms(lambda: k2.conv_gdn(*args)),
                  "plain_ms": time_ms(lambda: k2.conv_gdn_plain(*args)),
                  "library_ms": time_ms(library)}
-        xf, wf = x.float(), w.float()
+        xf, wf = x.float(), w.float().contiguous()
         fargs = (xf, wf) + tuple(args[2:])
         shape["fp32_ms"] = time_ms(lambda: k2.conv_gdn(*fargs))
         add(row, shape, *k2_work_bf16(args, out))
@@ -3025,17 +3171,29 @@ def precision_phase(torch, dev, tools) -> dict:
             else:
                 w, stride, pad = conv.weight.permute(2, 3, 1, 0), conv.stride[0], conv.padding[0]
             b = None if conv.bias is None else conv.bias.float()
-            args = (y, w.to(bf).contiguous(), b, gamma_t, beta, stride, pad)
+            # the weight as conv_gdn_module hands it: K-major rows seen as HWIO
+            args = (y, k2.k_major_hwio(w.to(bf)), b, gamma_t, beta, stride, pad)
             stages.append((args, where))
             y = k2.conv_gdn_plain(*args)
         # the unblocked conv1 (Cin = 3: ordinary loads into shared memory)
         c1 = models[("bf16", 1)].Encoder
         beta, gamma = gdn_reparam(c1.gdn1.params())
-        stages.append(((inputs[("bf16", 1)], c1.conv1.weight.permute(2, 3, 1, 0).contiguous(),
+        stages.append(((inputs[("bf16", 1)], k2.k_major_hwio(c1.conv1.weight.permute(2, 3, 1, 0)),
                         c1.conv1.bias.float(), gamma.t().contiguous().float(), beta.float(), 4, 4),
                        "balle conv1 9x9 s4 (unblocked)"))
         for args, where in stages:
             measure_k2_bf16(args, where, rows["conv_gdn_bf16"])
+        # the trace sees K2 bf16: the profiled forward's three launches
+        # against the three stages' CUDA-event time
+        trace_k2 = trace["k2_bf16_ms"]
+        events_ms = sum(sh["ms"] for sh in rows["conv_gdn_bf16"]["shapes"][:3])
+        trace_k2_check = {"launches": len(trace_k2), "trace_ms": sum(trace_k2),
+                          "events_ms": events_ms, "ratio": sum(trace_k2) / events_ms,
+                          "band": TRACE_K2_BAND}
+        check(len(trace_k2) == 3 and TRACE_K2_BAND[0] <= trace_k2_check["ratio"]
+              <= TRACE_K2_BAND[1],
+              f"the bf16 headline's trace holds K2 bf16 as {trace_k2_check}, expected 3 "
+              f"launches within {TRACE_K2_BAND} of the stages' CUDA-event ms")
         lat = torch.round(y)
         dec = mb.Decoder
         z = dec.deconv1(lat)
@@ -3045,7 +3203,8 @@ def precision_phase(torch, dev, tools) -> dict:
 
         # fp32 K2 at the blocked conv1 (rtol 1e-4 / atol 1e-5, as every K2 check)
         fp_row = tools.new_row(library=True)
-        args32 = tuple(t.float() if isinstance(t, torch.Tensor) else t for t in stages[0][0])
+        args32 = tuple(t.float().contiguous() if isinstance(t, torch.Tensor) else t
+                       for t in stages[0][0])
         out = k2.conv_gdn(*args32)
         ref = k2.conv_gdn_plain(*args32)
         torch.cuda.synchronize()
@@ -3152,7 +3311,7 @@ def precision_phase(torch, dev, tools) -> dict:
             h.remove()
         for site, xin in seen:
             args = block_k2_args(site, xin)
-            args = (args[0], args[1].to(bf).contiguous(), args[2].float(), args[3].float(),
+            args = (args[0], k2.k_major_hwio(args[1].to(bf)), args[2].float(), args[3].float(),
                     args[4].float()) + tuple(args[5:])
             kind = "rbs conv2 + GDN" if hasattr(site, "gdn") else "rbu conv + IGDN"
             measure_k2_bf16(args, f"dsc {kind} {list(xin.shape)}", rows["conv_gdn_bf16"])
@@ -3253,7 +3412,7 @@ def precision_phase(torch, dev, tools) -> dict:
                         hk.remove()
                     for where, block in sites.items():
                         a = block_k2_args(block, seen[where])
-                        a = (a[0], a[1].to(bf).contiguous(), a[2].float(), a[3].float(),
+                        a = (a[0], k2.k_major_hwio(a[1].to(bf)), a[2].float(), a[3].float(),
                              a[4].float()) + tuple(a[5:])
                         measure_k2_bf16(a, where, rows["conv_gdn_bf16"])
                 else:
@@ -3262,7 +3421,7 @@ def precision_phase(torch, dev, tools) -> dict:
                     for i, (conv, gdn) in enumerate(((enc.conv1, enc.gdn1), (enc.conv2, enc.gdn2),
                                                      (enc.conv3, enc.gdn3))):
                         beta, gamma = gdn_reparam(gdn.params())
-                        a = (y, conv.weight.permute(2, 3, 1, 0).to(bf).contiguous(),
+                        a = (y, k2.k_major_hwio(conv.weight.permute(2, 3, 1, 0).to(bf)),
                              conv.bias.float(), gamma.t().contiguous().float(), beta.float(), 2, 2)
                         measure_k2_bf16(a, f"hyperprior conv{i + 1} 5x5 s2 + GDN",
                                         rows["conv_gdn_bf16"])
@@ -3324,8 +3483,6 @@ def precision_phase(torch, dev, tools) -> dict:
             bs = (torch.randn(cout, generator=gen) * 0.01).to(dev)
             gs = (torch.rand((cout, cout), generator=gen) * 0.02).to(dev)
             betas = (torch.rand(cout, generator=gen) + 0.5).to(dev)
-            splits = k2.plan_splits((h // stride) * (wd // stride), k * k,
-                                    k2.block_slots(0, cout, True))
             for inverse in (False, True):
                 args = (xs, ws, bs, gs, betas, stride, k // 2, inverse)
                 out = k2.conv_gdn(*args)
@@ -3335,9 +3492,28 @@ def precision_phase(torch, dev, tools) -> dict:
                 hold_bf16(out, ref, f"K2 bf16 Cout={cout} {h}x{wd} inverse={inverse}",
                           rows["conv_gdn_bf16"])
                 check(torch.equal(out, again), f"K2 bf16 Cout={cout} {h}x{wd}: two calls differ")
-            off_k2.append(f"Cout={cout} {h}x{wd} {k}x{k} s{stride} splits={splits}")
+            pixels = (h // stride) * (wd // stride)
+            off_k2.append(f"Cout={cout} {h}x{wd} {k}x{k} s{stride} "
+                          f"bm={k2.tile_bf16(pixels, k * k * N_CH, cout, k2.sm_count(0))}")
     rows["gdn_bf16"]["checked_off_path"] = off_k1
     rows["conv_gdn_bf16"]["checked_off_path"] = off_k2
+
+    # the two bf16 kernels as built: ptxas's registers, shared memory and
+    # spills, and their tensor-core instructions in the SASS (K2 bf16 must
+    # issue wgmma, HGMMA, and no bf16 mma.sync)
+    bf16_build = {}
+    if dev.type == "cuda":
+        from iclr_17_compression_tpu_torch.ops.kernels import _build
+
+        ptxas = ptxas_report((_build.BUILD_DIR / "libiclr17c_kernels.so.log").read_text())
+        sass = sass_report(_build.BUILD_DIR / "libiclr17c_kernels.so")
+        bf16_build = {name: {**ptxas.get(name, {}), **sass.get(name, {})}
+                      for name in sorted(set(ptxas) | set(sass))
+                      if name.startswith(("conv_gdn_bf16_kernel", "gdn_rows_bf16_kernel"))}
+        k2_sass = {n: v for n, v in bf16_build.items() if n.startswith("conv_gdn_bf16_kernel")}
+        check(bool(k2_sass) and all(v.get("HGMMA", 0) > 0 and v.get("HMMA_BF16", 0) == 0
+                                    for v in k2_sass.values()),
+              f"K2 bf16's SASS: {k2_sass}, expected HGMMA and no bf16 HMMA in every instance")
 
     # the policy's flags under high and default, restored after
     flags = {}
@@ -3365,12 +3541,15 @@ def precision_phase(torch, dev, tools) -> dict:
               "dsc_bf16_vs_fp32": dsc_crit,
               "profile_bf16_io4": {"wall_ms": prof_wall, "device_busy_ms": prof_busy,
                                    "device_idle_share": 1.0 - prof_busy / prof_wall,
+                                   "k2_bf16_in_trace": trace_k2_check,
+                                   "launch_lead_ms": trace["launch_lead_ms"],
                                    "device_ms_by_kernel": dict(sorted(
                                        prof_by_kernel.items(), key=lambda kv: -kv[1])[:12])},
               "joint_hyperprior_bf16": hyper_rows, "joint_batch": JOINT_BATCH,
               "policy_flags": flags, "bf16_launches": launches,
               "k2_bf16": rows["conv_gdn_bf16"], "k1_bf16": rows["gdn_bf16"],
-              "k3_bf16": k3_row, "k2_fp32_blocked_conv1": fp_row, "seconds": seconds}
+              "k3_bf16": k3_row, "k2_fp32_blocked_conv1": fp_row,
+              "bf16_kernels_build": bf16_build, "seconds": seconds}
     emit(result)
     print(f"precision phase seconds: {seconds:.1f}", flush=True)
     return {"rows": rows, "k2_fp32_blocked_conv1": fp_row, "launches": launches}
@@ -3807,18 +3986,22 @@ def main() -> int:
     ptxas = ptxas_report((_build.BUILD_DIR / "libiclr17c_kernels.so.log").read_text())
     dyn_smem = {"conv_gdn_kernel": lib.iclr17c_conv_gdn_smem_bytes(N_CH),
                 "conv_gdn_reduce_kernel": lib.iclr17c_gdn_smem_bytes(N_CH),
-                "gdn_rows_kernel": lib.iclr17c_gdn_smem_bytes(N_CH),
-                "conv_gdn_bf16_kernel": lib.iclr17c_conv_gdn_smem_bytes_bf16(N_CH),
-                "conv_gdn_reduce_bf16_kernel": lib.iclr17c_gdn_smem_bytes(N_CH),
-                "gdn_rows_bf16_kernel": lib.iclr17c_gdn_bf16_smem_bytes(N_CH)}
+                "gdn_rows_kernel": lib.iclr17c_gdn_smem_bytes(N_CH)}
     for name, nbytes in dyn_smem.items():
         ptxas.setdefault(name, {})["dynamic_smem_bytes_c128"] = nbytes
+    # K2 bf16's instances at their NT channels and BM-pixel tiles
+    for name in ptxas:
+        m = re.fullmatch(r"conv_gdn_bf16_kernel<(\d+),(\d+)>", name)
+        if m:
+            ptxas[name]["dynamic_smem_bytes"] = lib.iclr17c_conv_gdn_smem_bytes_bf16(
+                int(m.group(1)), int(m.group(2)))
     emit({"phase": "build", "kernels_s": round(t_kernels, 3), "rans_s": round(t_rans, 3),
           "dir": str(_build.BUILD_DIR), "ptxas": ptxas})
     print(f"build seconds: nvcc kernels {t_kernels:.2f}, g++ rans {t_rans:.2f}", flush=True)
     check(t_kernels + t_rans < BUILD_LIMIT_S,
           f"build took {t_kernels + t_rans:.1f} s, over {BUILD_LIMIT_S:.0f} s")
-    check(all(k in ptxas for k in KERNEL_SYMBOLS), f"ptxas report names {sorted(ptxas)}")
+    check(all(any(n.split("<")[0] == k for n in ptxas) for k in KERNEL_SYMBOLS),
+          f"ptxas report names {sorted(ptxas)}")
 
     tools = harness(torch, lib)
     time_ms, call_ms, compare, new_row = tools.time_ms, tools.call_ms, tools.compare, tools.new_row
@@ -4599,8 +4782,13 @@ def main() -> int:
     hyper_train = hyper_train_phase(torch, dev, tools)
     fusion = dsc_fusion_phase(torch, dev, tools)
     aux = aux_phase(torch, dev, tools, KITTI_TRAIN_DIR)
-    evals = eval_phase(torch, dev, tools)
-    prec = precision_phase(torch, dev, tools)
+    trace_child = start_headline_trace()  # its set-up overlaps the eval phase
+    try:
+        evals = eval_phase(torch, dev, tools)
+        prec = precision_phase(torch, dev, tools, trace_child)
+    finally:
+        trace_child.kill()  # gone already, unless a phase failed first
+        trace_child.wait()
     tiled = tiled_phase(torch, dev, tools)
     paths = {"codec": launches, "train": train_launches, "dsc": dsc_launches,
              "dsc_train": dsc_train_launches, "hyper": hyper_launches,

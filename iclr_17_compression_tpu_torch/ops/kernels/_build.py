@@ -65,7 +65,9 @@ def _nvcc() -> str:
 
 def build(name: str, compiler: str, flags: list, sources: list, deps: list = ()) -> tuple:
     """Compile ``sources`` into ``BUILD_DIR/name`` unless an up-to-date copy
-    exists. Returns (path, seconds spent compiling; 0.0 for a cache hit)."""
+    exists: several sources each by its own compiler process, all at once,
+    then one link. Returns (path, seconds spent compiling; 0.0 for a cache
+    hit)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     digest = hashlib.sha256(" ".join([Path(compiler).name] + flags).encode())
     for path in sorted(list(sources) + list(deps)):
@@ -79,19 +81,45 @@ def build(name: str, compiler: str, flags: list, sources: list, deps: list = ())
         if lib.exists() and stamp.exists() and stamp.read_text() == key:
             return lib, 0.0
         tmp = BUILD_DIR / f"{name}.tmp{os.getpid()}"
-        cmd = [compiler] + flags + ["-o", str(tmp)] + [str(s) for s in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if len(sources) == 1:
+            log = _run(name, [compiler] + flags + ["-o", str(tmp), str(sources[0])], tmp)
+        else:
+            # one compiler a source, all started together, then one link
+            objs = [BUILD_DIR / f"{name}.{Path(src).stem}.{os.getpid()}.o" for src in sources]
+            compile_flags = [f for f in flags if f != "-shared"] + ["-c"]
+            procs = [(subprocess.Popen([compiler] + compile_flags + ["-o", str(obj), str(src)],
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True), obj) for src, obj in zip(sources, objs)]
+            log = ""
+            try:
+                for proc, obj in procs:
+                    out, err = proc.communicate()
+                    log += err + out
+                    if proc.returncode != 0:
+                        raise RuntimeError(f"building {name} failed ({' '.join(proc.args)}):"
+                                           f"\n{err}{out}")
+                log += _run(name, [compiler] + flags + ["-o", str(tmp)] + [str(o) for o in objs],
+                            tmp)
+            finally:
+                for proc, obj in procs:
+                    proc.kill()
+                    proc.wait()
+                    obj.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"building {name} failed ({' '.join(cmd)}):\n{proc.stderr}{proc.stdout}"
-            )
         os.replace(tmp, lib)
-        (BUILD_DIR / (name + ".log")).write_text(proc.stderr + proc.stdout)
+        (BUILD_DIR / (name + ".log")).write_text(log)
         stamp.write_text(key)
     return lib, seconds
+
+
+def _run(name: str, cmd: list, tmp: Path) -> str:
+    """Run one compiler command that writes ``tmp``; its output, or raise."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"building {name} failed ({' '.join(cmd)}):\n{proc.stderr}{proc.stdout}")
+    return proc.stderr + proc.stdout
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,16 +134,18 @@ def kernels() -> ctypes.CDLL:
     for fn in (lib.iclr17c_gdn, lib.iclr17c_gdn_bf16):
         fn.restype = _i
         fn.argtypes = [_c, _c, _c, _c, _ll, _i, _i, _c]
-    for fn in (lib.iclr17c_conv_gdn, lib.iclr17c_conv_gdn_bf16):
-        fn.restype = _i
-        fn.argtypes = [_c] * 7 + [_i] * 14 + [_c]
-    for fn in (lib.iclr17c_conv_gdn_smem_bytes, lib.iclr17c_conv_gdn_smem_bytes_bf16,
-               lib.iclr17c_gdn_smem_bytes, lib.iclr17c_gdn_bf16_smem_bytes):
+    lib.iclr17c_conv_gdn.restype = _i
+    lib.iclr17c_conv_gdn.argtypes = [_c] * 7 + [_i] * 14 + [_c]
+    lib.iclr17c_conv_gdn_bf16.restype = _i
+    lib.iclr17c_conv_gdn_bf16.argtypes = [_c] * 6 + [_i] * 15 + [_c]
+    lib.iclr17c_conv_gdn_smem_bytes_bf16.restype = ctypes.c_size_t
+    lib.iclr17c_conv_gdn_smem_bytes_bf16.argtypes = [_i, _i]
+    for fn in (lib.iclr17c_conv_gdn_smem_bytes, lib.iclr17c_gdn_smem_bytes,
+               lib.iclr17c_gdn_bf16_smem_bytes):
         fn.restype = ctypes.c_size_t
         fn.argtypes = [_i]
-    for fn in (lib.iclr17c_conv_gdn_blocks_per_sm, lib.iclr17c_conv_gdn_blocks_per_sm_bf16):
-        fn.restype = _i
-        fn.argtypes = [_i]
+    lib.iclr17c_conv_gdn_blocks_per_sm.restype = _i
+    lib.iclr17c_conv_gdn_blocks_per_sm.argtypes = [_i]
     for fn in (lib.iclr17c_quant_pack, lib.iclr17c_quant_pack16):
         fn.restype = _i
         fn.argtypes = [_c, _c, _c, _ll, ctypes.c_float, _i, _c]

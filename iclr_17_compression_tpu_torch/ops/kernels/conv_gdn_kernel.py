@@ -19,19 +19,21 @@ pairs) the gradient reaches the OIHW conv weights through the
 ``oihw_to_hwio`` permute and the stored GDN parameters through
 ``gdn_reparam``'s ``lower_bound`` gate, both outside the Function.
 
-A stage with too few 64-pixel tiles to fill the card splits its K (the k·k
-taps) into ``plan_splits`` parts of whole taps; the wrapper allocates the
-fp32 partials and the C launcher reduces them in fixed order inside the
-same call.
+In fp32, a stage with too few 64-pixel tiles to fill the card splits its K
+(the k·k taps) into ``plan_splits`` parts of whole taps; the wrapper
+allocates the fp32 partials and the C launcher reduces them in fixed order
+inside the same call.
 
 Two element types, as the Pallas kernel takes any: fp32 (products in
 3xTF32), or bf16 x and weight with fp32 bias, γᵀ and β (the Pallas wrapper
 casts the weight to x's type and keeps the bias and the GDN parameters in
-fp32). In bf16 the conv products run as one bf16 tensor-core pass
-accumulating in fp32, the bias and the (I)GDN epilogue stay fp32 (3xTF32
-norm), split-K partials stay fp32, and only the store rounds to bf16.
-Launches count in ``conv_gdn.launches``, the bf16 ones also in
-``launches_bf16``.
+fp32). The bf16 kernel is one of its own (wgmma on the card's bf16 tensor
+cores, products accumulating in fp32); the bias and the (I)GDN epilogue stay
+fp32 (3xTF32 norm), and only the store rounds to bf16. It takes the weight
+as K-major (Cout, K) rows (``k_major_weight``: the memory of the weight
+``conv_gdn_module`` hands it, else a copy), never splits K, and runs blocks
+of ``tile_bf16`` output pixels. Launches count in ``conv_gdn.launches``, the
+bf16 ones also in ``launches_bf16``.
 
 Blocked image I/O: ``conv_gdn_module`` runs a ``TorchConv`` with
 ``input_block = s`` (the Ballé-17 conv1 over ``space_to_depth(x, 4)``) as a
@@ -75,16 +77,73 @@ def plan_splits(pixels: int, taps: int, slots: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def block_slots(index: int, cout: int, bf16: bool = False) -> int:
-    """Blocks of the kernel (its bf16 variant with ``bf16``) that card
-    ``index`` runs at once at ``cout`` output channels: its SMs times the
-    blocks an SM holds."""
-    lib = _build.kernels()
-    per_sm = (lib.iclr17c_conv_gdn_blocks_per_sm_bf16 if bf16
-              else lib.iclr17c_conv_gdn_blocks_per_sm)(cout)
+def block_slots(index: int, cout: int) -> int:
+    """Blocks of the fp32 kernel that card ``index`` runs at once at
+    ``cout`` output channels: its SMs times the blocks an SM holds."""
+    per_sm = _build.kernels().iclr17c_conv_gdn_blocks_per_sm(cout)
     if per_sm < 1:
         raise RuntimeError(f"conv_gdn: no block of the kernel fits an SM at Cout={cout}")
     return per_sm * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The bf16 kernel (csrc/conv_gdn.cu, conv_gdn_bf16_kernel): a block of 64
+# output pixels is one consumer warpgroup (two blocks share an SM up to Cout
+# = 128), one of 128 two that share each weight step (one block an SM,
+# built for 64 < Cout <= 192).
+BF16_TILES = (64, 128)
+# K rows from which the 128-pixel tile pays at Cout <= 128 (32 steps of 64)
+DEEP_K_BF16 = 2048
+
+
+def tile_bf16(pixels: int, depth: int, cout: int, sms: int) -> int:
+    """Output pixels of a block of the bf16 kernel for a conv of ``pixels``
+    output pixels, ``depth`` = k·k·Cin K rows and ``cout`` channels, on a
+    card of ``sms`` SMs. 128 where its grid reaches at least half the SMs
+    and either a 64-pixel block would run one an SM (Cout > 128: the 128
+    tile doubles the pixels an SM works on) or the K loop is long (``depth``
+    >= DEEP_K_BF16: it halves the weight's reads, which short loops do not
+    repay for the epilogue that two 64-pixel blocks an SM overlap); else 64,
+    and always at Cout <= 64 or > 192, where the 128 tile is not built. The
+    thresholds lie between shapes timed on an H100
+    (``tools/chip_bf16_kernels.py``)."""
+    if not 64 < cout <= 192 or 2 * -(-pixels // 128) < sms:
+        return 64
+    return 128 if cout > 128 or depth >= DEEP_K_BF16 else 64
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def k_major_hwio(w: torch.Tensor) -> torch.Tensor:
+    """An HWIO weight (k, k, Cin, Cout) copied once into K-major memory, Cout
+    rows of K = k·k·Cin values (dy, dx, ci) each, ``ldw`` = K rounded up to 8
+    apart (16-byte rows; what lies past K is never read), and returned as
+    an HWIO view of it: what the bf16 kernel reads with no copy of its own
+    (``k_major_weight``)."""
+    k, _, cin, cout = w.shape
+    kk = k * k * cin
+    rows = w.new_empty((cout, -(-kk // 8) * 8))[:, :kk].view(cout, k, k, cin)
+    rows.copy_(w.permute(3, 0, 1, 2))
+    return rows.permute(1, 2, 3, 0)
+
+
+def k_major_weight(w: torch.Tensor):
+    """The HWIO weight (k, k, Cin, Cout) as the bf16 kernel's B operand:
+    ``(rows, ldw)``, ``rows`` the (Cout, k, k, Cin) view whose memory holds
+    row c, the weight's column c in (dy, dx, ci) order, ``ldw`` elements
+    after row c - 1. No copy where ``w`` is already such rows seen as HWIO
+    (``k_major_hwio``), else one."""
+    k, _, cin, cout = w.shape
+    rows = w.permute(3, 0, 1, 2)
+    ldw = rows.stride(0)
+    if (rows.stride()[1:] != (k * cin, cin, 1) or ldw < k * k * cin or ldw % 8
+            or w.data_ptr() % 16):
+        rows = k_major_hwio(w).permute(3, 0, 1, 2)
+        ldw = rows.stride(0)
+    return rows, ldw
 
 
 def conv_gdn_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -94,7 +153,7 @@ def conv_gdn_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     ``x`` the bf16 operands are upcast and the conv, bias and GDN computed in
     fp32, rounded to bf16 once (the kernel's rounding points)."""
     if x.dtype == torch.bfloat16:
-        y = conv_gdn_plain(x.float(), w.float(), None if b is None else b.float(),
+        y = conv_gdn_plain(x.float(), w.float().contiguous(), None if b is None else b.float(),
                            None if gamma_t is None else gamma_t.float(),
                            None if beta is None else beta.float(), stride, padding, inverse)
         return y.to(torch.bfloat16)
@@ -147,7 +206,12 @@ def _launch(x, w, b, gamma_t, beta, stride, padding, inverse):
     dtype = _build.kernel_dtype("conv_gdn", x)
     bf16 = dtype == torch.bfloat16
     _build.check_tensor("x", x, dtype=dtype)
-    _build.check_tensor("w", w, dtype=dtype)
+    if bf16:
+        if w.device != x.device or w.dtype != dtype:
+            raise ValueError(f"w: expected {dtype} on {x.device}, got {w.dtype} on {w.device}")
+        wt, ldw = k_major_weight(w)
+    else:
+        _build.check_tensor("w", w, dtype=dtype)
     if b is not None:
         _build.check_tensor("b", b, (cout,))
     if gdn_on:
@@ -156,19 +220,23 @@ def _launch(x, w, b, gamma_t, beta, stride, padding, inverse):
     out = torch.empty((n, ho, wo, cout), device=x.device, dtype=dtype)
     p = n * ho * wo
     lib = _build.kernels()
-    launch = lib.iclr17c_conv_gdn_bf16 if bf16 else lib.iclr17c_conv_gdn
     with torch.cuda.device(x.device):
-        splits = plan_splits(p, k * k, block_slots(torch.cuda.current_device(), cout, bf16))
-        partials = None
-        if splits > 1:
-            partials = torch.empty((splits, p, cout), device=x.device, dtype=torch.float32)
-        err = launch(
-            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-            gamma_t.data_ptr() if gdn_on else None, beta.data_ptr() if gdn_on else None,
-            out.data_ptr(), None if partials is None else partials.data_ptr(), splits,
-            n, h, wd, cin, ho, wo, cout, k, stride, pad_h, pad_w,
-            int(gdn_on), int(inverse), torch.cuda.current_stream().cuda_stream,
-        )
+        index = torch.cuda.current_device()
+        head = (x.data_ptr(), (wt if bf16 else w).data_ptr(), None if b is None else b.data_ptr(),
+                gamma_t.data_ptr() if gdn_on else None, beta.data_ptr() if gdn_on else None,
+                out.data_ptr())
+        tail = (n, h, wd, cin, ho, wo, cout, k, stride, pad_h, pad_w,
+                int(gdn_on), int(inverse), torch.cuda.current_stream().cuda_stream)
+        if bf16:
+            err = lib.iclr17c_conv_gdn_bf16(*head, tile_bf16(p, k * k * cin, cout, sm_count(index)), ldw,
+                                            *tail)
+        else:
+            splits = plan_splits(p, k * k, block_slots(index, cout))
+            partials = None
+            if splits > 1:
+                partials = torch.empty((splits, p, cout), device=x.device, dtype=torch.float32)
+            err = lib.iclr17c_conv_gdn(
+                *head, None if partials is None else partials.data_ptr(), splits, *tail)
     _build.check_launch(err, "conv_gdn")
     conv_gdn.launches += 1  # forward launches only: the backward runs plain PyTorch
     conv_gdn.launches_bf16 += bf16
@@ -189,7 +257,9 @@ def conv_gdn_module(x: torch.Tensor, conv, gdn=None, padding=None) -> torch.Tens
     permute (and ``block_conv_weight``) and the stored GDN parameters
     through ``gdn_reparam``, all outside the Function. As the Pallas
     wrapper, it hands the kernel the weight in x's element type and the
-    bias, γᵀ and β in fp32 (no-ops on fp32 storage)."""
+    bias, γᵀ and β in fp32 (no-ops on fp32 storage); a bf16 weight is
+    copied once, into the kernel's K-major rows (``k_major_hwio``), as an
+    fp32 one is into HWIO order."""
     gamma_t = beta = None
     if gdn is not None:
         beta, gamma = gdn_reparam(gdn.params())
@@ -199,7 +269,9 @@ def conv_gdn_module(x: torch.Tensor, conv, gdn=None, padding=None) -> torch.Tens
     else:
         w, stride, own = oihw_to_hwio(conv.weight), conv.stride[0], conv.padding[0]
     b = None if conv.bias is None else conv.bias.float()
-    return conv_gdn(x, w.to(x.dtype).contiguous(), b, gamma_t, beta, stride,
+    w = w.to(x.dtype)
+    w = k_major_hwio(w) if x.dtype == torch.bfloat16 else w.contiguous()
+    return conv_gdn(x, w, b, gamma_t, beta, stride,
                     own if padding is None else padding, gdn is not None and gdn.inverse)
 
 

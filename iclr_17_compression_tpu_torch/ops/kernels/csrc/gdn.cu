@@ -35,24 +35,36 @@
 // give the same bits. The channel count is a runtime argument
 // (C % 32 == 0, C <= 512 for K1, C <= 256 for the reduction).
 //
-// bf16 storage. K2's reduction reads its fp32 partials as above and rounds
-// only its store to bf16 (conv_gdn_reduce_bf16_kernel). K1 in bf16
+// bf16 storage. K1 in bf16
 // (gdn_rows_bf16_kernel) follows the rounding points of _gdn_kernel on a
 // bf16 x: x*x rounded to bf16, gamma_t in bf16, the product accumulated in
-// fp32 in one bf16 mma.sync m16n8k16 pass, beta in fp32, y = x * rsqrt(norm)
-// (inverse: x * sqrt(norm)) in fp32, correctly rounded, and rounded to bf16
-// once at the store. Its bound is the bytes, 4*P*C of x and y (half of
-// fp32's). Its design: a persistent grid of 8-warp blocks; each block first
-// stages gamma_t in shared memory as ready-made B fragments (C <= 256: at
-// most 128 KB; past that the fragments are read from device memory, where
-// gamma_t stays L2-resident), then each warp takes 16 pixels at a time and
-// walks the channels in windows of 128, its A fragments (x squared as they
-// are loaded) read straight from device memory; each lane then stores its
-// y pairs, 4 bytes a store. No barrier after the staging.
+// fp32 (mma.sync m16n8k16 bf16), beta in fp32, y = x * rsqrt(norm)
+// (inverse: x * sqrt(norm)) in fp32 (rsqrtf, 2 ulp, as the fp32 epilogue),
+// rounded to bf16 once at the store. Its bound is the bytes, 4*P*C of x and
+// y: at C/2 operations a byte the norm sits below the card's ridge, so the
+// design moves x and y at the memory's rate, keeps the products on mma.sync
+// and the instructions and shared-memory traffic a pixel few:
+// - a persistent grid of blocks of up to 8 warps, at most ceil(tiles /
+//   warps) of them, so that each block stages gamma_t for a warp's worth of
+//   tiles or more; a block copies beta and gamma_t (C <= 256) into shared
+//   memory once, gamma_t as plain rows with 16-byte cp.async, and reads B
+//   fragments from it with ldmatrix.trans, each shared by the two m16 halves
+//   of a 32-pixel warp tile (16 pixels past C = 128);
+// - each warp walks its own tiles through its own 2-slot ring of 16-byte
+//   cp.async copies (the next tile in flight while one is computed), with
+//   no block barrier after gamma_t's;
+// - the instance for C rounded up to 64 unrolls the channel loops, so the
+//   tile's x fragments (ldmatrix) stay in registers beside its norm: they
+//   are squared and rounded for the products, y is computed from them
+//   (x is read from device memory once and from shared memory once) and
+//   written over x with stmatrix, then stored 16 bytes a lane;
+// - past C = 256 (to 512) gamma_t's fragments are read from device memory
+//   (L2-resident), the channels in windows of 256, y stored from registers.
 
 #include <cuda_runtime.h>
 
 #include "gdn_epilogue.cuh"
+#include "hopper.cuh"
 
 namespace iclr17c {
 
@@ -62,7 +74,7 @@ struct RowsArgs {
   const float* bias;      // (C,) or null
   const float* gamma_t;   // (C, C) or null: no GDN
   const float* beta;      // (C,)
-  void* out;              // (P, C), fp32 or bf16 (the kernel's OutT)
+  float* out;             // (P, C)
   long long P;
   int parts;
   int C;
@@ -72,12 +84,10 @@ struct RowsArgs {
 };
 
 // The rows kernels' body. kReduce: src holds `parts` slices to sum, in
-// order, and the bias is added (K2's reduction); else src is x (K1). OutT:
-// the element type of out (float, or __nv_bfloat16 for the reduction of
-// K2's bf16 variant).
-template <bool kReduce, typename OutT>
+// order, and the bias is added (K2's reduction); else src is x (K1).
+template <bool kReduce>
 __device__ __forceinline__ void gdn_rows(const RowsArgs& a) {
-  OutT* const out = static_cast<OutT*>(a.out);
+  float* const out = a.out;
   extern __shared__ __align__(16) float smem[];
   const int C = a.C;
   const int lda = lda_of(C);
@@ -176,13 +186,10 @@ __device__ __forceinline__ void gdn_rows(const RowsArgs& a) {
 }
 
 __global__ void __launch_bounds__(256, 1) gdn_rows_kernel(RowsArgs a) {
-  gdn_rows<false, float>(a);
+  gdn_rows<false>(a);
 }
 __global__ void __launch_bounds__(256, 1) conv_gdn_reduce_kernel(RowsArgs a) {
-  gdn_rows<true, float>(a);
-}
-__global__ void __launch_bounds__(256, 1) conv_gdn_reduce_bf16_kernel(RowsArgs a) {
-  gdn_rows<true, __nv_bfloat16>(a);
+  gdn_rows<true>(a);
 }
 
 // Tiles and shared memory of the rows kernels at C channels: gamma_t resident
@@ -217,23 +224,17 @@ static RowsPlan rows_plan(int C, bool gdn_on) {
 
 static bool rows_smem_set[64];
 static bool reduce_smem_set[64];
-static bool reduce_bf16_smem_set[64];
 
 cudaError_t gdn_rows_launch(const float* src, int parts, long long part_stride,
                             const float* bias, const float* gamma_t, const float* beta,
-                            void* out, bool out_bf16, long long P, int C, int inverse,
-                            cudaStream_t stream) {
+                            float* out, long long P, int C, int inverse, cudaStream_t stream) {
   // K2's reduction has partials to sum or a bias to add; K1 has neither
   const bool reduce = parts > 1 || bias != nullptr;
   if (P <= 0 || C <= 0 || C % 32 != 0 || C > (reduce ? 256 : 512) || parts < 1 ||
-      (gamma_t != nullptr && beta == nullptr) || (C > 256 && gamma_t == nullptr) ||
-      (out_bf16 && !reduce))
+      (gamma_t != nullptr && beta == nullptr) || (C > 256 && gamma_t == nullptr))
     return cudaErrorInvalidValue;
-  void (*kernel)(RowsArgs) = !reduce ? gdn_rows_kernel
-                             : out_bf16 ? conv_gdn_reduce_bf16_kernel
-                                        : conv_gdn_reduce_kernel;
-  cudaError_t err = allow_smem(
-      kernel, !reduce ? rows_smem_set : out_bf16 ? reduce_bf16_smem_set : reduce_smem_set);
+  void (*kernel)(RowsArgs) = reduce ? conv_gdn_reduce_kernel : gdn_rows_kernel;
+  cudaError_t err = allow_smem(kernel, reduce ? reduce_smem_set : rows_smem_set);
   if (err != cudaSuccess) return err;
   const RowsPlan plan = rows_plan(C, gamma_t != nullptr);
   const size_t smem = plan.smem;
@@ -265,124 +266,250 @@ extern "C" size_t iclr17c_gdn_smem_bytes(int C) { return iclr17c::rows_plan(C, t
 extern "C" int iclr17c_gdn(const float* x, const float* gamma_t, const float* beta,
                            float* out, long long P, int C, int inverse, void* stream) {
   if (gamma_t == nullptr) return cudaErrorInvalidValue;
-  return iclr17c::gdn_rows_launch(x, 1, 0, nullptr, gamma_t, beta, out, false, P, C, inverse,
+  return iclr17c::gdn_rows_launch(x, 1, 0, nullptr, gamma_t, beta, out, P, C, inverse,
                                   static_cast<cudaStream_t>(stream));
 }
 
 namespace iclr17c {
 
-constexpr int K1B_WARPS = 8;    // warps a block
-constexpr int K1B_FRAGS = 16;   // n8 fragments of a channel window: 128 channels
-constexpr int K1B_RESIDENT = 256;  // C up to which gamma_t's fragments stay in shared memory
+constexpr int K1B_ROWS = 16;       // pixels of a warp tile: the m16 of mma.sync
+constexpr int K1B_RESIDENT = 256;  // C up to which gamma_t stays in shared memory
 
-// One bf16 pair of x (two channels of one pixel) squared and rounded to
-// bf16, as an mma operand register; zero for a pixel past P.
-__device__ __forceinline__ uint32_t sq_pair(const uint16_t* p, bool ok) {
-  if (!ok) return 0u;
-  const float2 v = bf16x2_to_float2(__ldg(reinterpret_cast<const unsigned int*>(p)));
-  return float2_to_bf16x2(v.x * v.x, v.y * v.y);
+// One bf16 pair squared in one bf16x2 multiply, rounded to nearest even:
+// the exact product (16 significant bits) rounded once, as x*x in fp32
+// rounded to bf16.
+__device__ __forceinline__ uint32_t sq_bf16x2(uint32_t v) {
+  __nv_bfloat162 h;
+  *reinterpret_cast<uint32_t*>(&h) = v;
+  h = __hmul2(h, h);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // The B fragment (two registers) of lane (g, t) for k step ks and the n8
-// fragment nf of gamma_t (C x C, row k, column n), read from device memory.
-__device__ __forceinline__ uint2 gamma_frag(const uint16_t* __restrict__ gamma_t, int C, int ks,
-                                            int nf, int g, int t) {
+// fragment nf of gamma_t (C x C, row k, column n), read from device memory
+// (C > K1B_RESIDENT, where gamma_t stays in L2).
+__device__ __forceinline__ void gamma_frag(uint32_t (&b)[2], const uint16_t* __restrict__ gamma_t,
+                                           int C, int ks, int nf, int g, int t) {
   const uint16_t* q = gamma_t + static_cast<long long>(16 * ks + 2 * t) * C + 8 * nf + g;
-  return make_uint2(pack_u16(__ldg(q), __ldg(q + C)), pack_u16(__ldg(q + 8 * C), __ldg(q + 9 * C)));
+  b[0] = pack_u16(__ldg(q), __ldg(q + C));
+  b[1] = pack_u16(__ldg(q + 8 * C), __ldg(q + 9 * C));
 }
 
-__global__ void __launch_bounds__(32 * K1B_WARPS) gdn_rows_bf16_kernel(
+// y of one bf16 pair of x from its norm pair (fp32, beta not yet added):
+// x * rsqrt(n) (inverse: x * sqrt(n), as n * rsqrt(n)) in fp32 (rsqrtf,
+// 2 ulp, as the fp32 epilogue's gdn_apply), rounded to a bf16 pair once.
+__device__ __forceinline__ uint32_t gdn_pair(uint32_t xpair, float n0, float n1, float2 b,
+                                             int inverse) {
+  const float2 v = bf16x2_to_float2(xpair);
+  n0 += b.x;
+  n1 += b.y;
+  const float s0 = rsqrtf(n0);
+  const float s1 = rsqrtf(n1);
+  return float2_to_bf16x2(v.x * (inverse ? n0 * s0 : s0), v.y * (inverse ? n1 * s1 : s1));
+}
+
+// Each warp walks its own tiles of 16 MT pixels (tile = first, first +
+// nwarps, ...) through its own 2-slot cp.async ring; the block shares beta
+// and gamma_t. CMAX: the channels of the instance (C <= CMAX, C <= 256),
+// whose loops are unrolled so that the tile's x fragments (A, from ldmatrix)
+// and its norm stay in registers: y is computed from them and written over
+// x with stmatrix. CMAX = 0: C past 256, gamma_t's fragments read from device
+// memory, channel windows of 256 and y stored from registers.
+template <int CMAX, int MT>
+__global__ void __launch_bounds__(256) gdn_rows_bf16_kernel(
     const uint16_t* __restrict__ x, const uint16_t* __restrict__ gamma_t,
     const float* __restrict__ beta, uint16_t* __restrict__ out, long long P, int C,
     int inverse) {
-  // gamma_t as B fragments, [k step][n8 fragment][lane], 8 bytes a lane, so
-  // that a warp reads one fragment with one conflict-free 8-byte load each
-  extern __shared__ __align__(16) uint2 frags_smem[];
-  const bool resident = C <= K1B_RESIDENT;
+  constexpr int ROWS = K1B_ROWS * MT;
+  extern __shared__ __align__(16) uint16_t k1b_smem[];
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int nfrags = C / 8;
-  if (resident) {
-    for (int i = threadIdx.x; i < (C / 16) * nfrags * 32; i += blockDim.x) {
-      const int l = i & 31;
-      const int f = (i >> 5) % nfrags;
-      const int ks = (i >> 5) / nfrags;
-      frags_smem[i] = gamma_frag(gamma_t, C, ks, f, l >> 2, l & 3);
+  const int ldx = C + 8;  // bf16 a row of an x tile and of gamma_t in shared memory
+  const int units = C / 8;  // 16-byte units of a row
+  float* const sbeta = reinterpret_cast<float*>(k1b_smem);
+  uint16_t* const G = k1b_smem + 2 * C;
+  uint16_t* const ring = G + (CMAX > 0 ? C * ldx : 0) + warp * 2 * ROWS * ldx;
+  const long long tiles = (P + ROWS - 1) / ROWS;
+  const long long nwarps = static_cast<long long>(gridDim.x) * warps;
+  const long long first = static_cast<long long>(blockIdx.x) * warps + warp;
+
+  auto load_tile = [&](int slot, long long tile) {
+    uint16_t* T = ring + slot * ROWS * ldx;
+    for (int e = lane; e < ROWS * units; e += 32) {
+      const int m = e / units;
+      const int u = e - m * units;
+      const long long p = tile * ROWS + m;
+      const bool ok = tile < tiles && p < P;
+      cp_async16(T + m * ldx + 8 * u, ok ? x + p * C + 8 * u : x, ok);
     }
-    __syncthreads();
+  };
+
+  for (int i = threadIdx.x; i < C; i += blockDim.x) sbeta[i] = beta[i];
+  if (CMAX > 0) {
+    for (int e = threadIdx.x; e < C * units; e += blockDim.x) {
+      const int k = e / units;
+      const int u = e - k * units;
+      cp_async16(G + k * ldx + 8 * u, gamma_t + static_cast<long long>(k) * C + 8 * u, true);
+    }
   }
-  const long long groups = (P + 15) / 16;
-  const long long nwarps = static_cast<long long>(gridDim.x) * K1B_WARPS;
-  for (long long grp = static_cast<long long>(blockIdx.x) * K1B_WARPS + (threadIdx.x >> 5);
-       grp < groups; grp += nwarps) {
-    const long long p0 = 16 * grp + g;
-    const long long p1 = p0 + 8;
-    const bool ok0 = p0 < P;
-    const bool ok1 = p1 < P;
-    const uint16_t* x0 = x + (ok0 ? p0 : 0) * C;
-    const uint16_t* x1 = x + (ok1 ? p1 : 0) * C;
-    for (int c0 = 0; c0 < C; c0 += 8 * K1B_FRAGS) {
-      const int frags = min(8 * K1B_FRAGS, C - c0) / 8;
-      const int f0 = c0 / 8;
-      float acc[K1B_FRAGS][4];
+  cp_async_commit();
+  load_tile(0, first);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // beta and gamma_t are in shared memory, every thread's part
+
+  int it = 0;
+  for (long long tile = first; tile < tiles; tile += nwarps, ++it) {
+    cp_async_wait<0>();
+    __syncwarp();  // this tile has landed; every lane is done with the other slot
+    load_tile((it + 1) & 1, tile + nwarps);
+    cp_async_commit();
+    uint16_t* const X = ring + (it & 1) * ROWS * ldx;
+    const long long p0 = tile * ROWS;
+    if constexpr (CMAX > 0) {
+      constexpr int KS = CMAX / 16;
+      constexpr int NF = CMAX / 8;
+      uint32_t xf[MT][KS][4];
+      float acc[MT][NF][4];
 #pragma unroll
-      for (int f = 0; f < K1B_FRAGS; ++f)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc[f][r] = 0.f;
-      for (int ks = 0; ks < C / 16; ++ks) {
-        const int k0 = 16 * ks;
-        uint32_t a[4];
-        a[0] = sq_pair(x0 + k0 + 2 * t, ok0);
-        a[1] = sq_pair(x1 + k0 + 2 * t, ok1);
-        a[2] = sq_pair(x0 + k0 + 2 * t + 8, ok0);
-        a[3] = sq_pair(x1 + k0 + 2 * t + 8, ok1);
-        const uint2* fk = frags_smem + (static_cast<long long>(ks) * nfrags + f0) * 32 + lane;
+        for (int f = 0; f < NF; ++f)
 #pragma unroll
-        for (int f = 0; f < K1B_FRAGS; ++f) {
-          if (f < frags) {
-            const uint2 bb = resident ? fk[32 * f] : gamma_frag(gamma_t, C, ks, f0 + f, g, t);
-            const uint32_t b[2] = {bb.x, bb.y};
-            mma_bf16(acc[f], a, b);
+          for (int r = 0; r < 4; ++r) acc[mt][f][r] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        if (ks < C / 16) {
+          uint32_t a2[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            ldmatrix_x4(xf[mt][ks], X + (16 * mt + (lane & 15)) * ldx + 16 * ks + 8 * (lane >> 4));
+#pragma unroll
+            for (int r = 0; r < 4; ++r) a2[mt][r] = sq_bf16x2(xf[mt][ks][r]);
+          }
+#pragma unroll
+          for (int f = 0; f < NF; f += 2) {
+            if (f < C / 8) {
+              uint32_t b[4];
+              ldmatrix_x4_trans(b, G + (16 * ks + (lane & 15)) * ldx + 8 * (f + (lane >> 4)));
+              const uint32_t b0[2] = {b[0], b[1]};
+              const uint32_t b1[2] = {b[2], b[3]};
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) {
+                mma_bf16(acc[mt][f], a2[mt], b0);
+                mma_bf16(acc[mt][f + 1], a2[mt], b1);
+              }
+            }
           }
         }
       }
+      // y over x in the tile: the A fragments' layout, one stmatrix a step
 #pragma unroll
-      for (int f = 0; f < K1B_FRAGS; ++f) {
-        if (f < frags) {
-          const int col = c0 + 8 * f + 2 * t;
-          const float b0 = beta[col];
-          const float b1 = beta[col + 1];
+      for (int ks = 0; ks < KS; ++ks) {
+        if (ks < C / 16) {
+          const float2 be = *reinterpret_cast<const float2*>(sbeta + 16 * ks + 2 * t);
+          const float2 bo = *reinterpret_cast<const float2*>(sbeta + 16 * ks + 8 + 2 * t);
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            if (!(h ? ok1 : ok0)) continue;
-            const long long off = (h ? p1 : p0) * C + col;
-            const float2 v =
-                bf16x2_to_float2(__ldg(reinterpret_cast<const unsigned int*>(x + off)));
-            const float n0 = acc[f][2 * h] + b0;
-            const float n1 = acc[f][2 * h + 1] + b1;
-            const float y0 = inverse ? v.x * sqrtf(n0) : v.x * __frsqrt_rn(n0);
-            const float y1 = inverse ? v.y * sqrtf(n1) : v.y * __frsqrt_rn(n1);
-            *reinterpret_cast<uint32_t*>(out + off) = float2_to_bf16x2(y0, y1);
+          for (int mt = 0; mt < MT; ++mt) {
+            const float(&e)[4] = acc[mt][2 * ks];
+            const float(&o)[4] = acc[mt][2 * ks + 1];
+            const uint32_t y[4] = {gdn_pair(xf[mt][ks][0], e[0], e[1], be, inverse),
+                                   gdn_pair(xf[mt][ks][1], e[2], e[3], be, inverse),
+                                   gdn_pair(xf[mt][ks][2], o[0], o[1], bo, inverse),
+                                   gdn_pair(xf[mt][ks][3], o[2], o[3], bo, inverse)};
+            stmatrix_x4(X + (16 * mt + (lane & 15)) * ldx + 16 * ks + 8 * (lane >> 4), y);
+          }
+        }
+      }
+      __syncwarp();  // the tile holds y
+      for (int e = lane; e < ROWS * units; e += 32) {
+        const int m = e / units;
+        const int u = e - m * units;
+        const long long p = p0 + m;
+        if (p < P)
+          *reinterpret_cast<uint4*>(out + p * C + 8 * u) =
+              *reinterpret_cast<const uint4*>(X + m * ldx + 8 * u);
+      }
+    } else {
+      // past C = 256: channel windows of 256 over the whole K each, y
+      // stored from registers, 4 bytes a lane
+      for (int c0 = 0; c0 < C; c0 += 256) {
+        const int nf = min(256, C - c0) / 8;
+        float acc[32][4];
+#pragma unroll
+        for (int f = 0; f < 32; ++f)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[f][r] = 0.f;
+        for (int ks = 0; ks < C / 16; ++ks) {
+          uint32_t a[4];
+          ldmatrix_x4(a, X + (lane & 15) * ldx + 16 * ks + 8 * (lane >> 4));
+#pragma unroll
+          for (int r = 0; r < 4; ++r) a[r] = sq_bf16x2(a[r]);
+#pragma unroll
+          for (int f = 0; f < 32; ++f) {
+            if (f < nf) {
+              uint32_t b[2];
+              gamma_frag(b, gamma_t, C, ks, c0 / 8 + f, g, t);
+              mma_bf16(acc[f], a, b);
+            }
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < 32; ++f) {
+          if (f < nf) {
+            const int col = c0 + 8 * f + 2 * t;
+            const float2 bb = *reinterpret_cast<const float2*>(sbeta + col);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const long long p = p0 + g + 8 * h;
+              const uint32_t xp = *reinterpret_cast<const uint32_t*>(X + (g + 8 * h) * ldx + col);
+              if (p < P)
+                *reinterpret_cast<uint32_t*>(out + p * C + col) =
+                    gdn_pair(xp, acc[f][2 * h], acc[f][2 * h + 1], bb, inverse);
+            }
           }
         }
       }
     }
   }
+  cp_async_wait<0>();
 }
 
-static bool rows_bf16_smem_set[64];
+// The instance and block of K1's bf16 kernel at C channels: CMAX = C
+// rounded up to 64 (0 past 256), 32-pixel warp tiles up to C = 128 (16
+// past it), and up to 8 warps, as many as fit beside beta and gamma_t with
+// their 2-slot rings.
+struct K1bPlan {
+  int cmax;
+  int rows;
+  int warps;
+  size_t smem;
+};
+
+static K1bPlan k1b_plan(int C) {
+  const int cmax = C > K1B_RESIDENT ? 0 : (C + 63) / 64 * 64;
+  const int rows = cmax > 0 && cmax <= 128 ? 2 * K1B_ROWS : K1B_ROWS;
+  const size_t tile = 2ull * 2 * rows * (C + 8);
+  const size_t fixed = 4ull * C + (cmax > 0 ? 2ull * C * (C + 8) : 0);
+  int warps = 8;
+  while (warps > 0 && fixed + warps * tile > SMEM_LIMIT) --warps;
+  return {cmax, rows, warps, fixed + warps * tile};
+}
+
+static bool rows_bf16_smem_set[5][64];
 
 }  // namespace iclr17c
 
-// Dynamic shared memory of K1's bf16 variant at C channels: gamma_t's
-// fragments where C <= 256, else none (read from device memory).
-extern "C" size_t iclr17c_gdn_bf16_smem_bytes(int C) {
-  return C <= iclr17c::K1B_RESIDENT ? 2ull * C * C : 0;
-}
+// Dynamic shared memory of K1's bf16 kernel at C channels.
+extern "C" size_t iclr17c_gdn_bf16_smem_bytes(int C) { return iclr17c::k1b_plan(C).smem; }
 
-// Launch K1's bf16 variant on `stream`: x, out (P, C) bf16, gamma_t (C, C)
-// bf16, beta (C,) fp32; C % 32 == 0, C <= 512. Returns the cudaError_t of
+// Launch K1's bf16 kernel on `stream`: x, out (P, C) bf16, gamma_t (C, C)
+// bf16, beta (C,) fp32; C % 32 == 0, C <= 512. A persistent grid of
+// ceil(tiles / warps) blocks at most, so that every block stages gamma_t
+// for a warp's worth of 16-pixel tiles or more. Returns the cudaError_t of
 // the launch (0 = success).
 extern "C" int iclr17c_gdn_bf16(const void* x, const void* gamma_t, const float* beta,
                                 void* out, long long P, int C, int inverse, void* stream) {
@@ -390,23 +517,30 @@ extern "C" int iclr17c_gdn_bf16(const void* x, const void* gamma_t, const float*
   if (x == nullptr || gamma_t == nullptr || beta == nullptr || out == nullptr || P <= 0 ||
       C <= 0 || C % 32 != 0 || C > 512)
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(gdn_rows_bf16_kernel, rows_bf16_smem_set);
+  const K1bPlan plan = k1b_plan(C);
+  if (plan.warps == 0) return cudaErrorInvalidValue;
+  using Kernel = void (*)(const uint16_t*, const uint16_t*, const float*, uint16_t*, long long,
+                          int, int);
+  const int which = plan.cmax / 64;  // 0 (past 256) .. 4
+  const Kernel kernels[5] = {gdn_rows_bf16_kernel<0, 1>, gdn_rows_bf16_kernel<64, 2>,
+                             gdn_rows_bf16_kernel<128, 2>, gdn_rows_bf16_kernel<192, 1>,
+                             gdn_rows_bf16_kernel<256, 1>};
+  const Kernel kernel = kernels[which];
+  cudaError_t err = allow_smem(kernel, rows_bf16_smem_set[which]);
   if (err != cudaSuccess) return err;
-  const size_t smem = iclr17c_gdn_bf16_smem_bytes(C);
+  const int threads = 32 * plan.warps;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gdn_rows_bf16_kernel,
-                                                      32 * K1B_WARPS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, plan.smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // a persistent grid: gamma_t's fragments are staged once a block
-  const long long groups = (P + 15) / 16;
-  long long blocks = (groups + K1B_WARPS - 1) / K1B_WARPS;
+  const long long tiles = (P + plan.rows - 1) / plan.rows;
+  long long blocks = (tiles + plan.warps - 1) / plan.warps;
   if (blocks > 1ll * per_sm * sms) blocks = 1ll * per_sm * sms;
-  gdn_rows_bf16_kernel<<<static_cast<unsigned int>(blocks), 32 * K1B_WARPS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned int>(blocks), threads, plan.smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(gamma_t), beta,
       static_cast<uint16_t*>(out), P, C, inverse);
   return cudaGetLastError();

@@ -30,11 +30,10 @@
 // streamed 32 rows at a time (K2, and K1 at C = 256), and past C = 256 (K1
 // only) streamed in column windows of 256, one pass of the block each.
 //
-// bf16 storage (the kernels' bf16 variants): the products run as one
-// mma.sync m16n8k16 bf16 pass with fp32 accumulators (mma_bf16), whose
-// accumulator fragment has the m16n8k8 layout above, so the fp32 epilogue
-// (bias, norm, gdn_apply) serves both; the stores round to bf16 once
-// (store4). Conversions use the cuda_bf16.h intrinsics only.
+// bf16 storage (the kernels' bf16 variants, whose products are K1's
+// mma.sync m16n8k16 bf16 (mma_bf16) and K2's wgmma (hopper.cuh)): the
+// epilogue (bias, norm, gdn_apply) stays fp32, and the stores round to bf16
+// once. Conversions use the cuda_bf16.h intrinsics only.
 
 #pragma once
 
@@ -129,60 +128,9 @@ __device__ __forceinline__ uint32_t float2_to_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// Four consecutive channels of one pixel to device memory: 16 bytes of
-// fp32, or 8 bytes of bf16 rounded once.
+// Four consecutive channels of one pixel to device memory, 16 bytes.
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(float2_to_bf16x2(v.x, v.y), float2_to_bf16x2(v.z, v.w));
-}
-
-// acc += A . B over one BK-deep chunk of bf16 tiles in shared memory, for
-// one 32 x 32 warp tile: the chunk summed from zero in the tensor cores
-// (two k16 steps) and added to acc with a rounded fp32 add, as the 3xTF32
-// conv chunk. A points at the warp's first pixel row and the chunk's first
-// column of an [m][k] tile (lda bf16 a row, lda % 16 == 8), B at the
-// chunk's first row and the warp's first channel of a [k][n] tile.
-__device__ __forceinline__ void mma_chunk_bf16(float (&acc)[2][4][4], const uint16_t* A,
-                                               int lda, const uint16_t* B, int ldb, int lane) {
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  float part[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) part[mi][ni][r] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t a[2][4], b[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const uint16_t* p = A + (16 * mi + g) * lda + kk + 2 * t;
-      a[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-      a[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * lda);
-      a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-      a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * lda + 8);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const uint16_t* q = B + (kk + 2 * t) * ldb + 8 * ni + g;
-      b[ni][0] = pack_u16(q[0], q[ldb]);
-      b[ni][1] = pack_u16(q[8 * ldb], q[9 * ldb]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(part[mi][ni], a[mi], b[ni]);
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] += part[mi][ni][r];
 }
 
 // acc += A . B over one BK-deep chunk, for one 32 x 32 warp tile, in 3xTF32. A points at the warp's first pixel row and the
@@ -281,12 +229,11 @@ __device__ __forceinline__ void frag_from_smem(float (&f)[2][4][4], const float*
 }
 
 // Store a 32 x 32 warp tile (channels from col0) in fragment
-// layout to out rows pix0 + m < P, 4 channels a thread (fp32 or bf16,
-// store4): lanes t and t ^ 1 swap halves so that one holds 4 channels of
-// pixel g and the other 4 of pixel g + 8.
-template <typename OutT>
+// layout to out rows pix0 + m < P, 4 channels a thread (store4): lanes t and
+// t ^ 1 swap halves so that one holds 4 channels of pixel g and the other 4
+// of pixel g + 8.
 __device__ __forceinline__ void frag_store_global(const float (&f)[2][4][4],
-                                                  OutT* __restrict__ out, long long pix0,
+                                                  float* __restrict__ out, long long pix0,
                                                   long long P, int C, int col0, int lane) {
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -324,9 +271,8 @@ __device__ __forceinline__ void load_rows_async(float* T, int ldt, const float* 
 }
 
 // Store rows 0 .. rows-1 of T[m][c] to out rows pix0 + m < P, 4 channels a
-// thread (fp32 or bf16, store4).
-template <typename OutT>
-__device__ __forceinline__ void store_rows(const float* T, int ldt, OutT* __restrict__ out,
+// thread (store4).
+__device__ __forceinline__ void store_rows(const float* T, int ldt, float* __restrict__ out,
                                            long long pix0, long long P, int rows, int C,
                                            int tid, int nthreads) {
   const int units = C / 4;
@@ -335,23 +281,6 @@ __device__ __forceinline__ void store_rows(const float* T, int ldt, OutT* __rest
     const int u = e - m * units;
     const long long p = pix0 + m;
     if (p < P) store4(out + p * C + 4 * u, *reinterpret_cast<const float4*>(T + m * ldt + 4 * u));
-  }
-}
-
-// Copy rows row0 .. row0+rows-1 of a row-major (nrows, C) bf16 array into
-// T[m][c] (row stride ldt bf16, a multiple of 8) with 16-byte cp.async, 8
-// channels a copy (C % 8 == 0); rows at or past nrows become zero. The
-// caller commits the group.
-__device__ __forceinline__ void load_rows_async_bf16(uint16_t* T, int ldt, const uint16_t* src,
-                                                     long long row0, long long nrows, int rows,
-                                                     int C, int tid, int nthreads) {
-  const int units = C / 8;
-  for (int e = tid; e < rows * units; e += nthreads) {
-    const int m = e / units;
-    const int u = e - m * units;
-    const long long r = row0 + m;
-    const bool ok = r < nrows;
-    cp_async16(T + m * ldt + 8 * u, ok ? src + r * C + 8 * u : src, ok);
   }
 }
 
@@ -437,14 +366,12 @@ __device__ __forceinline__ void gdn_apply(float (&y)[2][4][4], const float (&nrm
 
 // Launch a rows kernel of gdn.cu: out = (I)GDN(sum of `parts` (P, C)
 // slices of src, `part_stride` floats apart, in order, plus bias), with the
-// GDN skipped when gamma_t is null and the bias when bias is null; out is
-// fp32, or bf16 with out_bf16 (rounded once at the store). K1
+// GDN skipped when gamma_t is null and the bias when bias is null. K1
 // (gdn_rows_kernel) is parts = 1 without bias; K2's split-K reduction
-// (conv_gdn_reduce_kernel, conv_gdn_reduce_bf16_kernel) is parts = S.
+// (conv_gdn_reduce_kernel) is parts = S.
 cudaError_t gdn_rows_launch(const float* src, int parts, long long part_stride,
                             const float* bias, const float* gamma_t, const float* beta,
-                            void* out, bool out_bf16, long long P, int C, int inverse,
-                            cudaStream_t stream);
+                            float* out, long long P, int C, int inverse, cudaStream_t stream);
 
 // Raise a kernel's dynamic shared memory limit to what SMEM_LIMIT leaves
 // beside its static shared memory, once a device.

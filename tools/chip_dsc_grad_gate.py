@@ -10,8 +10,10 @@ different) and holds the gradients through K2's Function against the plain
 path: the largest and the median tensor's gap, their floor (the largest of
 ``DSC_PERTURB_SEEDS``' draws of K2's own error), the gate (``DSC_FLOOR_FACTOR``
 times the floor), and the TF32-size control, which must miss one of the two
-gates. Prints one JSON line a run and a summary line; exits non-zero if any
-run failed a check.
+gates. The gate's passes run under ``cudnn_deterministic``, as in
+``chip_smoke.py``, where the plain path's gradients must repeat bit for bit.
+Prints one JSON line a run and a summary line; exits non-zero if any run
+failed a check.
 """
 
 import argparse
