@@ -33,7 +33,7 @@ Phases, one JSON line each:
           crops, λ 8192, the config of examples/balle17.json) on 16
           synthetic 512×512 PPM training images and 2 768×512 test images
           written under build/: the training CLI's main (train_single_image)
-          for 100 steps, then --resume to 120, with the launch counters reset just before and
+          for 40 steps, then --resume to 50, with the launch counters reset just before and
           read just after (K2 3 and K1 2 launches a step, the eval's
           launches excluded); checks: every rd_loss finite and the last 10
           steps' mean below the first 10's; the gradient of every parameter
@@ -45,8 +45,8 @@ Phases, one JSON line each:
           uninterrupted loop would draw; the last iter_<step>.ckpt loads
           through load_balle17 and codes a test image with exact symbols; a
           model moved to the card by hand with TF32 on trains in fp32.
-          Numbers: median step ms over steps 20-100 and images/s, peak
-          memory, the step's phases (CUDA events), a 5-step profile (device
+          Numbers: median step ms over steps 20-40 and images/s, peak
+          memory, the step's phases (CUDA events), a 3-step profile (device
           busy, idle share, K1/K2 backward recompute, top kernels), the
           eval's bpp, PSNR and MS-SSIM
   dsc     the flagship DSC stereo codec (temp_0031bpp, n = 128, full width)
@@ -69,7 +69,7 @@ Phases, one JSON line each:
           training CLI on examples/dsc_0031bpp.json (batch 2, MS-SSIM), on
           12 synthetic stereo pairs of KITTI's 375×1242 written as a KITTI
           layout of PNGs under build/ (crops 315×1215 floored to 288×1184)
-          and a 2-frame test root: 48 steps, then --resume for 12 more, with
+          and a 2-frame test root: 24 steps, then --resume for 6 more, with
           the launch counters reset just before and read just after; checks:
           K2 17 launches a step and a validation frame, K3 0 a step and 1 a
           validation frame, K1 none (DSC's GDNs run fused in K2); every
@@ -85,11 +85,11 @@ Phases, one JSON line each:
           the resume's parameters, Adam moments, LR and plateau state read
           back bit-equal and its first batch the uninterrupted loop's;
           best_train.ckpt through load_dsc and the codec CLI with exact
-          symbols; reg_stage for 4 steps over the trained model written as
+          symbols; reg_stage for 2 steps over the trained model written as
           JAX-layout params (K2 28, K3 1 and K1 0 a step, the frozen base
           bit-unchanged, finite losses); a model moved to the card by hand
           with TF32 on trains in fp32. Numbers: median step ms and pairs/s,
-          peak memory, a 5-step profile (device busy, idle share, K2
+          peak memory, a 3-step profile (device busy, idle share, K2
           forward, K2's backward recompute, cuDNN's convolutions, top
           kernels), validation ms a frame, K2 at each training shape with
           cuDNN + plain GDN and cuDNN + K1 and its bound, K3 against its
@@ -131,7 +131,7 @@ Phases, one JSON line each:
           train-state file) through the codec CLI (kinds 5 and 6) with the
           same file from both and exact symbols. Numbers: median step ms and
           images/s (the joint's loop under cuDNN autotuning), a step under
-          cuDNN's defaults and autotuned, a 5-step profile of each model
+          cuDNN's defaults and autotuned, a 3-step profile of each model
           (device busy, idle share), peak memory, K2 at the six and K1 at
           the three C = 192 training shapes against plain and cuDNN (S,
           partial bytes)
@@ -142,7 +142,7 @@ Phases, one JSON line each:
           K3 1 an image); checks: the symbols and K3's code round-trip
           exactly, the recon finite in [0, 1], the CPU decode of the same
           file within 1e-4, K3 bit-exact; then train_dsc (batch 2, 288×1184
-          crops) of att_0031bpp, bottleneck_att_1bpp and pam_0031bpp for 4
+          crops) of att_0031bpp, bottleneck_att_1bpp and pam_0031bpp for 2
           steps each on synthetic KITTI frames: every loss finite, K2 17 a
           step. Numbers: encode / decode ms, serving ms and device busy ms
           an image (one profiled), K2
@@ -150,7 +150,7 @@ Phases, one JSON line each:
           against plain, step ms
   aux     the six auxiliary trainers through the training CLI's main at the
           JAX TrainConfig's defaults (batch 4, image_size 256, lr 1e-4,
-          KITTI layout) for 20 steps each: two_steps and decoder_only over
+          KITTI layout) for 10 steps each: two_steps and decoder_only over
           the archived Ballé-17 (frozen), att_exp, att_block over a seeded
           temp_1bpp (frozen, written as a JAX params file), passr on the
           dsc_train phase's KITTI frames, fif_enhance on 4 triplets of
@@ -172,7 +172,7 @@ Phases, one JSON line each:
           width, each step's launches counted on its own (K2 3 + K1 2 a
           Ballé-17 forward, K2 17 + K3 1 a flagship forward, K2 3 + K1 2 +
           K3 1 a Ballé file): the four Ballé-17 checkpoints (N = 128) through
-          eval_kodak with rANS on 4 synthetic 768×512 images (finite, rANS
+          eval_kodak with rANS on 2 synthetic 768×512 images (finite, rANS
           bpp within 3% of the estimate; one image against the CPU with the
           card's tables: PSNR within 1e-3 dB, bpp 0.1%), code_distribution,
           eval_single_image and average_two_models(A, A) (equal, under
@@ -254,6 +254,27 @@ Phases, one JSON line each:
           atol 1e-5). Numbers: device ms (CUDA events) and host ms (wall
           around a synchronized call) tiled against untiled, stream bytes,
           the host rANS ms
+  mesh_train  the training mesh on one card (ROADMAP item 20b), every slot
+          on cuda:0: Ballé-17 at examples/balle17.json's widths (N = 128,
+          batch 4, 256×256 crops, λ 8192) on 1×1, 4×1 and 2×2 meshes for 10
+          steps each from one seeded state on the same batches; the DSC
+          flagship (temp_0031bpp, n = 128, batch 2, the dsc_train phase's
+          KITTI-layout crops, GDNs off the identity) on 1×1, 2×1 and 2×2;
+          the hyperprior and joint at N = 192, M = 320 on 1×1 and 2×1, 3
+          steps each; checks: K2 and K1 launches a step the slots times the
+          one-device count (K2 a tile on the tiled meshes), every mesh's
+          step-1 metrics within RTOL of 1×1's, Ballé's step-10 rd_loss
+          within 1% of 1×1's, the step-1 gradients under deterministic cuDNN
+          against 1×1's (Ballé within GRAD_TOL; DSC, hyperprior and joint by
+          the dsc_train phase's floor gate, whose TF32-size control must
+          miss), train_single_image on a 2×2 mesh of 4 slots resuming
+          bit-equal to the uninterrupted run, K2's Function at a 2×2 tile's
+          conv2 (padding (2, 0)) against the plain path forward and
+          backward, fp32 K1 at C = 160 and K2's split reduction at Cout =
+          160 against plain (off the paths), and dryrun_multichip on 8
+          slots. Numbers: host and CUDA-event ms a step per mesh, one
+          profiled step per mesh (device busy, idle share), the gradient
+          gaps, K2 at the tile's conv2 with its times and bound
 Then the script's seconds, the card's name and power limit, one line with
 every kernel's numbers (the bf16 variants as entries of their own), and
 last the line {"ok": true, "device": {...}}.
@@ -321,9 +342,9 @@ N_PAIRS, DSC_H, DSC_W = 4, 320, 1216
 CODE_SPREAD = 64.0
 
 # Training phase: the run's length, its resume, and the profiled window.
-TRAIN_STEPS, RESUME_STEPS = 100, 120
+TRAIN_STEPS, RESUME_STEPS = 40, 50
 N_TRAIN_IMAGES, TRAIN_IMG = 16, 512
-PROFILE_START, PROFILE_STEPS = 40, 5
+PROFILE_START, PROFILE_STEPS = 40, 3
 # Gradients through the kernels' Functions vs the plain path on the card,
 # per parameter tensor, as a fraction of its largest |gradient|. The
 # backward is the same plain recompute on both sides; only the forward
@@ -335,12 +356,13 @@ GRAD_TOL = 1e-3
 # DSC training phase: the flagship (temp_0031bpp, n = 128) trained by the
 # CLI on examples/dsc_0031bpp.json at batch 2 on synthetic KITTI-layout
 # stereo PNGs of KITTI's 375×1242 (crops 315×1215 floored to 288×1184):
-# DSC_TRAIN_FRAMES frames × (_10, _11) = 12 pairs, 6 steps an epoch, 8
-# epochs (48 steps), then --resume for 2 more; a 2-frame test root for the
-# validation pass; REG_STEPS steps of the reg_stage trainer.
+# DSC_TRAIN_FRAMES frames × (_10, _11) = 12 pairs, 6 steps an epoch, 3
+# epochs (18 steps; cut from 8, then 4, for time), then --resume for 1
+# more; a 2-frame test root for the validation pass; REG_STEPS steps of the
+# reg_stage trainer.
 KITTI_H, KITTI_W = 375, 1242
 KITTI_TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_dsc_train", "kitti_train")
-DSC_TRAIN_FRAMES, DSC_TRAIN_EPOCHS, DSC_RESUME_EPOCHS, REG_STEPS = 6, 8, 2, 4
+DSC_TRAIN_FRAMES, DSC_TRAIN_EPOCHS, DSC_RESUME_EPOCHS, REG_STEPS = 6, 3, 1, 2
 # Gradients through K2's Function vs the plain path on the card, per
 # parameter tensor, as a fraction of its largest |gradient|. The backward
 # is the same plain recompute on both sides; the forwards differ by K2's
@@ -415,7 +437,7 @@ N_HT_IMAGES, HT_IMG = 8, 512
 # crops) of each trainable preset on FUSION_FRAMES synthetic KITTI frames.
 FUSION_PRESETS = ("att_0031bpp", "bottleneck_att_1bpp", "fif_0031bpp", "pam_0031bpp")
 FUSION_TRAINABLE = ("att_0031bpp", "bottleneck_att_1bpp", "pam_0031bpp")
-FUSION_SEED, FUSION_FRAMES, FUSION_TRAIN_EPOCHS = 2468, 2, 2
+FUSION_SEED, FUSION_FRAMES, FUSION_TRAIN_EPOCHS = 2468, 2, 1
 
 
 # Auxiliary trainers' phase: the six trainers through the training CLI at
@@ -430,7 +452,7 @@ FUSION_SEED, FUSION_FRAMES, FUSION_TRAIN_EPOCHS = 2468, 2, 2
 AUX_TRAINERS = ("two_steps", "decoder_only", "att_exp", "att_block", "passr", "fif_enhance")
 AUX_LAUNCHES = {"two_steps": (6, 0, 0), "decoder_only": (6, 4, 0), "att_exp": (0, 0, 0),
                 "att_block": (17, 0, 1), "passr": (0, 0, 0), "fif_enhance": (0, 0, 0)}
-AUX_STEPS, AUX_TRIPLETS, AUX_SEED, C512_BATCH = 20, 4, 97, 4
+AUX_STEPS, AUX_TRIPLETS, AUX_SEED, C512_BATCH = 10, 4, 97, 4
 
 # Evaluation phase: the four archived Ballé-17 checkpoints through eval_kodak
 # (rANS) on EVAL_IMAGES synthetic 768×512 images, and the mixing, code
@@ -448,7 +470,7 @@ AUX_STEPS, AUX_TRIPLETS, AUX_SEED, C512_BATCH = 20, 4, 97, 4
 BALLE_CKPTS = ("lam128_iter_10000", "lam2048_iter_19000", "lam8192_iter_20000",
                "msssim48_iter_12000")
 FLAGSHIP = os.path.join(ROOT, "results", "ckpts", "dsc_flagship_params.msgpack")
-EVAL_SEED, EVAL_IMAGES, EVAL_PAIRS, EVAL_MASKS, EVAL_CROP = 4242, 4, 2, 2, (128, 256)
+EVAL_SEED, EVAL_IMAGES, EVAL_PAIRS, EVAL_MASKS, EVAL_CROP = 4242, 2, 2, 2, (128, 256)
 BALLE_FWD, DSC_FWD, BALLE_CODEC = (3, 2, 0), (17, 0, 1), (3, 2, 1)
 # Card vs CPU on the same inputs: PSNR 1e-3 dB and bpp 0.1% (the rule of
 # the R-D row of PERF.md §2), the masked MSEs rtol 1e-4, NLBlock's output
@@ -516,6 +538,20 @@ REALISM_Y_STD, REALISM_SIGMA_BIAS = 2.5, 2.5
 TILED_SEED, TILES, DSC_TILES = 2020, 4, 2
 TILED_FRAME_H, TILED_FRAME_W = 2160, 3840
 TILED_PSNR_DB = 60.0
+
+# Training-mesh phase, every slot on the one card: Ballé-17 on BALLE_MESHES
+# for MESH_BALLE_STEPS steps, the DSC flagship on DSC_MESHES for
+# MESH_DSC_STEPS (step 1 gated, step 2 timed; cut from 3 for time), the
+# hyperprior and joint on HYPER_MESHES for MESH_STEPS, each run then one
+# step under the profiler.
+MESH_SEED = 1717
+BALLE_MESHES, DSC_MESHES, HYPER_MESHES = ((1, 1), (4, 1), (2, 2)), ((1, 1), (2, 1), (2, 2)), \
+    ((1, 1), (2, 1))
+MESH_BALLE_STEPS, MESH_DSC_STEPS, MESH_STEPS, MESH_BATCHES = 10, 2, 3, 4
+MESH_LOSS_REL = 0.01
+MESH_CLI_STEPS, MESH_CLI_RESUME, MESH_CLI_IMAGES = 3, 6, 8
+MESH_DRYRUN_DEVICES = 8
+C160 = 160
 
 
 def emit(obj) -> None:
@@ -1603,17 +1639,22 @@ def hyper_phase(torch, dev, tools, h: int = IMG_H, w: int = IMG_W,
             cheng2020.ar_encode(host, y, hyper, jm.scale_bound)
             times.append(1e3 * (time.perf_counter() - t0))
         ar_ms[backend] = times
-    comp_np, y_np = cheng2020.compress(jm, x0, return_y_hat=True, backend="numpy")
+    # the numpy file of the first image's crop (cut for time)
+    comp_np, y_np = cheng2020.compress(jm, tensor(crop_img), return_y_hat=True,
+                                       backend="numpy")
     _, y_np_dec = cheng2020.decompress(jm, comp_np, return_y_hat=True, backend="numpy")
     check(np.array_equal(y_np, y_np_dec), "joint: a numpy-backend file does not round-trip")
 
     lap("host_ar")
 
-    # ---- one joint encode + decode under the profiler
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # ---- one joint encode + decode of the first image's crop under the
+    # profiler, its device activity only (on the whole image, 132,539
+    # kernels, the section took 28 s on the H100 machine; with the host's
+    # activity too, 39 s)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        codec_cli.decode_image(codec_cli.encode_image(images[0], jm, device=device), jm,
+        codec_cli.decode_image(codec_cli.encode_image(crop_img, jm, device=device), jm,
                                device=device)
         torch.cuda.synchronize()
         prof_wall = 1e3 * (time.perf_counter() - t0)
@@ -1677,7 +1718,8 @@ def hyper_phase(torch, dev, tools, h: int = IMG_H, w: int = IMG_W,
           "host_ar": {"native_ms": ar_ms["native"], "numpy_ms": ar_ms["numpy"],
                       "native_vs_numpy_gap_of_tol": ar_gap, "tol": AR_TOL,
                       "fronts": len(cheng2020._wavefronts(lh, lw)), "latent": [lh, lw, n]},
-          "profile_joint": {"wall_ms": prof_wall, "device_busy_ms": busy,
+          "profile_joint": {"shape": list(crop_img.shape), "wall_ms": prof_wall,
+                            "device_busy_ms": busy,
                             "device_idle_share": 1.0 - busy / prof_wall if prof_wall else None,
                             "device_kernels": n_kernels,
                             "device_ms_by_kernel": dict(sorted(by_kernel.items(),
@@ -3780,6 +3822,388 @@ def tiled_phase(torch, dev, tools) -> dict:
     return {"launches": launches, "k2": k2_rows}
 
 
+def mesh_train_phase(torch, dev, tools, hw: int = 256, kitti_dir: str = KITTI_TRAIN_DIR,
+                     balle_n: int = N_CH, hyper_n: int = HYPER_N, hyper_m: int = HYPER_M,
+                     dsc_preset: str = DSC_PRESET, balle_steps: int = MESH_BALLE_STEPS,
+                     cli_img: int = 320) -> dict:
+    """The training mesh on one card (ROADMAP item 20b), every slot on
+    ``dev`` (see the module docstring). ``tools`` holds the harness of
+    ``main``. Returns the launches of the mesh paths, the K2 rows (a Ballé
+    tile's conv2 at (p, 0); Cout = 160 with a split) and the K1 row (C =
+    160)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from iclr_17_compression_tpu_torch.data.datasets import batch_iterator, write_ppm
+    from iclr_17_compression_tpu_torch.ops import gdn as ops_gdn
+    from iclr_17_compression_tpu_torch.ops.gdn import gdn_reparam
+    from iclr_17_compression_tpu_torch.ops.kernels import conv_gdn_kernel as k2
+    from iclr_17_compression_tpu_torch.ops.kernels import gdn_kernel as k1
+    from iclr_17_compression_tpu_torch.ops.kernels import quant_pack_kernel as k3
+    from iclr_17_compression_tpu_torch.parallel import make_mesh
+    from iclr_17_compression_tpu_torch.parallel.halo import halo_exchange_w
+    from iclr_17_compression_tpu_torch.train import cli as train_cli
+    from iclr_17_compression_tpu_torch.train.config import TrainConfig
+    from iclr_17_compression_tpu_torch.train.dryrun import dryrun_multichip
+    from iclr_17_compression_tpu_torch.train.mesh_step import shard_train_step
+    from iclr_17_compression_tpu_torch.train.trainers import make_stereo_dataset
+    from iclr_17_compression_tpu_torch.train.state import (build_model, create_train_state,
+                                                           make_balle17_train_step,
+                                                           make_dsc_train_step,
+                                                           make_hyperprior_train_step,
+                                                           step_generator)
+    from iclr_17_compression_tpu_torch.utils.device import cudnn_autotune, cudnn_deterministic
+
+    check, emit = tools.check, tools.emit
+    t_phase = time.perf_counter()
+    keys = ("conv_gdn", "gdn", "quantize_pack")
+    launches = dict.fromkeys(keys, 0)
+    section_s, t_lap = {}, [t_phase]
+
+    def lap(name):
+        now = time.perf_counter()
+        section_s[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    def counts():
+        return {"conv_gdn": k2.conv_gdn.launches, "gdn": k1.gdn_fused.launches,
+                "quantize_pack": k3.quantize_pack.launches}
+
+    def reset():
+        k2.conv_gdn.launches = k1.gdn_fused.launches = k3.quantize_pack.launches = 0
+
+    def counted(fn):
+        """``fn()`` with the counters reset just before and read just after,
+        added to the phase's launches: (its result, its launches)."""
+        torch.cuda.synchronize()
+        reset()
+        out = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        for k in keys:
+            launches[k] += got[k]
+        return out, got
+
+    def mesh_of(shape):
+        return make_mesh(*shape, [dev] * (shape[0] * shape[1]))
+
+    def ms_pair(fn):
+        """(host ms: wall around a synchronized call, CUDA-event ms around it)."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0), start.elapsed_time(end)
+
+    def profiled(fn) -> dict:
+        """One call under torch.profiler (device activity only): its wall
+        ms, device busy ms and idle share."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, wall, _ = ms_pair(fn)
+        busy = sum(device_ms_by_kernel(torch, prof).values())
+        return {"wall_ms": wall, "device_busy_ms": busy,
+                "device_idle_share": 1.0 - busy / wall if busy else None}
+
+    def runs(model0, make_step, shape, batches, n_steps, flags, per_slot, seed, lr, clip):
+        """``n_steps`` steps of the split step on ``shape`` from a copy of
+        ``model0`` (its own Adam), batch i % len(batches), noise from
+        (seed, step): each step's metrics, host and event ms and launches
+        (checked: ``per_slot`` a slot), and one more step profiled."""
+        mesh = mesh_of(shape)
+        slots = shape[0] * shape[1]
+        state = create_train_state(copy.deepcopy(model0), lr=lr, grad_clip=clip)
+        step = shard_train_step(make_step(), mesh, len(batches[0]))
+        rows = []
+        for i in range(n_steps):
+            args = batches[i % len(batches)]
+            gen = step_generator(seed, i, dev)
+            with flags():
+                (metrics, host, event), got = counted(lambda: ms_pair(
+                    lambda: step(state, *args, gen)))
+            want = {k: v * slots for k, v in per_slot.items()}
+            check(got == want, f"mesh {shape}: step {i + 1} launches {got}, expected {want}")
+            rows.append({"metrics": {k: float(v) for k, v in metrics.items()},
+                         "host_ms": host, "event_ms": event})
+        args = batches[n_steps % len(batches)]
+        gen = step_generator(seed, n_steps, dev)
+        with flags():
+            prof = profiled(lambda: step(state, *args, gen))
+        return {"mesh": list(shape), "steps": rows, "profile": prof,
+                "median_host_ms": statistics.median(r["host_ms"] for r in rows[1:]),
+                "median_event_ms": statistics.median(r["event_ms"] for r in rows[1:]),
+                "launches_per_step": {k: v * slots for k, v in per_slot.items()}}
+
+    def step_grads(model0, make_step, shape, args, flags, seed, swap=None, rel=0.0,
+                   draw=DSC_PERTURB_SEEDS[0]):
+        """The summed gradients (unclamped) of one step from a copy of
+        ``model0`` on ``shape``, noise from (seed, 0); ``swap`` "plain" runs
+        K2 and K1 as their plain versions, "perturbed" moves each of their
+        outputs by ``rel``·N(0, 1) relative (draw ``draw``)."""
+        model = copy.deepcopy(model0)
+        state = create_train_state(model, grad_clip=float("inf"))
+        step = shard_train_step(make_step(), mesh_of(shape), len(args))
+        real = (k2.conv_gdn, ops_gdn.gdn_fused)
+        gen_p = torch.Generator(device=dev).manual_seed(draw)
+
+        def moved(fn):
+            def call(*a):
+                y = fn(*a)
+                return y * (1.0 + rel * torch.randn(y.shape, generator=gen_p, device=y.device))
+            return call
+
+        if swap == "plain":
+            k2.conv_gdn, ops_gdn.gdn_fused = k2.conv_gdn_plain, k1.gdn_fused_plain
+        elif swap == "perturbed":
+            k2.conv_gdn, ops_gdn.gdn_fused = moved(k2.conv_gdn_plain), moved(k1.gdn_fused_plain)
+        try:
+            with flags():
+                metrics = step(state, *args, step_generator(seed, 0, dev))
+        finally:
+            k2.conv_gdn, ops_gdn.gdn_fused = real
+        return ({k: float(v) for k, v in metrics.items()},
+                {k: p.grad.clone() for k, p in model.named_parameters()})
+
+    def gaps(ga, gb):
+        return {k: float((ga[k] - gb[k]).abs().max() / gb[k].abs().max().clamp(min=1e-30))
+                for k in gb}
+
+    def stats(g, g_ref):
+        """(the largest tensor's gap, the median tensor's gap)."""
+        gap = list(gaps(g, g_ref).values())
+        return max(gap), statistics.median(gap)
+
+    def floor_gate(model0, make_step, args, flags, seed, split_shapes):
+        """The dsc_train phase's gate on the split steps' step-1 gradients
+        against the 1×1 step's: the floor, the plain 1×1 step against itself
+        with K2's and K1's outputs moved by DSC_K2_PERTURB (the largest of
+        DSC_PERTURB_SEEDS' draws), on the largest and on the median tensor's
+        gap; the control at DSC_CONTROL_PERTURB must miss one of the two."""
+        _, g_one = step_grads(model0, make_step, (1, 1), args, flags, seed)
+        _, g_plain = step_grads(model0, make_step, (1, 1), args, flags, seed, "plain")
+        draws = [stats(step_grads(model0, make_step, (1, 1), args, flags, seed, "perturbed",
+                                  DSC_K2_PERTURB, d)[1], g_plain) for d in DSC_PERTURB_SEEDS]
+        floor = (max(d[0] for d in draws), max(d[1] for d in draws))
+        gate = (max(DSC_GRAD_TOL, DSC_FLOOR_FACTOR * floor[0]), DSC_FLOOR_FACTOR * floor[1])
+        control = stats(step_grads(model0, make_step, (1, 1), args, flags, seed, "perturbed",
+                                   DSC_CONTROL_PERTURB)[1], g_plain)
+        out = {"floor": floor, "gate": gate, "control_gap": control,
+               "control_missed": control[0] > gate[0] or control[1] > gate[1], "split": {}}
+        for shape in split_shapes:
+            gap = stats(step_grads(model0, make_step, shape, args, flags, seed)[1], g_one)
+            out["split"][f"{shape[0]}x{shape[1]}"] = {"max_gap": gap[0], "median_gap": gap[1]}
+            check(gap[0] <= gate[0] and gap[1] <= gate[1],
+                  f"mesh {shape}: step-1 gradients against 1x1 {gap} beyond the gate {gate}")
+        check(out["control_missed"], f"the TF32-size control {control} did not miss {gate}")
+        return out
+
+    def hold_step1(res, names, what):
+        """Every mesh's step-1 metrics within RTOL of the 1×1 run's."""
+        for shape, r in res.items():
+            for k in names:
+                a, want = r["steps"][0]["metrics"][k], res["1x1"]["steps"][0]["metrics"][k]
+                check(abs(a - want) <= RTOL * abs(want),
+                      f"{what} {shape}: step-1 {k} {a} vs 1x1 {want}")
+
+    base = TrainConfig.from_json(os.path.join(ROOT, "examples", "balle17.json"))
+    check((base.batch_size, base.image_size, base.train_lambda, base.lr_base,
+           base.grad_clip) == (4, 256, 8192, 1e-4, 5.0),
+          "examples/balle17.json is not the batch 4, 256 px, λ 8192 config")
+    b, lam = base.batch_size, base.train_lambda
+    rng = np.random.default_rng(MESH_SEED)
+    gen = torch.Generator().manual_seed(MESH_SEED)
+    crops = [torch.from_numpy(np.stack([smooth_image(rng, hw, hw) for _ in range(b)]))
+             for _ in range(MESH_BATCHES)]
+    result = {}
+
+    # ---- Ballé-17 at examples/balle17.json's widths
+    balle = build_model("balle17", device=dev, seed=MESH_SEED, out_channel_n=balle_n)
+    deterministic = cudnn_deterministic
+    balle_runs = {f"{d}x{t}": runs(balle, lambda: make_balle17_train_step(lam), (d, t),
+                                   [(c,) for c in crops], balle_steps, deterministic,
+                                   {"conv_gdn": 3, "gdn": 2, "quantize_pack": 0}, MESH_SEED,
+                                   base.lr_base, base.grad_clip)
+                  for d, t in BALLE_MESHES}
+    one = balle_runs["1x1"]
+    hold_step1(balle_runs, ("rd_loss", "mse", "bpp", "psnr"), "Ballé")
+    last = one["steps"][-1]["metrics"]["rd_loss"]
+    loss_gap = {k: r["steps"][-1]["metrics"]["rd_loss"] / last - 1.0
+                for k, r in balle_runs.items()}
+    check(all(abs(v) <= MESH_LOSS_REL for v in loss_gap.values()),
+          f"Ballé step-{balle_steps} rd_loss against 1x1: {loss_gap}")
+    _, g_one = step_grads(balle, lambda: make_balle17_train_step(lam), (1, 1), (crops[0],),
+                          deterministic, MESH_SEED)
+    balle_grads = {}
+    for shape in BALLE_MESHES[1:]:
+        _, g = step_grads(balle, lambda: make_balle17_train_step(lam), shape, (crops[0],),
+                          deterministic, MESH_SEED)
+        gp = gaps(g, g_one)
+        worst = max(gp.values())
+        balle_grads[f"{shape[0]}x{shape[1]}"] = {
+            "max_gap": worst, "worst": sorted(((v, k) for k, v in gp.items()), reverse=True)[:3]}
+        check(worst <= GRAD_TOL, f"Ballé {shape}: step-1 gradients {worst:.2e} from 1x1")
+    result["balle17"] = {"n": balle_n, "batch": b, "crop": hw, "lambda": lam,
+                         "runs": balle_runs, "step_last_rd_loss_gap": loss_gap,
+                         "step1_grad_gap": balle_grads}
+    lap("balle17")
+
+    # K2's Function at a 2×2 tile's conv2 (its halo'd input at padding (p, 0))
+    # against the plain path's autograd, forward and backward
+    enc = balle.Encoder
+    with torch.no_grad():
+        y1 = k2.conv_gdn_module(crops[0][: b // 2].to(dev), enc.conv1, enc.gdn1)
+        x_t = halo_exchange_w([t.contiguous() for t in torch.tensor_split(y1, 2, dim=2)],
+                              2, 1)[1]
+    beta2, gamma2 = gdn_reparam(enc.gdn2.params())
+    leaves = [t.detach().clone().contiguous() for t in (
+        x_t, enc.conv2.weight.permute(2, 3, 1, 0), enc.conv2.bias, gamma2.t(), beta2)]
+    probe = None
+    grads = {}
+    for path, fn in (("kernel", k2.conv_gdn), ("plain", k2.conv_gdn_plain)):
+        args = [t.clone().requires_grad_() for t in leaves]
+        out = fn(*args, 2, (2, 0), False)
+        if probe is None:
+            probe = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(5),
+                                device=dev)
+        torch.sum(out * probe).backward()
+        grads[path] = (out.detach(), [a.grad for a in args])
+    k2_rows = tools.new_row(library=True)
+    tools.compare(grads["kernel"][0], grads["plain"][0], "K2 tile conv2 (2, 0)", k2_rows)
+    fn_gaps = [float((a - p).abs().max() / p.abs().max().clamp(min=1e-30))
+               for a, p in zip(grads["kernel"][1], grads["plain"][1])]
+    check(max(fn_gaps) <= GRAD_TOL, f"K2 Function backward at (2, 0): gaps {fn_gaps}")
+    tools.measure_k2((leaves[0], leaves[1], leaves[2], leaves[3], leaves[4], 2, (2, 0)),
+                     k2_rows, "K2 mesh tile conv2 (2, 0)", cudnn_k1=True)
+    k2_rows["shapes"][-1]["where"] = "Ballé 2x2 mesh, a data part's tile 2 of 2: conv2 (2, 0)"
+    result["k2_function_tile_conv2"] = {"x": list(x_t.shape), "backward_gaps_x_w_b_gt_beta":
+                                        fn_gaps}
+
+    # off the paths: C = 160, fp32 K1 (one warp row: two would be 320
+    # threads) and K2's split reduction (conv_gdn_reduce_kernel)
+    k1_rows = tools.new_row(library=False)
+    with torch.no_grad():
+        x160 = torch.randn((1, 64, 96, C160), generator=gen).to(dev)
+        gt160 = (torch.rand((C160, C160), generator=gen) * 0.02).to(dev)
+        be160 = (torch.rand(C160, generator=gen) + 0.5).to(dev)
+        for inverse in (False, True):
+            tools.compare(k1.gdn_fused(x160, gt160, be160, inverse),
+                          k1.gdn_fused_plain(x160, gt160, be160, inverse),
+                          f"K1 C={C160} inverse={inverse}", k1_rows)
+        xs = (torch.randn((1, 32, 48, N_CH), generator=gen) * 0.5).to(dev)
+        ws = (torch.randn((5, 5, N_CH, C160), generator=gen) / 80).to(dev)
+        bs = (torch.randn(C160, generator=gen) * 0.01).to(dev)
+        splits = k2.plan_splits(16 * 24, 25, k2.block_slots(0, C160))
+        check(splits > 1, f"K2 Cout={C160}: {splits} splits, the reduction is not run")
+        for inverse in (False, True):
+            args = (xs, ws, bs, gt160, be160, 2, 2, inverse)
+            tools.compare(k2.conv_gdn(*args), k2.conv_gdn_plain(*args),
+                          f"K2 Cout={C160} splits={splits} inverse={inverse}", k2_rows)
+    result["c160_off_path"] = {"k1": [list(x160.shape)], "k2": [list(xs.shape)],
+                               "k2_splits": splits, "k1_max_abs_err": k1_rows["max_abs_err"],
+                               "k2_max_abs_err": k2_rows["max_abs_err"]}
+    lap("k2_k1_checks")
+
+    # ---- the DSC flagship at dsc_0031bpp.json's widths on KITTI-layout crops
+    dcfg = TrainConfig.from_json(os.path.join(ROOT, "examples", "dsc_0031bpp.json"))
+    check((dcfg.model, dcfg.batch_size) == (f"dsc:{DSC_PRESET}", 2),
+          "examples/dsc_0031bpp.json is not the temp_0031bpp, batch 2 config")
+    dataset = make_stereo_dataset(dataclasses.replace(dcfg, train_dir=kitti_dir,
+                                                      seed=MESH_SEED))
+    pairs = [tuple(torch.from_numpy(a) for a in batch) for batch, _ in zip(
+        batch_iterator(dataset, dcfg.batch_size, seed=MESH_SEED, epoch=0),
+        range(MESH_DSC_STEPS + 1))]
+    dsc = gdn_off_identity_(torch, build_model(f"dsc:{dsc_preset}", device="cpu",
+                                               seed=MESH_SEED), gen).to(dev)
+    lap("dsc_data_model")
+    dsc_runs = {f"{d}x{t}": runs(dsc, make_dsc_train_step, (d, t), pairs, MESH_DSC_STEPS,
+                                 deterministic, {"conv_gdn": 17, "gdn": 0, "quantize_pack": 0},
+                                 MESH_SEED, dcfg.lr_base, dcfg.grad_clip) for d, t in DSC_MESHES}
+    hold_step1(dsc_runs, ("loss", "loss_full", "loss_base", "loss_z"), "DSC")
+    lap("dsc_runs")
+    result["dsc"] = {"preset": dsc.config.name, "n": dsc.config.n, "batch": dcfg.batch_size,
+                     "crop": list(pairs[0][0].shape[1:3]), "runs": dsc_runs,
+                     "step1_grad_gate": floor_gate(dsc, make_dsc_train_step, pairs[0],
+                                                   deterministic, MESH_SEED, DSC_MESHES[1:])}
+    lap("dsc_gate")
+
+    # ---- the hyperprior and joint codecs at N = 192, M = 320 (data axis)
+    for name, per_slot in (("hyperprior", {"conv_gdn": 3, "gdn": 3, "quantize_pack": 0}),
+                           ("joint", {"conv_gdn": 6, "gdn": 0, "quantize_pack": 0})):
+        model = build_model(name, device="cpu", seed=MESH_SEED, out_channel_n=hyper_n,
+                            out_channel_m=hyper_m, n=hyper_n)
+        model = gdn_off_identity_(torch, model, gen).to(dev)
+        flags = cudnn_autotune if getattr(model, "train_cudnn_autotune", False) \
+            else deterministic
+        make = lambda: make_hyperprior_train_step(lam)  # noqa: E731
+        res = {f"{d}x{t}": runs(model, make, (d, t), [(c,) for c in crops], MESH_STEPS, flags,
+                                per_slot, MESH_SEED, base.lr_base, base.grad_clip)
+               for d, t in HYPER_MESHES}
+        hold_step1(res, ("rd_loss", "mse", "bpp", "bpp_y", "bpp_z"), name)
+        result[name] = {"n": hyper_n, "m": hyper_m, "batch": b, "crop": hw, "runs": res,
+                        "step1_grad_gate": floor_gate(model, make, (crops[0],), flags,
+                                                      MESH_SEED, HYPER_MESHES[1:])}
+        del model
+        lap(name)
+
+    # ---- the training CLI on a 2×2 mesh of one card, with its resume
+    work = os.path.join(ROOT, "build", "chip_smoke_mesh_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "train"))
+    for i in range(MESH_CLI_IMAGES):
+        write_ppm(os.path.join(work, "train", f"{i}.ppm"), smooth_image(rng, cli_img, cli_img))
+    cli_cfg = dataclasses.replace(base, out_channel_n=balle_n, image_size=hw, mesh_data=2,
+                                  mesh_tile=2, print_freq=1, cal_step=1, tensorboard=False,
+                                  train_dir=os.path.join(work, "train"), test_dir="",
+                                  save_root=work, save_model_freq=MESH_CLI_STEPS,
+                                  seed=MESH_SEED)
+
+    def cli_run(name, steps, resume=""):
+        with cudnn_deterministic():
+            return train_cli.train_single_image(
+                dataclasses.replace(cli_cfg, tot_step=steps), name, resume=resume,
+                device=str(dev), devices=[dev] * 4)
+
+    (full, cli_ms, _), got_full = counted(lambda: ms_pair(lambda: cli_run("full",
+                                                                          MESH_CLI_RESUME)))
+    _, got_half = counted(lambda: cli_run("half", MESH_CLI_STEPS))
+    resumed, got_resumed = counted(lambda: cli_run("half", MESH_CLI_RESUME,
+                                                   os.path.join(work, "half")))
+    cli_launches = {k: got_full[k] + got_half[k] + got_resumed[k] for k in keys}
+    steps_run = 2 * MESH_CLI_RESUME
+    check(cli_launches == {"conv_gdn": 3 * 4 * steps_run, "gdn": 2 * 4 * steps_run,
+                           "quantize_pack": 0},
+          f"train_single_image 2x2: launches {cli_launches} over {steps_run} steps")
+    check(full.step == resumed.step == MESH_CLI_RESUME, "train_single_image 2x2: steps")
+    same_params = all(torch.equal(a, c) for a, c in zip(full.model.state_dict().values(),
+                                                       resumed.model.state_dict().values()))
+    sa, sr = full.optimizer.state_dict()["state"], resumed.optimizer.state_dict()["state"]
+    same_moments = all(torch.equal(sa[i][k], sr[i][k]) for i in sa
+                       for k in ("exp_avg", "exp_avg_sq", "step"))
+    check(same_params and same_moments, "train_single_image 2x2: the resumed run's parameters "
+                                        "or Adam moments differ from the uninterrupted run's")
+    log = open(os.path.join(work, "full", "train.log")).read()
+    check("mesh: data=2 tile=2" in log, "train_single_image 2x2: no mesh line in train.log")
+    result["train_single_image_2x2"] = {"steps": MESH_CLI_RESUME, "resumed_from": MESH_CLI_STEPS,
+                                        "params_bit_equal": same_params,
+                                        "adam_moments_bit_equal": same_moments,
+                                        "launches": cli_launches, "seconds_full": cli_ms / 1e3}
+    lap("train_single_image")
+
+    # ---- the port's dryrun_multichip on 8 slots of the card
+    (dry, dry_ms, _), dry_launches = counted(lambda: ms_pair(
+        lambda: dryrun_multichip([dev] * MESH_DRYRUN_DEVICES)))
+    check(all(dry_launches[k] > 0 for k in keys), f"dryrun_multichip: launches {dry_launches}")
+    result["dryrun_multichip"] = {**dry, "launches": dry_launches, "seconds": dry_ms / 1e3}
+    lap("dryrun_multichip")
+
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "mesh_train", "ok": True, **result, "launches": launches,
+          "k2_mesh": k2_rows, "k1_c160": k1_rows, "section_s": section_s, "seconds": seconds})
+    print(f"mesh_train phase seconds: {seconds:.1f}", flush=True)
+    return {"launches": launches, "k2": k2_rows, "k1": k1_rows}
+
+
 def _fresh_like(torch, model):
     """A copy of ``model`` (its kind, widths and device) with every
     parameter moved by 1."""
@@ -3807,15 +4231,17 @@ def harness(torch, lib) -> types.SimpleNamespace:
         behind a sleep kernel, so that the host's enqueue time (the Python
         wrapper) is hidden; median over ``reps`` after ``warmup`` calls. A
         call of over 10 ms (cuDNN's fp32 path at some C = 192 shapes takes
-        190 ms) is timed alone, 5 times."""
-        for _ in range(warmup):
-            fn()
+        190 ms) is timed alone, 5 times, after one warmup call."""
+        fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         if time.perf_counter() - t0 > 0.010:
             reps, batch = 5, 1
+        else:
+            for _ in range(warmup - 1):
+                fn()
         times = []
         for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
@@ -4339,7 +4765,7 @@ def main() -> int:
             for i in saved_opt for k in ("exp_avg", "exp_avg_sq", "step")),
             "resume: Adam moments read back differ from the saved ones")
 
-        # run B: --resume to 120, profiling steps 105-115
+        # run B: --resume to RESUME_STEPS, profiling PROFILE_STEPS from TRAIN_STEPS + 5
         box["profile_start"] = TRAIN_STEPS + 5
         reset_launches()
         state_b = train_cli.main(["--config", resume_cfg_path, "-n", "run1",
@@ -4790,10 +5216,12 @@ def main() -> int:
         trace_child.kill()  # gone already, unless a phase failed first
         trace_child.wait()
     tiled = tiled_phase(torch, dev, tools)
+    mesh = mesh_train_phase(torch, dev, tools)
     paths = {"codec": launches, "train": train_launches, "dsc": dsc_launches,
              "dsc_train": dsc_train_launches, "hyper": hyper_launches,
              "hyper_train": hyper_train["launches"], "dsc_fusion": fusion["launches"],
-             "aux": aux["launches"], "eval": evals["launches"], "tiled": tiled["launches"]}
+             "aux": aux["launches"], "eval": evals["launches"], "tiled": tiled["launches"],
+             "mesh_train": mesh["launches"]}
 
     kernels = []
     meta = {
@@ -4851,7 +5279,8 @@ def main() -> int:
         elif name == "gdn":
             entry["max_abs_err"] = max(entry["max_abs_err"], k1_c64["max_abs_err"],
                                        aux["k1"]["max_abs_err"],
-                                       aux["k1_decoder_only"]["max_abs_err"])
+                                       aux["k1_decoder_only"]["max_abs_err"],
+                                       mesh["k1"]["max_abs_err"])
             entry["c64_shapes"] = [{k: st.get(k) for k in ("x", "ms", "plain_ms", "bound_ms")}
                                    for st in k1_c64["shapes"]]
             entry["c512_shapes"] = [
@@ -4872,6 +5301,12 @@ def main() -> int:
                 {k: st.get(k) for k in ("where", "x", "splits", "ms", "call_ms", "plain_ms",
                                         "library_ms", "cudnn_k1_ms", "bound_ms", "bound_by")}
                 for st in tr["shapes"]]
+            mr = mesh["k2"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], mr["max_abs_err"])
+            entry["mesh_train_shapes"] = [
+                {k: st.get(k) for k in ("where", "x", "splits", "ms", "call_ms", "plain_ms",
+                                        "library_ms", "cudnn_k1_ms", "bound_ms", "bound_by")}
+                for st in mr["shapes"]]
             fp = prec["k2_fp32_blocked_conv1"]
             entry["max_abs_err"] = max(entry["max_abs_err"], fp["max_abs_err"])
             entry["blocked_conv1"] = {k: fp.get(k) for k in (

@@ -31,7 +31,7 @@ and K3 in their bf16 variants on CUDA); the rate term stays fp32.
 """
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -61,14 +61,17 @@ class Analysis17(nn.Module):
         self.gdn2 = GDN(n)
         self.conv3 = TorchConv(n, n, 5, stride=2, padding=2, bias=False, gain=math.sqrt(2))
 
-    def forward(self, x: torch.Tensor):
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The three stages, before any binarizer."""
         precision_on_cuda(x)
         if x.device.type == "cuda":
-            x = analysis17_fused(self, x)
-        else:
-            x = self.gdn1(self.conv1(x))
-            x = self.gdn2(self.conv2(x))
-            x = self.conv3(x)
+            return analysis17_fused(self, x)
+        x = self.gdn1(self.conv1(x))
+        x = self.gdn2(self.conv2(x))
+        return self.conv3(x)
+
+    def forward(self, x: torch.Tensor):
+        x = self.features(x)
         if self.binarize:
             pre = torch.sigmoid(x)
             return quant.binarize_ste(pre), pre
@@ -132,23 +135,27 @@ class Balle17Compressor(nn.Module):
         ``generator`` in module order."""
         return init_modules_(self, generator)
 
-    def forward(self, image: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        precision_on_cuda(image)
+    def quantize(self, feature: torch.Tensor, train: bool = False,
+                 generator=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The latent of the analysis' ``feature`` (``Analysis17.features``)
+        and the sigmoid before the binarizer (``binarize`` only, else None):
+        the binarizer, the training noise (from ``generator``, or a mesh
+        slot's ``ops.quant.SlotNoise``) or STE rounding, or the rounding."""
+        if self.quant == "binarize":
+            pre = torch.sigmoid(feature)
+            return quant.binarize_ste(pre), pre
+        if train and self.quant == "noise-round":
+            return quant.add_uniform_noise(feature, generator, 0.5), None
+        if train:
+            return quant.round_ste(feature), None
+        return quant.round(feature), None
+
+    def outputs(self, image: torch.Tensor, latent: torch.Tensor, recon: torch.Tensor,
+                pre_binarize: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The forward's dict from its image, latent and unclipped recon."""
         n, h, w, _ = image.shape
         n_pix = n * h * w * self.io_block * self.io_block
-        out = {}
-        if self.quant == "binarize":
-            latent, out["pre_binarize"] = self.Encoder(image)
-        else:
-            feature = self.Encoder(image)
-            if train and self.quant == "noise-round":
-                latent = quant.add_uniform_noise(feature, generator, 0.5)
-            elif train:
-                latent = quant.round_ste(feature)
-            else:
-                latent = quant.round(feature)
-        recon = self.Decoder(latent)
+        out = {} if pre_binarize is None else {"pre_binarize": pre_binarize}
         out.update(recon=torch.clamp(recon, 0.0, 1.0), latent=latent,
                    mse=torch.mean((recon - image) ** 2))
         if self.quant == "binarize":
@@ -159,3 +166,9 @@ class Balle17Compressor(nn.Module):
             total_bits, _ = estimate_bits(latent.float(), self.bitEstimator.params())
             out["bpp"] = total_bits / n_pix
         return out
+
+    def forward(self, image: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        precision_on_cuda(image)
+        latent, pre = self.quantize(self.Encoder.features(image), train, generator)
+        return self.outputs(image, latent, self.Decoder(latent), pre)

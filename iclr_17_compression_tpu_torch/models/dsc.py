@@ -227,42 +227,116 @@ def _z_cat(cfg: DSCConfig, z1_hat, z2, z2_hat):
     return torch.cat([zc, si], dim=-1)
 
 
-def _fuse_and_synthesize(cfg: DSCConfig, mods: nn.Module, z1_hat, z2, z2_hat, im2,
-                         train: bool = False):
+class OneDevice:
+    """How the DSC forward runs on one device: ``stack(name, *xs)`` calls
+    the module ``name`` of ``mods``, ``each(fn, *xs)`` calls ``fn`` once.
+    ``parallel.tiled.TileRun`` runs the same forward tile by tile."""
+
+    def __init__(self, mods: nn.Module):
+        self.mods = mods
+
+    def stack(self, name: str, *xs, **kw):
+        return getattr(self.mods, name)(*xs, **kw)
+
+    def each(self, fn, *xs):
+        return fn(*xs)
+
+
+def _clip01(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def _fuse_and_synthesize(cfg: DSCConfig, run, z1_hat, z2, z2_hat, im2, train: bool = False):
     """SI fusion + synthesis, the receiver's tail shared by the full model
-    and ``DSCDecoder``: (fused, recon_raw), the recon unclipped. ``train``
-    reaches FIF's batch statistics only."""
-    z_cat = _z_cat(cfg, z1_hat, z2, z2_hat)
+    and ``DSCDecoder``, under ``run`` (``OneDevice`` or a ``TileRun``):
+    (fused, recon_raw), the recon unclipped. ``train`` reaches FIF's batch
+    statistics only."""
+    z_cat = run.each(lambda a, b, c: _z_cat(cfg, a, b, c), z1_hat, z2, z2_hat)
     if cfg.fusion_pre == "fif":
-        z_cat = mods.fif(z_cat, train)
-    fused = mods.g_z1hat_z2(z_cat)
+        z_cat = run.stack("fif", z_cat, train)
+    fused = run.stack("g_z1hat_z2", z_cat)
     if cfg.gz2:
-        fused = fused + mods.g_z1hat_z2_freq2(z_cat)
+        fused = run.each(torch.add, fused, run.stack("g_z1hat_z2_freq2", z_cat))
     if cfg.fusion_post == "bot_att":
-        fused = mods.final_conv(torch.cat([fused, bottleneck_attention(fused, z2)], dim=-1))
+        fused = run.stack("final_conv", run.each(
+            lambda f, z: torch.cat([f, bottleneck_attention(f, z)], dim=-1), fused, z2))
     elif cfg.fusion_post == "patch_att":
-        att = mods.bot_mhsa(fused, z2)
-        # the 9×9 patch grid may stop short of the latent: pad back with zeros
-        att = F.pad(att, (0, 0, 0, fused.shape[2] - att.shape[2], 0,
-                          fused.shape[1] - att.shape[1]))
-        fused = mods.final_conv(torch.cat([fused, att], dim=-1))
+        def with_att(f, att):
+            # the 9×9 patch grid may stop short of the latent: pad back with zeros
+            att = F.pad(att, (0, 0, 0, f.shape[2] - att.shape[2], 0, f.shape[1] - att.shape[1]))
+            return torch.cat([f, att], dim=-1)
+
+        fused = run.stack("final_conv", run.each(with_att, fused, run.stack("bot_mhsa", fused, z2)))
     elif cfg.fusion_post == "pam":
-        fused = mods.pam(fused, z2, train=False)
-    recon = mods.g_s(fused)
+        fused = run.stack("pam", fused, z2, train=False)
+    recon = run.stack("g_s", fused)
     if cfg.recon_residual:
-        recon = recon + mods.g_rec1_im2_new(torch.cat([recon, im2], dim=-1))
+        recon = run.each(torch.add, recon, run.stack(
+            "g_rec1_im2_new", run.each(lambda r, x: torch.cat([r, x], dim=-1), recon, im2)))
     return fused, recon
 
 
-def _si_encoder(mods: nn.Module) -> nn.Module:
-    """The encoder of the side-information image: ``g_a``, or ``g_a_Y``
-    where the preset has a separate one."""
-    return mods.g_a if mods.config.shared_encoder else mods.g_a_Y
+def si_encoder_name(cfg: DSCConfig) -> str:
+    """The stack that encodes the side-information image: ``g_a``, or
+    ``g_a_Y`` where the preset has a separate one."""
+    return "g_a" if cfg.shared_encoder else "g_a_Y"
+
+
+def receive(cfg: DSCConfig, run, code, im2):
+    """The receiver under ``run``: the unclipped recon of the code with the
+    side-information image ``im2``."""
+    z2 = run.stack(si_encoder_name(cfg), im2)
+    z1_hat = run.stack("g_s22", code)
+    z2_hat = run.stack("g_s22", run.stack("g_a22", z2)) if cfg.fusion == "cat3" else None
+    return _fuse_and_synthesize(cfg, run, z1_hat, z2, z2_hat, im2)[1]
+
+
+def dsc_outputs(cfg: DSCConfig, run, im1, im2, train: bool = False, mask_channels=None,
+                generator=None) -> Dict[str, object]:
+    """``DSCStereoModel``'s forward under ``run`` but its loss triplet: each
+    value a tensor (``OneDevice``) or a list of tiles (a ``TileRun``).
+    ``generator``: a generator, or an ``ops.quant.SlotNoise`` (a list of
+    one a tile under a ``TileRun``); the noise is drawn in the order of the
+    module docstring."""
+
+    def noised(x, g, half_width):
+        return quant.add_uniform_noise(x, g, half_width)
+
+    z1 = run.stack("g_a", im1)
+    z2 = run.stack(si_encoder_name(cfg), im2)
+    out = {"z1": z1, "z2": z2}
+    code_pre = run.stack("g_a22", z1)
+    if mask_channels is not None:
+        code_pre = run.each(lambda c: c * (1.0 - mask_channels.to(c.dtype)), code_pre)
+    if train:
+        code = run.each(lambda c, g: noised(c, g, cfg.coarse_noise), code_pre, generator)
+        if cfg.code_clip is not None:
+            code = run.each(lambda c: torch.clamp(c, -cfg.code_clip, cfg.code_clip), code)
+    else:
+        code = run.each(lambda c: quantize_code(c, cfg)[1], code_pre)
+    out["code"] = code
+    z1_hat = run.stack("g_s22", code)
+    out["z1_hat"] = z1_hat
+    z2_hat = run.stack("g_s22", run.stack("g_a22", z2)) if cfg.fusion == "cat3" else None
+    fused, recon = _fuse_and_synthesize(cfg, run, z1_hat, z2, z2_hat, im2, train)
+    out["fused"] = fused
+    out["recon_raw"] = recon
+    out["recon"] = run.each(_clip01, recon)
+
+    if cfg.base_branch:
+        if train:
+            cz1 = run.each(lambda z, g: noised(z, g, cfg.fine_noise), z1, generator)
+            cz2 = run.each(lambda z, g: noised(z, g, cfg.fine_noise), z2, generator)
+        else:
+            cz1, cz2 = run.each(torch.round, z1), run.each(torch.round, z2)
+        out["im1_hat"] = run.each(_clip01, run.stack("g_s", cz1))
+        out["im2_hat"] = run.each(_clip01, run.stack("g_s", cz2))
+    return out
 
 
 def _receiver_stacks(cfg: DSCConfig) -> Tuple[str, ...]:
     """The names of the stacks the receiver runs."""
-    names = ["g_a" if cfg.shared_encoder else "g_a_Y", "g_s22", "g_z1hat_z2", "g_s"]
+    names = [si_encoder_name(cfg), "g_s22", "g_z1hat_z2", "g_s"]
     if cfg.fusion == "cat3":
         names.append("g_a22")
     if cfg.gz2:
@@ -325,71 +399,72 @@ class DSCStereoModel(nn.Module):
         precision_on_cuda(im1)
         return self.g_a22(self.g_a(im1))
 
+    def outputs(self, im1: torch.Tensor, im2: torch.Tensor, train: bool = False,
+                mask_channels: Optional[torch.Tensor] = None,
+                generator=None) -> Dict[str, torch.Tensor]:
+        """The forward's dict but its loss triplet (``dsc_outputs``)."""
+        precision_on_cuda(im1)
+        return dsc_outputs(self.config, OneDevice(self), im1, im2, train, mask_channels,
+                           generator)
+
     def forward(self, im1: torch.Tensor, im2: torch.Tensor, train: bool = False,
                 mask_channels: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         cfg = self.config
-        precision_on_cuda(im1)
-        z1 = self.g_a(im1)
-        z2 = _si_encoder(self)(im2)
-        out = {"z1": z1, "z2": z2}
-        code_pre = self.g_a22(z1)
-        if mask_channels is not None:
-            code_pre = code_pre * (1.0 - mask_channels.to(code_pre.dtype))
-        if train:
-            code = quant.add_uniform_noise(code_pre, generator, cfg.coarse_noise)
-            if cfg.code_clip is not None:
-                code = torch.clamp(code, -cfg.code_clip, cfg.code_clip)
-        else:
-            _, code = quantize_code(code_pre, cfg)
-        out["code"] = code
-        z1_hat = self.g_s22(code)
-        out["z1_hat"] = z1_hat
-        z2_hat = self.g_s22(self.g_a22(z2)) if cfg.fusion == "cat3" else None
-        fused, recon = _fuse_and_synthesize(cfg, self, z1_hat, z2, z2_hat, im2, train)
-        out["fused"] = fused
-        clipped = torch.clamp(recon, 0.0, 1.0)
-        out["recon_raw"] = recon
-        out["recon"] = clipped
-
-        if cfg.base_branch:
-            if train:
-                cz1 = quant.add_uniform_noise(z1, generator, cfg.fine_noise)
-                cz2 = quant.add_uniform_noise(z2, generator, cfg.fine_noise)
-            else:
-                cz1, cz2 = torch.round(z1), torch.round(z2)
-            out["im1_hat"] = torch.clamp(self.g_s(cz1), 0.0, 1.0)
-            out["im2_hat"] = torch.clamp(self.g_s(cz2), 0.0, 1.0)
-
-        zero = torch.zeros((), device=im1.device)
-        if cfg.loss == "l1":
-            z_target = (torch.round(z1 / cfg.coarse_step) * cfg.coarse_step
-                        if cfg.z_target_coarse else z1)
-            loss_z = torch.mean(torch.abs(fused - z_target))
-            loss_full = torch.mean(torch.abs(clipped - im1))
-            loss_base = (0.5 * torch.mean(torch.abs(out["im1_hat"] - im1))
-                         + 0.5 * torch.mean(torch.abs(out["im2_hat"] - im2))
-                         if cfg.base_branch else zero)
-        elif cfg.loss == "msssim":
-            ms_full = ms_ssim(clipped, im1, win_size=cfg.msssim_win)
-            loss_full = 1.0 - ms_full
-            if cfg.base_branch:
-                ms2 = ms_ssim(out["im2_hat"], im2, win_size=cfg.msssim_win)
-                loss_base = 1.0 - 0.5 * (ms_full + ms2)
-            else:
-                loss_base = loss_full
-            # reference parity: the MS-SSIM branch hardcodes mse_on_z = 1
-            loss_z = zero + 1.0
-        else:  # mse
-            loss_z = torch.mean((fused - z1) ** 2)
-            loss_full = torch.mean((clipped - im1) ** 2)
-            loss_base = (0.5 * torch.mean((out["im1_hat"] - im1) ** 2)
-                         + 0.5 * torch.mean((out["im2_hat"] - im2) ** 2)
-                         if cfg.base_branch else zero)
-        out["loss"] = loss_base
-        out["loss_full"] = loss_full
-        out["loss_z"] = loss_z
+        out = self.outputs(im1, im2, train, mask_channels, generator)
+        terms = loss_terms(cfg, out, im1, im2)
+        out["loss"], out["loss_full"], out["loss_z"] = loss_triplet(
+            cfg, lambda name: measure(cfg, *terms[name]), torch.zeros((), device=im1.device))
         return out
+
+
+def loss_terms(cfg: DSCConfig, out: Dict[str, torch.Tensor], im1: torch.Tensor,
+               im2: torch.Tensor) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """The (prediction, target) pairs the loss triplet measures, by name:
+    ``full`` (the clipped recon and im1), and for the L1 and MSE losses
+    ``z`` (the fused latent and z1, or its coarse rounding for
+    ``z_target_coarse`` L1), with a base branch also ``base1`` (L1 / MSE)
+    and ``base2`` (the aux recons against their images)."""
+    terms = {"full": (out["recon"], im1)}
+    if cfg.loss != "msssim":
+        z1 = out["z1"]
+        z_target = (torch.round(z1 / cfg.coarse_step) * cfg.coarse_step
+                    if cfg.loss == "l1" and cfg.z_target_coarse else z1)
+        terms["z"] = (out["fused"], z_target)
+        if cfg.base_branch:
+            terms["base1"] = (out["im1_hat"], im1)
+    if cfg.base_branch:
+        terms["base2"] = (out["im2_hat"], im2)
+    return terms
+
+
+def elementwise_error(cfg: DSCConfig, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a − b| for the L1 loss, (a − b)² for the MSE loss."""
+    return torch.abs(a - b) if cfg.loss == "l1" else (a - b) ** 2
+
+
+def measure(cfg: DSCConfig, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One term's value: MS-SSIM (window ``msssim_win``), else the mean of
+    ``elementwise_error``."""
+    if cfg.loss == "msssim":
+        return ms_ssim(a, b, win_size=cfg.msssim_win)
+    return torch.mean(elementwise_error(cfg, a, b))
+
+
+def loss_triplet(cfg: DSCConfig, value, zero: torch.Tensor):
+    """(loss, loss_full, loss_z), the reference's loss triplet, from
+    ``value(name)``, each ``loss_terms`` term's value (``measure``, or the
+    whole batch's from a split step's sums)."""
+    if cfg.loss == "msssim":
+        ms_full = value("full")
+        loss_full = 1.0 - ms_full
+        loss_base = 1.0 - 0.5 * (ms_full + value("base2")) if cfg.base_branch else loss_full
+        # reference parity: the MS-SSIM branch hardcodes mse_on_z = 1
+        return loss_base, loss_full, zero + 1.0
+    loss_z = value("z")
+    loss_full = value("full")
+    loss_base = (0.5 * value("base1") + 0.5 * value("base2")) if cfg.base_branch else zero
+    return loss_base, loss_full, loss_z
 
 
 class DSCDecoder(nn.Module):
@@ -413,13 +488,9 @@ class DSCDecoder(nn.Module):
             setattr(self, name, getattr(model, name))
 
     def forward(self, code: torch.Tensor, im2: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
         precision_on_cuda(im2)
-        z2 = _si_encoder(self)(im2)
-        z1_hat = self.g_s22(code)
-        z2_hat = self.g_s22(self.g_a22(z2)) if cfg.fusion == "cat3" else None
-        _, recon = _fuse_and_synthesize(cfg, self, z1_hat, z2, z2_hat, im2)
-        return torch.clamp(recon, 0.0, 1.0) if self.clip else recon
+        recon = receive(self.config, OneDevice(self), code, im2)
+        return _clip01(recon) if self.clip else recon
 
 
 # ---------------------------------------------------------------------------

@@ -257,18 +257,19 @@ def conv_gdn_module(x: torch.Tensor, conv, gdn=None, padding=None) -> torch.Tens
     permute (and ``block_conv_weight``) and the stored GDN parameters
     through ``gdn_reparam``, all outside the Function. As the Pallas
     wrapper, it hands the kernel the weight in x's element type and the
-    bias, γᵀ and β in fp32 (no-ops on fp32 storage); a bf16 weight is
-    copied once, into the kernel's K-major rows (``k_major_hwio``), as an
-    fp32 one is into HWIO order."""
+    bias, γᵀ and β in fp32 (no-ops on fp32 storage; fp64 on the CPU's fp64
+    input); a bf16 weight is copied once, into the kernel's K-major rows
+    (``k_major_hwio``), as an fp32 one is into HWIO order."""
+    acc = torch.promote_types(x.dtype, torch.float32)
     gamma_t = beta = None
     if gdn is not None:
         beta, gamma = gdn_reparam(gdn.params())
-        gamma_t, beta = gamma.t().contiguous().float(), beta.float()
+        gamma_t, beta = gamma.t().contiguous().to(acc), beta.to(acc)
     if getattr(conv, "input_block", 1) > 1:
         w, stride, own = conv.blocked_weight(), 1, 1
     else:
         w, stride, own = oihw_to_hwio(conv.weight), conv.stride[0], conv.padding[0]
-    b = None if conv.bias is None else conv.bias.float()
+    b = None if conv.bias is None else conv.bias.to(acc)
     w = w.to(x.dtype)
     w = k_major_hwio(w) if x.dtype == torch.bfloat16 else w.contiguous()
     return conv_gdn(x, w, b, gamma_t, beta, stride,

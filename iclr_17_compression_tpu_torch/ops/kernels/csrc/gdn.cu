@@ -216,7 +216,8 @@ static RowsPlan rows_plan(int C, bool gdn_on) {
            (2ull * WARP_M * warp_rows * lda_of(C) + gamma_rows * ldb_of(gamma_cols));
   };
   if (!gdn_on) return {1, 0, C, bytes(1, 0, C)};
-  if (bytes(2, C, C) <= SMEM_LIMIT) return {2, 1, 2 * C, bytes(2, C, C)};
+  // two warp rows take 2·C threads: at most the 256 the kernels are built for
+  if (2 * C <= 256 && bytes(2, C, C) <= SMEM_LIMIT) return {2, 1, 2 * C, bytes(2, C, C)};
   if (bytes(1, C, C) <= SMEM_LIMIT) return {1, 1, C, bytes(1, C, C)};
   if (C <= PASS_COLS) return {1, 0, C, bytes(1, 2 * BK, C)};
   return {1, 0, PASS_COLS, bytes(1, 2 * BK, PASS_COLS)};

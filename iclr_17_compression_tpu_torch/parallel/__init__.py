@@ -1,6 +1,7 @@
-"""Tiled serving over a list of devices (ROADMAP item 20a): the tile axis of
-``iclr_17_compression_tpu/parallel``. The data axis (the training mesh) is
-item 20b."""
+"""The device mesh of ``iclr_17_compression_tpu/parallel``, one process over
+a list of devices: tiled serving (ROADMAP item 20a), and the placement and
+tiled forwards that the training mesh (item 20b,
+``train.mesh_step.shard_train_step``) is built on."""
 
 from .halo import (
     halo_exchange_w,
@@ -10,10 +11,15 @@ from .halo import (
 )
 from .mesh import (
     Mesh,
+    batch_and_tile_split,
+    batch_split,
     gather_tiles,
     make_mesh,
+    put_batch,
+    put_replicated,
     replicated,
     split_tiles,
+    training_mesh,
     validate_tile_extent,
 )
 from .ring_pam import pam_eval_ring
@@ -32,6 +38,11 @@ __all__ = [
     "gather_tiles",
     "replicated",
     "validate_tile_extent",
+    "training_mesh",
+    "batch_split",
+    "batch_and_tile_split",
+    "put_batch",
+    "put_replicated",
     "TiledStreams",
     "make_tiled_codec",
     "make_tiled_dsc",

@@ -41,7 +41,9 @@ Each tile runs on its own replica of the model (``mesh.replicated``: the
 model itself when every tile shares its device). On the card the tiled
 Ballé-17 runs the port's kernels tile by tile: K2
 for each conv + GDN of the analysis (and conv3), K3 for the rounding (its
-symbols), K1 for each IGDN; cuDNN runs the transposed convs.
+symbols), K1 for each IGDN; cuDNN runs the transposed convs. The training
+mesh's tile axis runs ``tiled_balle17_train``: the same exchanges, which
+carry gradients back to the neighbour's tile, on each slot's own replica.
 """
 
 import math
@@ -110,28 +112,39 @@ def _across(padding, dim: int):
     return (ph, 0) if dim == 2 else (0, pw)
 
 
-def tiled_conv2d(tiles: Sequence[torch.Tensor], w: torch.Tensor, b=None, *, stride=1,
+def _per_tile(v, n: int) -> list:
+    """``v`` as a list of one value a tile: a list as it is (tile i's own,
+    its replica's, so that its gradient reaches that replica), else ``v``
+    for every tile."""
+    return list(v) if isinstance(v, (list, tuple)) else [v] * n
+
+
+def tiled_conv2d(tiles: Sequence[torch.Tensor], w, b=None, *, stride=1,
                  padding=0, axis="width") -> Tiles:
     """A conv (OIHW ``w``, ``nn.Conv2d`` semantics) over tiles: each tile's
-    output is the full conv's slice. Each tile's extent must be a multiple
-    of the stride."""
+    output is the full conv's slice. ``w`` and ``b``: one (moved to each
+    tile's device) or a list, one a tile. Each tile's extent must be a
+    multiple of the stride."""
     dim = tile_dim(axis)
-    k, s, p = w.shape[1 + dim], _along(stride, dim), _along(padding, dim)
+    ws, bs = _per_tile(w, len(tiles)), _per_tile(b, len(tiles))
+    k, s, p = ws[0].shape[1 + dim], _along(stride, dim), _along(padding, dim)
     halos = halo_exchange_w(tiles, p, max(k - s - p, 0), axis)
-    return [conv2d(x, w.to(x.device), None if b is None else b.to(x.device), stride=stride,
-                   padding=_across(padding, dim)) for x in halos]
+    return [conv2d(x, wi.to(x.device), None if bi is None else bi.to(x.device), stride=stride,
+                   padding=_across(padding, dim)) for x, wi, bi in zip(halos, ws, bs)]
 
 
-def tiled_conv_transpose2d(tiles: Sequence[torch.Tensor], w: torch.Tensor, b=None, *,
+def tiled_conv_transpose2d(tiles: Sequence[torch.Tensor], w, b=None, *,
                            stride=1, padding=0, output_padding=0, axis="width") -> Tiles:
     """A transposed conv ((Cin, Cout, kh, kw) ``w``, ``nn.ConvTranspose2d``
-    semantics) over tiles: each tile's output is the full op's slice."""
+    semantics) over tiles: each tile's output is the full op's slice. ``w``
+    and ``b`` as ``tiled_conv2d``'s."""
     dim = tile_dim(axis)
-    k, s = w.shape[1 + dim], _along(stride, dim)
+    ws, bs = _per_tile(w, len(tiles)), _per_tile(b, len(tiles))
+    k, s = ws[0].shape[1 + dim], _along(stride, dim)
     halo = math.ceil((k - 1) / s)
     out = []
-    for t, x in zip(tiles, halo_exchange_w(tiles, halo, halo, axis)):
-        y = conv_transpose2d(x, w.to(x.device), None if b is None else b.to(x.device),
+    for t, x, wi, bi in zip(tiles, halo_exchange_w(tiles, halo, halo, axis), ws, bs):
+        y = conv_transpose2d(x, wi.to(x.device), None if bi is None else bi.to(x.device),
                              stride=stride, padding=padding, output_padding=output_padding)
         out.append(y.narrow(dim, halo * s, t.shape[dim] * s).contiguous())
     return out
@@ -141,7 +154,8 @@ def tiled_conv_gdn(tiles: Sequence[torch.Tensor], convs, gdns, axis="width") -> 
     """A ``TorchConv`` (+ ``GDN``) over tiles, each tile one ``conv_gdn``
     call (K2 on the card) with padding across the tiled axis only, with
     tile i's replicas ``convs[i]`` and ``gdns[i]`` (None: no GDN); a conv
-    with ``input_block`` > 1 as its blocked 3×3 stride-1 conv."""
+    with ``input_block`` > 1 as its blocked 3×3 stride-1 conv. K2's
+    Function recomputes its backward at the same padding pair."""
     dim, conv = tile_dim(axis), convs[0]
     if getattr(conv, "input_block", 1) > 1:
         k, s, padding = 3, 1, 1
@@ -154,25 +168,29 @@ def tiled_conv_gdn(tiles: Sequence[torch.Tensor], convs, gdns, axis="width") -> 
 
 
 def tiled_deconv(tiles: Sequence[torch.Tensor], deconv, axis="width") -> Tiles:
-    """A ``TorchConvTranspose`` over tiles; one with ``output_block`` > 1 as
-    its blocked 3×3 stride-1 conv."""
-    if getattr(deconv, "output_block", 1) > 1:
+    """A ``TorchConvTranspose`` over tiles (one module, or a list: tile
+    i's replica); one with ``output_block`` > 1 as its blocked 3×3
+    stride-1 conv."""
+    deconvs = _per_tile(deconv, len(tiles))
+    d = deconvs[0]
+    if getattr(d, "output_block", 1) > 1:
         from ..ops.conv import block_deconv_weight, deconv_torch_to_hwio, hwio_to_oihw
 
-        s = deconv.output_block
-        wb = block_deconv_weight(deconv_torch_to_hwio(deconv.weight), s)
-        bb = None if deconv.bias is None else deconv.bias.repeat(s * s)
-        return tiled_conv2d(tiles, hwio_to_oihw(wb), bb, stride=1, padding=1, axis=axis)
-    return tiled_conv_transpose2d(tiles, deconv.weight, deconv.bias, stride=deconv.stride,
-                                  padding=deconv.padding, output_padding=deconv.output_padding,
+        s = d.output_block
+        ws = [hwio_to_oihw(block_deconv_weight(deconv_torch_to_hwio(m.weight), s))
+              for m in deconvs]
+        bs = [None if m.bias is None else m.bias.repeat(s * s) for m in deconvs]
+        return tiled_conv2d(tiles, ws, bs, stride=1, padding=1, axis=axis)
+    return tiled_conv_transpose2d(tiles, [m.weight for m in deconvs],
+                                  [m.bias for m in deconvs], stride=d.stride,
+                                  padding=d.padding, output_padding=d.output_padding,
                                   axis=axis)
 
 
 def tiled_analysis17(encoders: Sequence, tiles: Sequence[torch.Tensor], axis="width") -> Tiles:
     """The Ballé-17 analysis transform over tiles, ``encoders[i]`` tile i's
-    replica: three K2 calls a tile."""
-    if encoders[0].binarize:
-        raise ValueError("the tiled Ballé-17 codec takes the rounding encoder, not binarize")
+    replica: three K2 calls a tile, the features before any binarizer
+    (``Analysis17.features``)."""
     no_gdn = [None] * len(tiles)
     y = tiled_conv_gdn(tiles, [e.conv1 for e in encoders], [e.gdn1 for e in encoders], axis)
     y = tiled_conv_gdn(y, [e.conv2 for e in encoders], [e.gdn2 for e in encoders], axis)
@@ -189,10 +207,37 @@ def tiled_synthesis17(decoders: Sequence, tiles: Sequence[torch.Tensor],
                       axis="width") -> Tiles:
     """The Ballé-17 synthesis transform over tiles, ``decoders[i]`` tile i's
     replica: cuDNN's transposed convs with halos, K1 for each IGDN."""
-    d = decoders[0]  # the transposed convs move their weights to each tile
-    r = [m.igdn1(t) for m, t in zip(decoders, tiled_deconv(tiles, d.deconv1, axis))]
-    r = [m.igdn2(t) for m, t in zip(decoders, tiled_deconv(r, d.deconv2, axis))]
-    return tiled_deconv(r, d.deconv3, axis)
+    r = [m.igdn1(t) for m, t in
+         zip(decoders, tiled_deconv(tiles, [d.deconv1 for d in decoders], axis))]
+    r = [m.igdn2(t) for m, t in
+         zip(decoders, tiled_deconv(r, [d.deconv2 for d in decoders], axis))]
+    return tiled_deconv(r, [d.deconv3 for d in decoders], axis)
+
+
+def tiled_balle17_train(models: Sequence, tiles: Sequence[torch.Tensor],
+                        noises: Sequence) -> List[dict]:
+    """The Ballé-17 train forward over one data row's W-tiles, tile i on
+    replica ``models[i]`` with noise view ``noises[i]``
+    (``ops.quant.SlotNoise``): ``tiled_analysis17`` (K2 at padding (p, 0)),
+    each replica's quantizer (``Balle17Compressor.quantize``: noise-round
+    takes the view's part of the whole batch's draw), ``tiled_synthesis17``
+    (K1 for each IGDN), and each tile's dict as the model's forward gives
+    it (``Balle17Compressor.outputs``: mse and bpp of the tile, the rate
+    under its replica's BitEstimator). Differentiable throughout: an
+    exchange is a copy, whose gradient flows back to the neighbour's
+    tile."""
+    precision_on_cuda(tiles[0])
+    feature = tiled_analysis17([m.Encoder for m in models], tiles)
+    quantized = [m.quantize(f, True, n) for m, f, n in zip(models, feature, noises)]
+    recon = tiled_synthesis17([m.Decoder for m in models], [q[0] for q in quantized])
+    return [m.outputs(x, latent, r, pre)
+            for m, x, (latent, pre), r in zip(models, tiles, quantized, recon)]
+
+
+def refuse_binarize(model) -> None:
+    """The tiled codecs serve the rounding encoder: refuse ``binarize``."""
+    if model.Encoder.binarize:
+        raise ValueError("the tiled Ballé-17 codec takes the rounding encoder, not binarize")
 
 
 def make_tiled_balle17(mesh, axis="width") -> Callable:
@@ -204,6 +249,7 @@ def make_tiled_balle17(mesh, axis="width") -> Callable:
     model with ``io_block`` 4)."""
 
     def tiled(model, image):
+        refuse_binarize(model)
         tiles = image if isinstance(image, (list, tuple)) else split_tiles(image, mesh, axis)
         precision_on_cuda(tiles[0])
         models = replicated(model, mesh)

@@ -21,7 +21,10 @@ halo; here the image is a list of tiles on the mesh's tile devices
   over the whole latent) and ``patch_att`` (a patch grid over the whole
   latent). ``pam`` attends along whole rows: it tiles along H only (its
   convs and the mask's morphology take an overlap of 14 rows), and W-tiles
-  go through ``ring_pam.py``.
+  go through ``ring_pam.py``. The tiled receiver is the model's own
+  (``models.dsc.receive``) under a ``TileRun``, which runs each stack tile
+  by tile; the training mesh's W-tiles run the model's train forward so
+  (``tiled_dsc_train``).
 
 Bitstreams are per tile: the quantized code is split along W (or H) and
 each tile rANS-encoded on its own (a thread pool; the C++ coder releases
@@ -41,8 +44,8 @@ import numpy as np
 import torch
 
 from ..utils.device import precision_on_cuda
-from .halo import (local_tiles, module_extent, round_tiles, stack_tiles, tiled_analysis17,
-                   tiled_synthesis17)
+from .halo import (local_tiles, module_extent, refuse_binarize, round_tiles, stack_tiles,
+                   tiled_analysis17, tiled_synthesis17)
 from .mesh import replicated, split_tiles, tile_dim
 
 # the receptive radius of the PAM mask's morphology (closing then opening,
@@ -125,6 +128,7 @@ def make_tiled_codec(model, mesh, axis: str = "width") -> Tuple[Callable, Callab
     latent in between is what goes through the per-tile entropy coder. Each
     image tile's extent must be a multiple of 16. The model is replicated
     onto the tile devices once, here."""
+    refuse_binarize(model)
     models = replicated(model, mesh)
 
     def encode_fn(image) -> List[torch.Tensor]:
@@ -151,28 +155,9 @@ def pam_extent(pam, dim: int = 1) -> Tuple[Fraction, Fraction]:
     return module_extent(pam.rb, dim)[0] + PAM_MASK_RADIUS, Fraction(1)
 
 
-def make_tiled_dsc(model, mesh, axis: str = "width") -> Tuple[Callable, Callable]:
-    """Tiled (encode_fn, decode_fn) for a DSC stereo codec ``model``:
-
-      encode_fn(image)    -> quantized and clamped coarse code tiles (K3)
-      decode_fn(code, si) -> SI-assisted reconstruction tiles
-
-    The encoder runs what the transmitter runs (g_a → g_a22 → quantize,
-    reference models/temp.py:232-260, never sees the SI image); the decoder
-    is the ``DSCDecoder`` receiver. Each image tile's extent must be a
-    multiple of the code's downsampling (32).
-
-    ``axis``: which image axis the tiles split. PAM-fusion presets REQUIRE
-    ``axis='height'``: parallax attention computes a full W×W attention per
-    latent row (reference models/PASSRnet.py:124-136), so W-tiling would
-    split its K/V (``ring_pam.pam_eval_ring`` is the W-tiled PAM). Presets
-    with a fusion module that sees the whole latent (``NON_LOCAL_FUSION``)
-    are refused on either axis. The model is replicated onto the tile
-    devices once, here.
-    """
-    from ..models.dsc import _si_encoder, _z_cat, quantize_code
-
-    cfg = model.config
+def check_local(cfg, axis: str) -> None:
+    """Raise for a DSC preset whose modules are not all local along
+    ``axis``: PAM along W, and the fusion options of ``NON_LOCAL_FUSION``."""
     if cfg.fusion_post == "pam" and axis != "height":
         raise ValueError(
             "fusion_post='pam' attends across the full latent width per row; "
@@ -183,43 +168,94 @@ def make_tiled_dsc(model, mesh, axis: str = "width") -> Tuple[Callable, Callable
         if option in NON_LOCAL_FUSION:
             raise ValueError(f"{cfg.name}: fusion {option!r} is not local along the tiled "
                              f"axis ({NON_LOCAL_FUSION[option]}); run it untiled")
-    dim = tile_dim(axis)
-    models = replicated(model, mesh)
 
-    def stacks(name):
-        return [getattr(m, name) for m in models]
+
+class TileRun:
+    """How the DSC forward (``models.dsc.dsc_outputs``, ``receive``) runs
+    over one image's tiles, tile i on replica ``models[i]``: ``stack(name,
+    x)`` runs each replica's stack ``name`` on its tile extended by one
+    overlap (``halo.stack_tiles``; PAM, along H, through ``local_tiles``
+    with its two inputs), ``each(fn, *xs)`` maps ``fn`` over the tiles, a
+    value that is not a list (a mask, None) passed to every tile. Refuses
+    a preset with a module that is not local along ``axis``
+    (``check_local``), so the forward never reaches a fusion branch that
+    would see only its own tile."""
+
+    def __init__(self, models, axis: str = "width"):
+        check_local(models[0].config, axis)
+        self.models, self.axis = list(models), axis
+
+    def stack(self, name: str, *xs, **kw) -> List[torch.Tensor]:
+        if name == "pam":
+            pams = [functools.partial(m.pam, **kw) for m in self.models]
+            return local_tiles(pams, list(xs), pam_extent(self.models[0].pam,
+                                                          tile_dim(self.axis)), self.axis)
+        if len(xs) != 1 or kw:
+            raise ValueError(f"{name}: a tiled stack takes one input")
+        return stack_tiles([getattr(m, name) for m in self.models], xs[0], self.axis)
+
+    def each(self, fn, *xs) -> list:
+        return [fn(*(x[i] if isinstance(x, list) else x for x in xs))
+                for i in range(len(self.models))]
+
+
+def make_tiled_dsc(model, mesh, axis: str = "width") -> Tuple[Callable, Callable]:
+    """Tiled (encode_fn, decode_fn) for a DSC stereo codec ``model``:
+
+      encode_fn(image)    -> quantized and clamped coarse code tiles (K3)
+      decode_fn(code, si) -> SI-assisted reconstruction tiles
+
+    The encoder runs what the transmitter runs (g_a → g_a22 → quantize,
+    reference models/temp.py:232-260, never sees the SI image); the decoder
+    is the ``DSCDecoder`` receiver (``models.dsc.receive``) under a
+    ``TileRun``. Each image tile's extent must be a multiple of the code's
+    downsampling (32).
+
+    ``axis``: which image axis the tiles split. PAM-fusion presets REQUIRE
+    ``axis='height'``: parallax attention computes a full W×W attention per
+    latent row (reference models/PASSRnet.py:124-136), so W-tiling would
+    split its K/V (``ring_pam.pam_eval_ring`` is the W-tiled PAM). Presets
+    with a fusion module that sees the whole latent (``NON_LOCAL_FUSION``)
+    are refused on either axis. The model is replicated onto the tile
+    devices once, here.
+    """
+    from ..models.dsc import quantize_code, receive
+
+    cfg = model.config
+    check_local(cfg, axis)  # before the model is replicated
+    run = TileRun(replicated(model, mesh), axis)
 
     def encode_fn(image) -> List[torch.Tensor]:
         tiles = _tiles(image, mesh, axis)
         precision_on_cuda(tiles[0])
         with torch.no_grad():
-            code_pre = stack_tiles(stacks("g_a22"), stack_tiles(stacks("g_a"), tiles, axis), axis)
+            code_pre = run.stack("g_a22", run.stack("g_a", tiles))
             return [quantize_code(c, cfg)[1] for c in code_pre]
 
     def decode_fn(code, si_image) -> List[torch.Tensor]:
         code_t, si = _tiles(code, mesh, axis), _tiles(si_image, mesh, axis)
         precision_on_cuda(si[0])
         with torch.no_grad():
-            z2 = stack_tiles([_si_encoder(m) for m in models], si, axis)
-            z1_hat = stack_tiles(stacks("g_s22"), code_t, axis)
-            z2_hat = (stack_tiles(stacks("g_s22"), stack_tiles(stacks("g_a22"), z2, axis), axis)
-                      if cfg.fusion == "cat3" else [None] * len(z2))
-            z_cat = [_z_cat(cfg, a, b, c) for a, b, c in zip(z1_hat, z2, z2_hat)]
-            fused = stack_tiles(stacks("g_z1hat_z2"), z_cat, axis)
-            if cfg.gz2:
-                fused = [f + g for f, g in
-                         zip(fused, stack_tiles(stacks("g_z1hat_z2_freq2"), z_cat, axis))]
-            if cfg.fusion_post == "pam":
-                pams = [functools.partial(m.pam, train=False) for m in models]
-                fused = local_tiles(pams, [fused, z2], pam_extent(model.pam, dim), axis)
-            recon = stack_tiles(stacks("g_s"), fused, axis)
-            if cfg.recon_residual:
-                cat = [torch.cat([r, x], dim=-1) for r, x in zip(recon, si)]
-                recon = [r + d for r, d in
-                         zip(recon, stack_tiles(stacks("g_rec1_im2_new"), cat, axis))]
-            return [torch.clamp(r, 0.0, 1.0) for r in recon]
+            return [torch.clamp(r, 0.0, 1.0) for r in receive(cfg, run, code_t, si)]
 
     return encode_fn, decode_fn
+
+
+def tiled_dsc_train(models, im1: List[torch.Tensor], im2: List[torch.Tensor],
+                    noises) -> List[dict]:
+    """``DSCStereoModel``'s train forward but its loss
+    (``models.dsc.dsc_outputs``) over one data row's W-tiles of im1 and
+    im2, under a ``TileRun``: tile i on replica ``models[i]`` with noise
+    view ``noises[i]`` (``ops.quant.SlotNoise``), each stack on tiles
+    extended by one overlap (K2 for the blocks' conv + GDN). Differentiable
+    throughout. Returns one dict a tile. Each tile's extent must be a
+    multiple of the code's downsampling (32)."""
+    from ..models.dsc import dsc_outputs
+
+    precision_on_cuda(im1[0])
+    out = dsc_outputs(models[0].config, TileRun(models), im1, im2, train=True,
+                      generator=list(noises))
+    return [dict(zip(out, tiles)) for tiles in zip(*out.values())]
 
 
 def _host_tiles(code, n_tiles: int, axis: int) -> List[np.ndarray]:

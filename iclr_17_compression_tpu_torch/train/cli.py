@@ -1,4 +1,4 @@
-"""Training CLI on one card: Ballé-17, the scale hyperprior, the joint-AR
+"""Training CLI: Ballé-17, the scale hyperprior, the joint-AR
 codec, the DSC stereo codecs and the seven auxiliary trainers.
 
 Counterpart of ``iclr_17_compression_tpu/train/cli.py`` (``main``,
@@ -28,13 +28,19 @@ an FFT route for the joint's 3×3 convs at C = 192, 32× slower a step on an
 H100; the hyperprior's 5×5 convs are as fast without it).
 
 Runs on CUDA (``resolve_device``: it raises without a card) unless a loop
-is given ``device="cpu"``. One card: the JAX package's training mesh has
-no counterpart yet (ROADMAP item 20b; the tile axis serves through
-``parallel/``), so ``mesh_data`` must be None or 1 and ``mesh_tile`` 1.
+is given ``device="cpu"``. The training mesh (JAX ``train/cli.py``'s
+``training_mesh`` → ``shard_train_step``): ``mesh_data`` × ``mesh_tile``
+slots over ``devices`` (default: every CUDA device, ``device`` first; on
+the CPU, ``device`` alone), each batch split along N over the data axis and
+along W over the tile axis (``train/mesh_step.py``); the model, the
+optimizer and the checkpoints live at slot (0, 0). On one card that is a
+1×1 mesh, the one-device step. The hyperprior and joint codecs take the
+data axis only (their tile axis is ROADMAP item 20d).
 
-Resume: ``--resume <dir-or-ckpt>`` restores the model, the Adam moments and
-the step, and from the sidecar the epoch and mid-epoch batch offset
-(Ballé-17) or the next epoch, LR and plateau state (DSC). The step's noise
+Resume: ``--resume <dir-or-ckpt>`` restores the model (slot (0, 0), which
+the split step copies to every other slot), the Adam moments and the step,
+and from the sidecar the epoch and mid-epoch batch offset (Ballé-17) or
+the next epoch, LR and plateau state (DSC). The step's noise
 comes from a generator seeded by (seed, global step) — the counterpart of
 ``fold_in(rng, global_step)`` — and the crops are a pure function of
 (seed, epoch, index), so a resumed run draws the batches and the noise the
@@ -47,7 +53,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,6 +61,7 @@ import torch
 from ..data.datasets import ImageFolderDataset, KodakDataset, StereoKittiDataset, batch_iterator
 from ..eval.kodak import eval_kodak
 from ..models.dsc import DSC_PRESETS
+from ..parallel.mesh import Device, training_mesh, validate_tile_extent
 from ..utils.device import cudnn_autotune, resolve_device
 from .checkpoint import (
     load_params_partial,
@@ -64,6 +71,7 @@ from .checkpoint import (
     save_train_state,
 )
 from .config import TrainConfig
+from .mesh_step import shard_train_step
 from .meters import AverageMeter
 from .observability import MetricsLogger, ProfileWindow
 from .schedules import step_decay_schedule
@@ -93,7 +101,8 @@ SINGLE_IMAGE_MODELS = ("balle17", "hyperprior", "joint")
 def check_supported(cfg: TrainConfig) -> None:
     """Raise for what the port does not train, naming its ROADMAP entry:
     ``fif_0031bpp`` in ``train_dsc`` (Queue 3: the JAX trainer keeps no
-    batch statistics), a mesh (item 20b)."""
+    batch statistics), the tile axis of the hyperprior and joint codecs
+    (item 20d)."""
     if cfg.model.startswith("dsc:"):
         preset = DSC_PRESETS[cfg.model.split(":", 1)[1]]
         if preset.fusion_pre == "fif":
@@ -103,11 +112,24 @@ def check_supported(cfg: TrainConfig) -> None:
                 "(ROADMAP Queue 3)")
     elif cfg.model not in SINGLE_IMAGE_MODELS and cfg.model not in TRAINERS:
         raise ValueError(f"unknown model {cfg.model!r}")
-    if cfg.mesh_data not in (None, 1) or cfg.mesh_tile != 1:
+    if cfg.model in ("hyperprior", "joint") and cfg.mesh_tile != 1:
         raise NotImplementedError(
-            f"mesh_data={cfg.mesh_data}, mesh_tile={cfg.mesh_tile}: the port trains on one "
-            "card (the training mesh is ROADMAP item 20b; tiled serving is in "
-            "iclr_17_compression_tpu_torch.parallel)")
+            f"model {cfg.model!r}, mesh_tile={cfg.mesh_tile}: the port trains it over the "
+            "mesh's data axis only (its tile axis in training is ROADMAP item 20d)")
+
+
+def make_training_mesh(cfg: TrainConfig, dev: torch.device,
+                       devices: Optional[Sequence[Device]], width: int, total_div: int):
+    """``training_mesh`` of the config over ``devices`` (default: every
+    CUDA device, ``dev`` first, on a CUDA ``dev``; else ``dev`` alone),
+    with JAX's tile-extent check, logged."""
+    if devices is None:
+        devices = [dev] + [torch.device("cuda", i) for i in range(torch.cuda.device_count())
+                           if i != (dev.index or 0)] if dev.type == "cuda" else [dev]
+    mesh = training_mesh(cfg.batch_size, cfg.mesh_data, cfg.mesh_tile, devices)
+    validate_tile_extent(width, mesh.shape["tile"], total_div=total_div)
+    logger.info("mesh: data=%d tile=%d", *mesh.devices.shape)
+    return mesh
 
 
 def _restore(state: TrainState, resume: str):
@@ -121,16 +143,20 @@ def _restore(state: TrainState, resume: str):
 
 
 def train_single_image(cfg: TrainConfig, name: str, pretrain: str = "", resume: str = "",
-                       device: Optional[str] = None) -> TrainState:
+                       device: Optional[str] = None,
+                       devices: Optional[Sequence[Device]] = None) -> TrainState:
     """The Ballé-17 / hyperprior / joint-AR training loop (reference
-    train.py shape) on ``device`` (default ``cuda``). Returns the final
-    train state."""
+    train.py shape) on ``device`` (default ``cuda``), over the training
+    mesh of ``devices`` (``make_training_mesh``). Returns the final train
+    state."""
     dev = resolve_device(device)
     check_supported(cfg)
     if cfg.model not in SINGLE_IMAGE_MODELS:
         raise ValueError(f"train_single_image trains {SINGLE_IMAGE_MODELS}, not {cfg.model!r}")
     save_dir = os.path.join(cfg.save_root, name)
     setup_logging(name, save_dir)
+    mesh = make_training_mesh(cfg, dev, devices, cfg.image_size, total_div=16)
+    dev = mesh.devices[0, 0]
 
     model = build_model(cfg.model, device=dev, seed=cfg.seed, out_channel_n=cfg.out_channel_n,
                         out_channel_m=cfg.out_channel_m, quant=cfg.quant, n=cfg.joint_n)
@@ -150,6 +176,7 @@ def train_single_image(cfg: TrainConfig, name: str, pretrain: str = "", resume: 
         step_fn = make_balle17_train_step(cfg.train_lambda, distortion=cfg.loss or "mse")
     else:
         step_fn = make_hyperprior_train_step(cfg.train_lambda)
+    step_fn = shard_train_step(step_fn, mesh)
     dataset = ImageFolderDataset(cfg.train_dir, cfg.image_size, cfg.seed)
     test_set = KodakDataset(cfg.test_dir) if cfg.test_dir else None
 
@@ -177,9 +204,9 @@ def train_single_image(cfg: TrainConfig, name: str, pretrain: str = "", resume: 
                 num_workers=cfg.num_workers, skip=batch_in_epoch,
             ):
                 prof.tick(state.step)
-                x = torch.from_numpy(batch).to(dev, non_blocking=True)
                 with autotune():
-                    metrics = step_fn(state, x, step_generator(cfg.seed, state.step, dev))
+                    metrics = step_fn(state, torch.from_numpy(batch),
+                                      step_generator(cfg.seed, state.step, dev))
                 batch_in_epoch += 1
                 if state.step % cfg.cal_step == 0:
                     for k in meters:
@@ -215,9 +242,12 @@ def train_single_image(cfg: TrainConfig, name: str, pretrain: str = "", resume: 
 
 
 def train_dsc(cfg: TrainConfig, name: str, pretrain: str = "", resume: str = "",
-              device: Optional[str] = None) -> TrainState:
+              device: Optional[str] = None,
+              devices: Optional[Sequence[Device]] = None) -> TrainState:
     """The DSC stereo training loop (reference train_2StepsNet.py shape) on
-    ``device`` (default ``cuda``): per epoch, the mean training loss into
+    ``device`` (default ``cuda``), its steps over the training mesh of
+    ``devices`` (``make_training_mesh``; the validation pass at slot (0,
+    0)): per epoch, the mean training loss into
     the plateau LR, ``best_train`` (the best epoch's state, written on the
     next ``save_epoch_freq`` epoch or at the end), a validation pass over
     ``test_dir`` (``*_10.png`` KITTI frames, batch 1, ``loss_full`` of the
@@ -230,6 +260,8 @@ def train_dsc(cfg: TrainConfig, name: str, pretrain: str = "", resume: str = "",
         raise ValueError(f"train_dsc trains dsc:<preset> models, not {cfg.model!r}")
     save_dir = os.path.join(cfg.save_root, name)
     setup_logging(name, save_dir)
+    mesh = make_training_mesh(cfg, dev, devices, (cfg.image_size // 32) * 32, total_div=32)
+    dev = mesh.devices[0, 0]
 
     model = build_model(cfg.model, device=dev, seed=cfg.seed, loss=cfg.loss)
     state = create_train_state(model, lr=cfg.lr_base, grad_clip=cfg.grad_clip)
@@ -245,7 +277,7 @@ def train_dsc(cfg: TrainConfig, name: str, pretrain: str = "", resume: str = "",
         logger.info("loaded pretrain %s", pretrain)
     logger.info("device: %s", torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu")
 
-    step_fn = make_dsc_train_step()
+    step_fn = shard_train_step(make_dsc_train_step(), mesh, n_batch_args=2)
     dataset = make_stereo_dataset(cfg)
     # reference train_2StepsNet.py:221-256: a validation pass each epoch and
     # a best-val checkpoint beside the best-train one
@@ -266,8 +298,7 @@ def train_dsc(cfg: TrainConfig, name: str, pretrain: str = "", resume: str = "",
             for im1, im2 in batch_iterator(dataset, cfg.batch_size, seed=cfg.seed, epoch=epoch,
                                            num_workers=cfg.num_workers):
                 prof.tick(state.step)
-                metrics = step_fn(state, torch.from_numpy(im1).to(dev, non_blocking=True),
-                                  torch.from_numpy(im2).to(dev, non_blocking=True),
+                metrics = step_fn(state, torch.from_numpy(im1), torch.from_numpy(im2),
                                   step_generator(cfg.seed, state.step, dev))
                 epoch_loss += float(metrics["loss"])
                 n_batches += 1
@@ -299,7 +330,7 @@ def train_dsc(cfg: TrainConfig, name: str, pretrain: str = "", resume: str = "",
 
 
 def main(argv=None) -> TrainState:
-    ap = argparse.ArgumentParser(description="codec trainer (PyTorch, one CUDA card)")
+    ap = argparse.ArgumentParser(description="codec trainer (PyTorch, CUDA)")
     ap.add_argument("-n", "--name", default="run", help="experiment name")
     ap.add_argument("-p", "--pretrain", default="", help="pretrained ckpt path")
     ap.add_argument("--resume", default="", help="run dir or .ckpt to resume from")

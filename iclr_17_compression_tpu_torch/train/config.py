@@ -5,9 +5,10 @@ fields, so one JSON file configures either package. The reference parses
 ``examples/example/config.json`` into module globals (reference
 train.py:41-66, schema keys: tot_epoch, tot_step, train_lambda, batch_size,
 print_freq, save_model_freq, cal_step, lr{base,decay, decay_interval}).
-Here the same keys load into one frozen dataclass. The port trains
-``balle17``, ``dsc:<preset>`` and ``reg_stage`` on one card:
-``train/cli.py`` refuses other models and meshes.
+Here the same keys load into one frozen dataclass. ``mesh_data`` ×
+``mesh_tile`` is the training mesh of ``train/cli.py`` (the auxiliary
+trainers run on one device, as the JAX package's do); it refuses
+``fif_0031bpp`` and the hyperprior's and joint's tile axis.
 """
 
 import dataclasses

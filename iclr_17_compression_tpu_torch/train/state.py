@@ -12,6 +12,19 @@ gradient element is clamped to ±``grad_clip`` (the reference's
 β = (0.9, 0.999) and eps 1e-8 outside the square root, as optax's. The LR of
 update k (from 0) is ``schedule(k)``, as optax evaluates a schedule at its
 update count.
+
+Each step is a ``TrainStep``: the step, and what ``shard_train_step``
+(``train/mesh_step.py``) needs to split it over a device mesh:
+``mesh_loss(split)``, the loss and the whole batch's metrics from the
+slots' forwards (a W-tiled data row through
+``parallel.halo.tiled_balle17_train`` or ``parallel.tiled.tiled_dsc_train``),
+and ``tile_unit``, the columns a W-tile is made of (the model's
+downsampling; None: no tile axis). A loss
+that is a ratio of sums (MSE, L1, bpp) is pooled from the slots' sums and
+counts; MS-SSIM, a product of powers of per-level means, from its
+per-level sums (``ops.metrics.ms_ssim_sums``; a W-tiled data row's tiles
+are gathered for its windows): the mean of per-slot losses is not the
+whole batch's loss, nor its gradient.
 """
 
 import dataclasses
@@ -20,7 +33,11 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ..ops.metrics import ms_ssim
+from ..models.dsc import elementwise_error, loss_terms, loss_triplet
+from ..ops.metrics import ms_ssim, ms_ssim_of_sums, ms_ssim_sums
+from ..parallel.halo import tiled_balle17_train
+from ..parallel.mesh import gather_tiles
+from ..parallel.tiled import tiled_dsc_train
 from ..utils.device import resolve_device
 
 ADAM_BETAS = (0.9, 0.999)
@@ -64,6 +81,22 @@ def apply_gradients(state: TrainState) -> None:
     state.step += 1
 
 
+@dataclass
+class TrainStep:
+    """A train step, ``step(state, *batches, generator) -> metrics``, and
+    what splitting it over a device mesh needs
+    (``train.mesh_step.shard_train_step``): ``mesh_loss(split)`` → (the
+    loss, the whole batch's metrics) from the slots' forwards, and
+    ``tile_unit``, the columns a W-tile is made of (None: no tile axis)."""
+
+    step: Callable
+    mesh_loss: Callable
+    tile_unit: Optional[int] = None
+
+    def __call__(self, state: TrainState, *args) -> Dict[str, torch.Tensor]:
+        return self.step(state, *args)
+
+
 def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
     """The training noise of global step ``step``: a generator on ``device``
     seeded by (seed, step), the counterpart of ``fold_in(rng, step)``."""
@@ -76,10 +109,40 @@ def msssim_window(batch: torch.Tensor) -> int:
     return 11 if min(batch.shape[1:3]) >= 176 else 7
 
 
+def _add(total, part):
+    """``total + part`` (``part`` where ``total`` is None; counts as tuples
+    add elementwise)."""
+    if total is None:
+        return part
+    if isinstance(part, tuple):
+        return tuple(a + b for a, b in zip(total, part))
+    return total + part
+
+
+def _balle17_metrics(rd_loss, mse, bpp) -> Dict[str, torch.Tensor]:
+    mse = mse.detach()
+    return {"rd_loss": rd_loss.detach(), "mse": mse, "bpp": bpp.detach(),
+            "psnr": 10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-10))}
+
+
+def _run_step(state: TrainState, loss_of: Callable):
+    """One update: ``loss_of()`` → (loss, metrics) under the forward's
+    range, the backward, the clamp and Adam; returns the metrics."""
+    with torch.profiler.record_function("train_step/forward"):
+        loss, metrics = loss_of()
+    with torch.profiler.record_function("train_step/backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with torch.profiler.record_function("train_step/optimizer"):
+        apply_gradients(state)
+    return metrics
+
+
 def make_balle17_train_step(train_lambda: float = 8192.0, distortion: str = "mse"):
     """``train_step(state, batch, generator)``: rd_loss = λ·d + bpp with d the
     MSE, or 1 − MS-SSIM for ``msssim``; one update; the metrics
-    ``rd_loss``, ``mse``, ``bpp`` and ``psnr`` (detached tensors)."""
+    ``rd_loss``, ``mse``, ``bpp`` and ``psnr`` (detached tensors). Splits
+    over a mesh's data and tile axes (tiles of 16 columns)."""
     if distortion not in ("mse", "msssim"):
         # a DSC loss string ('l1') or typo ('ms_ssim') must not silently
         # train the whole run as MSE
@@ -87,27 +150,42 @@ def make_balle17_train_step(train_lambda: float = 8192.0, distortion: str = "mse
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        with torch.profiler.record_function("train_step/forward"):
+        def loss_of():
             out = state.model(batch, train=True, generator=generator)
             if distortion == "msssim":
                 d = 1.0 - ms_ssim(out["recon"], batch, win_size=msssim_window(batch))
             else:
                 d = out["mse"]
             rd_loss = train_lambda * d + out["bpp"]
-        with torch.profiler.record_function("train_step/backward"):
-            state.optimizer.zero_grad(set_to_none=True)
-            rd_loss.backward()
-        with torch.profiler.record_function("train_step/optimizer"):
-            apply_gradients(state)
-        mse = out["mse"].detach()
-        return {
-            "rd_loss": rd_loss.detach(),
-            "mse": mse,
-            "bpp": out["bpp"].detach(),
-            "psnr": 10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-10)),
-        }
+            return rd_loss, _balle17_metrics(rd_loss, out["mse"], out["bpp"])
 
-    return train_step
+        return _run_step(state, loss_of)
+
+    def mesh_loss(split):
+        dev = split.device
+        sse = bits = ms_sums = ms_counts = None
+        n_el = n_pix = 0
+        for r, row in enumerate(split.models):
+            tiles = split.batches[0][r]
+            outs = ([row[0](tiles[0], train=True, generator=split.noise[r][0])]
+                    if len(row) == 1 else tiled_balle17_train(row, tiles, split.noise[r]))
+            for out, x in zip(outs, tiles):
+                pixels = x.numel() // 3  # an RGB image's pixels, blocked or not
+                sse = _add(sse, (out["mse"] * x.numel()).to(dev))
+                bits = _add(bits, (out["bpp"] * pixels).to(dev))
+                n_el += x.numel()
+                n_pix += pixels
+            if distortion == "msssim":
+                x = gather_tiles(tiles)
+                sums, counts = ms_ssim_sums(gather_tiles([o["recon"] for o in outs]), x,
+                                            win_size=msssim_window(x))
+                ms_sums, ms_counts = _add(ms_sums, sums.to(dev)), _add(ms_counts, counts)
+        mse, bpp = sse / n_el, bits / n_pix
+        d = 1.0 - ms_ssim_of_sums(ms_sums, ms_counts) if distortion == "msssim" else mse
+        rd_loss = train_lambda * d + bpp
+        return rd_loss, _balle17_metrics(rd_loss, mse, bpp)
+
+    return TrainStep(train_step, mesh_loss, tile_unit=16)
 
 
 def make_dsc_train_step(w_full: float = 1.0, w_base: float = 1.0, w_z: float = 0.0):
@@ -115,46 +193,94 @@ def make_dsc_train_step(w_full: float = 1.0, w_base: float = 1.0, w_z: float = 0
     loss = w_full·loss_full + w_base·loss (the base branch's) [+ w_z·loss_z]
     (reference train_2StepsNet.py:190, train_new.py:177); one update; the
     metrics ``loss``, ``loss_full``, ``loss_base`` and ``loss_z`` (detached
-    tensors)."""
+    tensors). Splits over a mesh's data and tile axes (tiles of 32 columns,
+    the code's downsampling; presets local along W only)."""
+
+    def total(loss_base, loss_full, loss_z):
+        loss = w_full * loss_full + w_base * loss_base
+        if w_z:
+            loss = loss + w_z * loss_z
+        return loss, {"loss": loss.detach(), "loss_full": loss_full.detach(),
+                      "loss_base": loss_base.detach(), "loss_z": loss_z.detach()}
 
     def train_step(state: TrainState, im1: torch.Tensor, im2: torch.Tensor,
                    generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        with torch.profiler.record_function("train_step/forward"):
+        def loss_of():
             out = state.model(im1, im2, train=True, generator=generator)
-            loss = w_full * out["loss_full"] + w_base * out["loss"]
-            if w_z:
-                loss = loss + w_z * out["loss_z"]
-        with torch.profiler.record_function("train_step/backward"):
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        with torch.profiler.record_function("train_step/optimizer"):
-            apply_gradients(state)
-        return {"loss": loss.detach(), "loss_full": out["loss_full"].detach(),
-                "loss_base": out["loss"].detach(), "loss_z": out["loss_z"].detach()}
+            return total(out["loss"], out["loss_full"], out["loss_z"])
 
-    return train_step
+        return _run_step(state, loss_of)
+
+    def mesh_loss(split):
+        cfg, dev = split.models[0][0].config, split.device
+        sums, counts = {}, {}
+        for r, row in enumerate(split.models):
+            im1, im2 = split.batches[0][r], split.batches[1][r]
+            outs = ([row[0].outputs(im1[0], im2[0], train=True, generator=split.noise[r][0])]
+                    if len(row) == 1 else tiled_dsc_train(row, im1, im2, split.noise[r]))
+            terms = [loss_terms(cfg, o, a, b) for o, a, b in zip(outs, im1, im2)]
+            for name in terms[0]:
+                pairs = [t[name] for t in terms]
+                if cfg.loss == "msssim":
+                    s, c = ms_ssim_sums(gather_tiles([a for a, _ in pairs]),
+                                        gather_tiles([b for _, b in pairs]),
+                                        win_size=cfg.msssim_win)
+                    s = s.to(dev)
+                else:
+                    s = sum(elementwise_error(cfg, a, b).sum().to(dev) for a, b in pairs)
+                    c = sum(a.numel() for a, _ in pairs)
+                sums[name], counts[name] = _add(sums.get(name), s), _add(counts.get(name), c)
+
+        def value(name):
+            if cfg.loss == "msssim":
+                return ms_ssim_of_sums(sums[name], counts[name])
+            return sums[name] / counts[name]
+
+        return total(*loss_triplet(cfg, value, torch.zeros((), device=dev)))
+
+    return TrainStep(train_step, mesh_loss, tile_unit=32)
 
 
 def make_hyperprior_train_step(train_lambda: float = 8192.0):
     """``train_step(state, batch, generator)`` for a ``ScaleHyperprior`` or
     a ``JointAutoregressive``: rd_loss = λ·mse + bpp (bpp_y + bpp_z); one
     update; the metrics ``rd_loss``, ``mse``, ``bpp``, ``bpp_y`` and
-    ``bpp_z`` (detached tensors)."""
+    ``bpp_z`` (detached tensors). Splits over a mesh's data axis only (the
+    tile axis is ROADMAP item 20d)."""
+
+    def metrics_of(rd_loss, parts):
+        return {"rd_loss": rd_loss.detach(), **{k: v.detach() for k, v in parts.items()}}
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        with torch.profiler.record_function("train_step/forward"):
+        def loss_of():
             out = state.model(batch, train=True, generator=generator)
             rd_loss = train_lambda * out["mse"] + out["bpp"]
-        with torch.profiler.record_function("train_step/backward"):
-            state.optimizer.zero_grad(set_to_none=True)
-            rd_loss.backward()
-        with torch.profiler.record_function("train_step/optimizer"):
-            apply_gradients(state)
-        return {"rd_loss": rd_loss.detach(),
-                **{k: out[k].detach() for k in ("mse", "bpp", "bpp_y", "bpp_z")}}
+            return rd_loss, metrics_of(rd_loss, {k: out[k] for k in
+                                                 ("mse", "bpp", "bpp_y", "bpp_z")})
 
-    return train_step
+        return _run_step(state, loss_of)
+
+    def mesh_loss(split):
+        dev = split.device
+        sse = bits_y = bits_z = None
+        n_el = n_pix = 0
+        for r, row in enumerate(split.models):
+            x = split.batches[0][r][0]
+            out = row[0](x, train=True, generator=split.noise[r][0])
+            pixels = x.numel() // x.shape[3]
+            sse = _add(sse, (out["mse"] * x.numel()).to(dev))
+            bits_y = _add(bits_y, (out["bpp_y"] * pixels).to(dev))
+            bits_z = _add(bits_z, (out["bpp_z"] * pixels).to(dev))
+            n_el += x.numel()
+            n_pix += pixels
+        mse = sse / n_el
+        bpp = (bits_y + bits_z) / n_pix
+        rd_loss = train_lambda * mse + bpp
+        return rd_loss, metrics_of(rd_loss, {"mse": mse, "bpp": bpp, "bpp_y": bits_y / n_pix,
+                                             "bpp_z": bits_z / n_pix})
+
+    return TrainStep(train_step, mesh_loss)
 
 
 def build_model(name: str, device: Optional[str] = None, seed: int = 0, **kw) -> torch.nn.Module:

@@ -165,10 +165,15 @@ def test_train_single_image_end_to_end(data_dirs, tmp_path):
 
 def test_cli_refuses_what_it_does_not_train(data_dirs, tmp_path):
     # the hyperprior and joint models train now (test_torch_hyper_train.py);
-    # fif_0031bpp is refused as the JAX trainer fails it (ROADMAP Queue 3)
-    for kw, item in (({"model": "dsc:fif_0031bpp"}, "Queue 3"),
-                     ({"mesh_data": 2}, "item 20"), ({"mesh_tile": 2}, "item 20")):
-        with pytest.raises(NotImplementedError, match=item):
+    # fif_0031bpp is refused as the JAX trainer fails it (ROADMAP Queue 3);
+    # a mesh trains (test_torch_mesh.py) but the hyperprior's tile axis (item
+    # 20d), and a mesh larger than its devices (one CPU device by default)
+    for kw, err, match in (({"model": "dsc:fif_0031bpp"}, NotImplementedError, "Queue 3"),
+                           ({"model": "hyperprior", "mesh_tile": 2}, NotImplementedError,
+                            "item 20d"),
+                           ({"mesh_data": 2}, ValueError, "mesh 2x1 != 1 devices"),
+                           ({"mesh_tile": 2}, ValueError, "n_tile=2 exceeds 1 devices")):
+        with pytest.raises(err, match=match):
             cli.train_single_image(_cfg(data_dirs, tmp_path, tot_step=1, **kw), "x",
                                    device="cpu")
     # the auxiliary trainers train now (test_torch_aux_trainers.py), through
