@@ -235,7 +235,7 @@ Phases, one JSON line each:
           768×512 file each from the bf16-stored weights (the codecs compute
           in fp32 on the bf16-rounded weights): ŷ equal, σ's scale-index
           flips between the card and the CPU
-  tiled   tiled serving on one card (ROADMAP item 20a), every tile on
+  tiled   tiled serving on one card (ROADMAP items 20a, 20c), every tile on
           cuda:0: the archived Ballé-17 lam2048 through make_tiled_codec in
           4 W-tiles on a 768×512 image and a 3840×2160 frame (K2 3, K1 2, K3
           1 a tile, the counters around encode + decode only), against the
@@ -249,26 +249,39 @@ Phases, one JSON line each:
           flagship in 2 W-tiles and pam_0031bpp (the fusion phase's seeded
           weights) in 2 H-tiles through make_tiled_dsc (K2 4 + 7, K3 1 a
           tile), code flips ≤ 0.1% and the receiver ≥ 60 dB against untiled,
-          per-tile streams; the W-tiled ring PAM (2 tiles) against the
+          per-tile streams (ROADMAP item 20c:) the fusion presets whose
+          modules see the whole latent, fif_0031bpp, att_0031bpp and
+          bottleneck_att_1bpp at n = 128 (the fusion phase's seeded
+          weights) on one 320×1216 pair in 2 W-tiles and att_0031bpp in 2
+          H-tiles, those modules on the gathered tiles, with the same gates,
+          K2 and K3 launches a tile, K3 on a tile's code against plain
+          (bit-exact) and the CPU decoding the card's serialized streams;
+          the W-tiled ring PAM (2 tiles) against the
           replicated PAM on the PAM's inputs in the receiver (rtol 1e-4 /
           atol 1e-5). Numbers: device ms (CUDA events) and host ms (wall
           around a synchronized call) tiled against untiled, stream bytes,
           the host rANS ms
-  mesh_train  the training mesh on one card (ROADMAP item 20b), every slot
+  mesh_train  the training mesh on one card (ROADMAP items 20b-20d), every slot
           on cuda:0: Ballé-17 at examples/balle17.json's widths (N = 128,
           batch 4, 256×256 crops, λ 8192) on 1×1, 4×1 and 2×2 meshes for 10
           steps each from one seeded state on the same batches; the DSC
           flagship (temp_0031bpp, n = 128, batch 2, the dsc_train phase's
           KITTI-layout crops, GDNs off the identity) on 1×1, 2×1 and 2×2;
-          the hyperprior and joint at N = 192, M = 320 on 1×1 and 2×1, 3
-          steps each; checks: K2 and K1 launches a step the slots times the
+          (ROADMAP item 20d:) the hyperprior at N = 192, M = 320 on 1×1,
+          1×2 and 2×2 (round, 2 steps) and 1×1 and 1×2 (sigma-norm, 1
+          step), the joint at N = 192 on 1×1 and 1×2 (2 steps), in W-tiles
+          of 64 columns; (item 20c:) att_0031bpp and pam_0031bpp on 1×1 and
+          1×2 on 320² crops of the KITTI layout, 1 step each, the attention
+          and PAM on the gathered tiles; checks: K2 and K1 launches a step the slots times the
           one-device count (K2 a tile on the tiled meshes), every mesh's
           step-1 metrics within RTOL of 1×1's, Ballé's step-10 rd_loss
           within 1% of 1×1's, the step-1 gradients under deterministic cuDNN
-          against 1×1's (Ballé within GRAD_TOL; DSC, hyperprior and joint by
-          the dsc_train phase's floor gate, whose TF32-size control must
-          miss), train_single_image on a 2×2 mesh of 4 slots resuming
-          bit-equal to the uninterrupted run, K2's Function at a 2×2 tile's
+          against 1×1's (Ballé within GRAD_TOL; DSC, hyperprior, joint and
+          the fusion presets by the dsc_train phase's floor gate, whose
+          TF32-size control must miss), train_single_image on a 2×2 mesh of
+          4 slots and of the hyperprior on 1×2 W-tiles resuming bit-equal to
+          the uninterrupted run, K2 at a hyperprior tile's conv2 (5×5 s2, C
+          = 192, padding (2, 0)) and K1 at its IGDN3 against plain, K2's Function at a 2×2 tile's
           conv2 (padding (2, 0)) against the plain path forward and
           backward, fp32 K1 at C = 160 and K2's split reduction at Cout =
           160 against plain (off the paths), and dryrun_multichip on 8
@@ -507,8 +520,10 @@ DSC_SYMBOL_SHARE, DSC_BF16_PSNR_DB = 0.02, 35.0
 # Tiled phase: the Ballé-17 file codec's transforms (the archived lam2048,
 # N = 128) in TILES W-tiles on one card, on a 768×512 image and a
 # 3840×2160 frame; the DSC flagship (archived weights, 320×1216) in
-# DSC_TILES W-tiles, and pam_0031bpp (the fusion phase's seeded weights) in
-# DSC_TILES H-tiles and through the W-tiled ring PAM. Tiled against untiled
+# DSC_TILES W-tiles, pam_0031bpp (the fusion phase's seeded weights) in
+# DSC_TILES H-tiles and through the W-tiled ring PAM, and fif_0031bpp,
+# att_0031bpp and bottleneck_att_1bpp (seeded alike) in DSC_TILES W-tiles
+# and att_0031bpp in DSC_TILES H-tiles. Tiled against untiled
 # on the card: latent (code) flips at most LATENT_FLIP_FRAC, by one (K2
 # splits a tile's K in another grouping than the whole image's: plan_splits
 # reads the pixel count); the recons at least TILED_PSNR_DB apart; the ring
@@ -546,9 +561,25 @@ TILED_PSNR_DB = 60.0
 # step under the profiler.
 MESH_SEED = 1717
 BALLE_MESHES, DSC_MESHES, HYPER_MESHES = ((1, 1), (4, 1), (2, 2)), ((1, 1), (2, 1), (2, 2)), \
-    ((1, 1), (2, 1))
-MESH_BALLE_STEPS, MESH_DSC_STEPS, MESH_STEPS, MESH_BATCHES = 10, 2, 3, 4
+    ((1, 1), (1, 2), (2, 2))
+MESH_BALLE_STEPS, MESH_DSC_STEPS, MESH_STEPS, MESH_BATCHES = 10, 2, 2, 4
+# the tile axis of the hyperprior (both quantizers) and joint codecs in
+# 64-column W-tiles (ẑ's downsampling); the fusion presets that train, with
+# their whole-latent modules on the gathered tiles, on FUSION_MESH_CROP²
+# crops of the KITTI layout
+SIGMA_NORM_MESHES, JOINT_MESHES, FUSION_MESHES = ((1, 1), (1, 2)), ((1, 1), (1, 2)), \
+    ((1, 1), (1, 2))
+MESH_SIGMA_NORM_STEPS, MESH_FUSION_STEPS, FUSION_MESH_CROP = 1, 1, 320
+FUSION_MESH_PRESETS = ("att_0031bpp", "pam_0031bpp")
+MESH_HYPER_CLI_STEPS, MESH_HYPER_CLI_RESUME = 1, 2
 MESH_LOSS_REL = 0.01
+# a step-1 gradient gap is a share of the tensor's largest |gradient|, but
+# never of less than MESH_GRAD_FLOOR_SHARE of the model's largest (the CPU
+# tests' TINY_TENSOR): a tensor whose gradient is rounding alone (PAM's key
+# bias, zero in exact arithmetic) set a floor of 2.0 on its own scale (an
+# NVIDIA H100 80GB HBM3 at 700.00 W) and left the largest-gap gate unable
+# to fail
+MESH_GRAD_FLOOR_SHARE = 1e-5
 MESH_CLI_STEPS, MESH_CLI_RESUME, MESH_CLI_IMAGES = 3, 6, 8
 MESH_DRYRUN_DEVICES = 8
 C160 = 160
@@ -3610,6 +3641,7 @@ def tiled_phase(torch, dev, tools) -> dict:
     from iclr_17_compression_tpu_torch.parallel import (
         TiledStreams, decode_streams_to_code, encode_tiles_to_streams, gather_tiles, make_mesh,
         make_tiled_codec, make_tiled_dsc, pam_eval_ring, split_tiles)
+    from iclr_17_compression_tpu_torch.parallel.tiled import TileRun
     from iclr_17_compression_tpu_torch.parallel.halo import halo_exchange_w, tiled_conv_gdn
     from iclr_17_compression_tpu_torch.train.weights import load_balle17, load_dsc
 
@@ -3743,15 +3775,26 @@ def tiled_phase(torch, dev, tools) -> dict:
     lefts = smooth_image(rng, DSC_H, DSC_W)
     rights = shift_pair(lefts, rng)
     fl, fr, _ = fusion_pair()
+    x_fl = torch.from_numpy(fl[None]).to(dev)
+    att = fusion_model(torch, dev, "att_0031bpp", x_fl)
     cases = (("flagship_w", load_dsc(FLAGSHIP, DSC_PRESET, device=str(dev)), "width", lefts,
               rights),
-             ("pam_h", fusion_model(torch, dev, "pam_0031bpp",
-                                    torch.from_numpy(fl[None]).to(dev)), "height", fl, fr))
+             ("pam_h", fusion_model(torch, dev, "pam_0031bpp", x_fl), "height", fl, fr),
+             # the fusion presets whose modules see the whole latent: those
+             # modules on the gathered tiles (TileRun.whole)
+             ("fif_w", fusion_model(torch, dev, "fif_0031bpp", x_fl), "width", fl, fr),
+             ("att_w", att, "width", fl, fr), ("att_h", att, "height", fl, fr),
+             ("bottleneck_att_w", fusion_model(torch, dev, "bottleneck_att_1bpp", x_fl),
+              "width", fl, fr))
     mesh2 = make_mesh(1, DSC_TILES, [dev] * DSC_TILES)
+    fusion_launches = dict.fromkeys(keys, 0)
+    k3_tile_rows = []
     for name, dsc, axis, left, right in cases:
         cfg = dsc.config
         x, y = (torch.from_numpy(a[None]).to(dev) for a in (left, right))
         t_enc, t_dec = make_tiled_dsc(dsc, mesh2, axis=axis)
+        whole = cfg.fusion_pre == "fif" or cfg.fusion_post in ("bot_att", "patch_att")
+        t_case = time.perf_counter()
         torch.cuda.synchronize()
         reset()
         code = t_enc(x)
@@ -3760,6 +3803,8 @@ def tiled_phase(torch, dev, tools) -> dict:
         got = counts()
         for k in keys:
             launches[k] += got[k]
+            if whole:
+                fusion_launches[k] += got[k]
         check(got == {"conv_gdn": 11 * DSC_TILES, "gdn": 0, "quantize_pack": DSC_TILES},
               f"tiled DSC {name}: launches {got}, expected K2 4 + 7 and K3 1 a tile")
         receiver = DSCDecoder(cfg, model=dsc)
@@ -3776,15 +3821,42 @@ def tiled_phase(torch, dev, tools) -> dict:
         ts = encode_tiles_to_streams(code, codec, DSC_TILES, step=step, axis=dim)
         back = decode_streams_to_code(ts, codec, step=step, axis=dim)
         res = {"preset": cfg.name, "axis": axis, "tiles": DSC_TILES, "launches": got,
+               "launches_per_tile": {k: v / DSC_TILES for k, v in got.items()},
+               "whole_fusion_module": whole,
                "code_flip_share": float((code_t != whole_code).float().mean()),
+               "code_max_step": float((code_t - whole_code).abs().max()) / step,
                "recon_psnr_vs_untiled_db": psnr_db(rec, whole_recon),
                "recon_max_abs_vs_untiled": float((rec - whole_recon).abs().max()),
                "stream_bytes": [len(s) for s in ts.streams]}
-        check(res["code_flip_share"] <= LATENT_FLIP_FRAC
+        check(res["code_flip_share"] <= LATENT_FLIP_FRAC and res["code_max_step"] <= 1
               and res["recon_psnr_vs_untiled_db"] >= TILED_PSNR_DB,
               f"tiled DSC {name} against untiled: {res}")
         check(np.array_equal(back, code_t.cpu().numpy()),
               f"tiled DSC {name}: per-tile streams do not decode to the code")
+        if whole:
+            # K3 on a tile's own code (the tiled encoder's g_a22 output on tile
+            # 2 of 2) against its plain version: bit-exact
+            with torch.no_grad():
+                run = TileRun([dsc] * DSC_TILES, axis)
+                pre = run.stack("g_a22", run.stack("g_a", split_tiles(x, mesh2, axis)))[1]
+            k3_sym, k3_code = quantize_code(pre, cfg)
+            r_sym, r_code = k3.quantize_pack_plain(pre, step, cfg.code_clip)
+            check(torch.equal(k3_sym, r_sym) and torch.equal(k3_code, r_code),
+                  f"tiled DSC {name}: K3 on a tile's code is not bit-exact")
+            n3 = pre.numel()
+            b_ms, b_by = tools.bound_ms(5.0 * n3, 9.0 * n3)
+            k3_tile_rows.append({
+                "where": f"{cfg.name} {axis}-tile 2 of {DSC_TILES}", "x": list(pre.shape),
+                "step": step, "bits": 8, "ms": time_ms(lambda: quantize_code(pre, cfg)),
+                "plain_ms": time_ms(lambda: k3.quantize_pack_plain(pre, step, cfg.code_clip)),
+                "bound_ms": b_ms, "bound_by": b_by, "launch_floor_ms": tools.floor_ms,
+                "library_ms": None, "max_abs_err": 0.0})
+        # the CPU decodes the card's serialized streams with tables of its own
+        cpu_codec = api.build_cdf_tables_from_histogram(syms, offset=-lim, nsym=2 * lim + 1)
+        cpu_back = decode_streams_to_code(TiledStreams.deserialize(ts.serialize()), cpu_codec,
+                                          step=step, axis=dim)
+        check(np.array_equal(cpu_back, back),
+              f"tiled DSC {name}: the CPU's decode of the card's streams differs")
         with torch.no_grad():
             res["device_ms"] = {
                 "tiled": time_ms(lambda: t_dec(t_enc(x), y), warmup=2, reps=5, batch=1),
@@ -3793,6 +3865,7 @@ def tiled_phase(torch, dev, tools) -> dict:
             res["host_ms"] = {
                 "tiled": host_ms(lambda: t_dec(t_enc(x), y)),
                 "untiled": host_ms(lambda: receiver(quantize_code(dsc.encode(x), cfg)[1], y))}
+        res["seconds"] = time.perf_counter() - t_case
         paths[f"dsc_{name}"] = res
         if cfg.fusion_post != "pam":
             continue
@@ -3817,30 +3890,36 @@ def tiled_phase(torch, dev, tools) -> dict:
 
     seconds = time.perf_counter() - t_phase
     emit({"phase": "tiled", "ok": True, "paths": paths, "launches": launches,
-          "k2_tile_padding": k2_rows, "seconds": seconds})
+          "launches_fusion": fusion_launches, "k2_tile_padding": k2_rows,
+          "k3_fusion_tiles": k3_tile_rows, "seconds": seconds})
     print(f"tiled phase seconds: {seconds:.1f}", flush=True)
-    return {"launches": launches, "k2": k2_rows}
+    return {"launches": launches, "launches_fusion": fusion_launches, "k2": k2_rows,
+            "k3": k3_tile_rows}
 
 
 def mesh_train_phase(torch, dev, tools, hw: int = 256, kitti_dir: str = KITTI_TRAIN_DIR,
                      balle_n: int = N_CH, hyper_n: int = HYPER_N, hyper_m: int = HYPER_M,
                      dsc_preset: str = DSC_PRESET, balle_steps: int = MESH_BALLE_STEPS,
                      cli_img: int = 320) -> dict:
-    """The training mesh on one card (ROADMAP item 20b), every slot on
+    """The training mesh on one card (ROADMAP items 20b-20d), every slot on
     ``dev`` (see the module docstring). ``tools`` holds the harness of
-    ``main``. Returns the launches of the mesh paths, the K2 rows (a Ballé
-    tile's conv2 at (p, 0); Cout = 160 with a split) and the K1 row (C =
-    160)."""
+    ``main``. Returns the launches of the mesh paths (and of the steps on
+    meshes with a tile axis), the K2 rows (a Ballé and a hyperprior tile's
+    conv2 at (p, 0); Cout = 160 with a split) and the K1 rows (C = 160; a
+    hyperprior tile's IGDN3)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from iclr_17_compression_tpu_torch.data.datasets import batch_iterator, write_ppm
+    from iclr_17_compression_tpu_torch.data.datasets import (StereoKittiDataset, batch_iterator,
+                                                             write_ppm)
     from iclr_17_compression_tpu_torch.ops import gdn as ops_gdn
     from iclr_17_compression_tpu_torch.ops.gdn import gdn_reparam
     from iclr_17_compression_tpu_torch.ops.kernels import conv_gdn_kernel as k2
     from iclr_17_compression_tpu_torch.ops.kernels import gdn_kernel as k1
     from iclr_17_compression_tpu_torch.ops.kernels import quant_pack_kernel as k3
-    from iclr_17_compression_tpu_torch.parallel import make_mesh
-    from iclr_17_compression_tpu_torch.parallel.halo import halo_exchange_w
+    from iclr_17_compression_tpu_torch.parallel import make_mesh, split_tiles
+    from iclr_17_compression_tpu_torch.parallel.halo import (TileLayers, halo_exchange_w,
+                                                             tiled_hyperprior_train,
+                                                             tiled_joint_train)
     from iclr_17_compression_tpu_torch.train import cli as train_cli
     from iclr_17_compression_tpu_torch.train.config import TrainConfig
     from iclr_17_compression_tpu_torch.train.dryrun import dryrun_multichip
@@ -3857,6 +3936,7 @@ def mesh_train_phase(torch, dev, tools, hw: int = 256, kitti_dir: str = KITTI_TR
     t_phase = time.perf_counter()
     keys = ("conv_gdn", "gdn", "quantize_pack")
     launches = dict.fromkeys(keys, 0)
+    tile_launches = dict.fromkeys(keys, 0)  # the steps on meshes with a tile axis
     section_s, t_lap = {}, [t_phase]
 
     def lap(name):
@@ -3924,15 +4004,19 @@ def mesh_train_phase(torch, dev, tools, hw: int = 256, kitti_dir: str = KITTI_TR
                     lambda: step(state, *args, gen)))
             want = {k: v * slots for k, v in per_slot.items()}
             check(got == want, f"mesh {shape}: step {i + 1} launches {got}, expected {want}")
+            if shape[1] > 1:
+                for k in keys:
+                    tile_launches[k] += got[k]
             rows.append({"metrics": {k: float(v) for k, v in metrics.items()},
                          "host_ms": host, "event_ms": event})
         args = batches[n_steps % len(batches)]
         gen = step_generator(seed, n_steps, dev)
         with flags():
             prof = profiled(lambda: step(state, *args, gen))
+        timed = rows[1:] or rows  # the first step of several warms up
         return {"mesh": list(shape), "steps": rows, "profile": prof,
-                "median_host_ms": statistics.median(r["host_ms"] for r in rows[1:]),
-                "median_event_ms": statistics.median(r["event_ms"] for r in rows[1:]),
+                "median_host_ms": statistics.median(r["host_ms"] for r in timed),
+                "median_event_ms": statistics.median(r["event_ms"] for r in timed),
                 "launches_per_step": {k: v * slots for k, v in per_slot.items()}}
 
     def step_grads(model0, make_step, shape, args, flags, seed, swap=None, rel=0.0,
@@ -3966,7 +4050,11 @@ def mesh_train_phase(torch, dev, tools, hw: int = 256, kitti_dir: str = KITTI_TR
                 {k: p.grad.clone() for k, p in model.named_parameters()})
 
     def gaps(ga, gb):
-        return {k: float((ga[k] - gb[k]).abs().max() / gb[k].abs().max().clamp(min=1e-30))
+        """Each tensor's largest gap in shares of its largest |gradient| in
+        ``gb``, at least MESH_GRAD_FLOOR_SHARE of the model's largest."""
+        floor = MESH_GRAD_FLOOR_SHARE * max(float(g.abs().max()) for g in gb.values())
+        return {k: float((ga[k] - gb[k]).abs().max()) / max(float(gb[k].abs().max()), floor,
+                                                            1e-30)
                 for k in gb}
 
     def stats(g, g_ref):
@@ -4127,24 +4215,92 @@ def mesh_train_phase(torch, dev, tools, hw: int = 256, kitti_dir: str = KITTI_TR
                                                    deterministic, MESH_SEED, DSC_MESHES[1:])}
     lap("dsc_gate")
 
-    # ---- the hyperprior and joint codecs at N = 192, M = 320 (data axis)
-    for name, per_slot in (("hyperprior", {"conv_gdn": 3, "gdn": 3, "quantize_pack": 0}),
-                           ("joint", {"conv_gdn": 6, "gdn": 0, "quantize_pack": 0})):
+    # ---- the hyperprior (both quantizers) and joint codecs at N = 192, M =
+    # 320 on the data and tile axes (64-column W-tiles)
+    hyper_slot = {"conv_gdn": 3, "gdn": 3, "quantize_pack": 0}
+    hyper_models = {}
+    for name, quant, meshes, n_steps, per_slot in (
+            ("hyperprior", "round", HYPER_MESHES, MESH_STEPS, hyper_slot),
+            ("hyperprior", "sigma-norm", SIGMA_NORM_MESHES, MESH_SIGMA_NORM_STEPS, hyper_slot),
+            ("joint", None, JOINT_MESHES, MESH_STEPS,
+             {"conv_gdn": 6, "gdn": 0, "quantize_pack": 0})):
+        key = name if quant in (None, "round") else f"{name}_{quant}"
         model = build_model(name, device="cpu", seed=MESH_SEED, out_channel_n=hyper_n,
-                            out_channel_m=hyper_m, n=hyper_n)
+                            out_channel_m=hyper_m, n=hyper_n, quant=quant)
         model = gdn_off_identity_(torch, model, gen).to(dev)
         flags = cudnn_autotune if getattr(model, "train_cudnn_autotune", False) \
             else deterministic
-        make = lambda: make_hyperprior_train_step(lam)  # noqa: E731
-        res = {f"{d}x{t}": runs(model, make, (d, t), [(c,) for c in crops], MESH_STEPS, flags,
+        tiled = tiled_joint_train if name == "joint" else tiled_hyperprior_train
+        make = lambda: make_hyperprior_train_step(lam, tiled=tiled)  # noqa: E731
+        res = {f"{d}x{t}": runs(model, make, (d, t), [(c,) for c in crops], n_steps, flags,
                                 per_slot, MESH_SEED, base.lr_base, base.grad_clip)
-               for d, t in HYPER_MESHES}
-        hold_step1(res, ("rd_loss", "mse", "bpp", "bpp_y", "bpp_z"), name)
-        result[name] = {"n": hyper_n, "m": hyper_m, "batch": b, "crop": hw, "runs": res,
-                        "step1_grad_gate": floor_gate(model, make, (crops[0],), flags,
-                                                      MESH_SEED, HYPER_MESHES[1:])}
+               for d, t in meshes}
+        hold_step1(res, ("rd_loss", "mse", "bpp", "bpp_y", "bpp_z"), key)
+        result[key] = {"n": hyper_n, "m": hyper_m, "quant": quant, "batch": b, "crop": hw,
+                       "tile_unit": 64, "runs": res,
+                       "step1_grad_gate": floor_gate(model, make, (crops[0],), flags,
+                                                     MESH_SEED, meshes[1:])}
+        hyper_models[key] = model
+        lap(key)
+
+    # K2 at a hyperprior tile's conv2 (5×5 s2, C = 192, its halo'd input at
+    # padding (2, 0)) and K1 at its IGDN3 (C = 192), on the round model and
+    # the first batch's second of two W-tiles, against plain
+    hyper = hyper_models["hyperprior"]
+    enc, dec = hyper.Encoder, hyper.Decoder
+    seen = {}
+
+    class Probe(TileLayers):
+        """The transforms' own tiled run, each layer's input tiles kept."""
+
+        def conv_gdn(self, x, conv, gdn):
+            seen[conv] = x
+            return super().conv_gdn(x, conv, gdn)
+
+        def layer(self, x, name):
+            seen[name] = x
+            return super().layer(x, name)
+
+    with torch.no_grad():
+        tiles = split_tiles(crops[0].to(dev), [dev] * 2, unit=64)
+        dec.transform(Probe([dec] * 2), [torch.round(t) for t in
+                                         enc.transform(Probe([enc] * 2), tiles)])
+        x2 = halo_exchange_w(seen["conv2"], 2, 1)[1]
+        x_igdn3 = seen["igdn3"][1].contiguous()
+    beta2, gamma2 = gdn_reparam(enc.gdn2.params())
+    tools.measure_k2((x2, enc.conv2.weight.permute(2, 3, 1, 0).contiguous(), enc.conv2.bias,
+                      gamma2.t().contiguous(), beta2.contiguous(), 2, (2, 0)), k2_rows,
+                     "K2 hyperprior tile conv2 (2, 0)", cudnn_k1=True)
+    k2_rows["shapes"][-1]["where"] = ("hyperprior 1x2 mesh, tile 2 of 2: conv2 5x5 s2, "
+                                      f"C = {hyper_n}, padding (2, 0)")
+    tools.measure_k1(x_igdn3, dec.igdn3, k1_rows, "K1 hyperprior tile IGDN3")
+    k1_rows["shapes"][-1]["where"] = f"hyperprior 1x2 mesh, tile 2 of 2: IGDN3, C = {hyper_n}"
+    result["hyperprior_tile_kernels"] = {"k2_x": list(x2.shape), "k1_x": list(x_igdn3.shape)}
+    del hyper_models, hyper, enc, dec
+    lap("hyperprior_tile_kernels")
+
+    # ---- the fusion presets that train (FIF excepted: ROADMAP Queue 3) on
+    # 1×2, their bottleneck attention and PAM on the gathered W-tiles
+    fusion_data = StereoKittiDataset([kitti_dir], train=True,
+                                     crop=(FUSION_MESH_CROP, FUSION_MESH_CROP), seed=MESH_SEED)
+    fusion_pairs = [tuple(torch.from_numpy(a) for a in batch) for batch, _ in zip(
+        batch_iterator(fusion_data, dcfg.batch_size, seed=MESH_SEED, epoch=0),
+        range(MESH_FUSION_STEPS + 1))]
+    for preset in FUSION_MESH_PRESETS:
+        model = gdn_off_identity_(torch, build_model(f"dsc:{preset}", device="cpu",
+                                                     seed=MESH_SEED), gen).to(dev)
+        res = {f"{d}x{t}": runs(model, make_dsc_train_step, (d, t), fusion_pairs,
+                                MESH_FUSION_STEPS, deterministic,
+                                {"conv_gdn": 17, "gdn": 0, "quantize_pack": 0}, MESH_SEED,
+                                dcfg.lr_base, dcfg.grad_clip) for d, t in FUSION_MESHES}
+        hold_step1(res, ("loss", "loss_full", "loss_base", "loss_z"), preset)
+        result[preset] = {"n": model.config.n, "batch": dcfg.batch_size,
+                          "crop": list(fusion_pairs[0][0].shape[1:3]), "runs": res,
+                          "step1_grad_gate": floor_gate(model, make_dsc_train_step,
+                                                        fusion_pairs[0], deterministic,
+                                                        MESH_SEED, FUSION_MESHES[1:])}
         del model
-        lap(name)
+        lap(preset)
 
     # ---- the training CLI on a 2×2 mesh of one card, with its resume
     work = os.path.join(ROOT, "build", "chip_smoke_mesh_train")
@@ -4190,6 +4346,47 @@ def mesh_train_phase(torch, dev, tools, hw: int = 256, kitti_dir: str = KITTI_TR
                                         "launches": cli_launches, "seconds_full": cli_ms / 1e3}
     lap("train_single_image")
 
+    # ---- train_single_image of the hyperprior on 1×2 W-tiles, with its resume
+    hyper_cfg = dataclasses.replace(cli_cfg, model="hyperprior", out_channel_n=hyper_n,
+                                    out_channel_m=hyper_m, mesh_data=1, mesh_tile=2,
+                                    save_model_freq=MESH_HYPER_CLI_STEPS)
+
+    def hyper_cli_run(name, steps, resume=""):
+        with cudnn_deterministic():
+            return train_cli.train_single_image(
+                dataclasses.replace(hyper_cfg, tot_step=steps), name, resume=resume,
+                device=str(dev), devices=[dev] * 2)
+
+    (h_full, h_ms, _), h_got_full = counted(lambda: ms_pair(lambda: hyper_cli_run(
+        "hyper_full", MESH_HYPER_CLI_RESUME)))
+    _, h_got_half = counted(lambda: hyper_cli_run("hyper_half", MESH_HYPER_CLI_STEPS))
+    h_resumed, h_got_resumed = counted(lambda: hyper_cli_run(
+        "hyper_half", MESH_HYPER_CLI_RESUME, os.path.join(work, "hyper_half")))
+    h_launches = {k: h_got_full[k] + h_got_half[k] + h_got_resumed[k] for k in keys}
+    for k in keys:
+        tile_launches[k] += h_launches[k]
+    h_steps = 2 * MESH_HYPER_CLI_RESUME
+    check(h_launches == {"conv_gdn": 3 * 2 * h_steps, "gdn": 3 * 2 * h_steps,
+                         "quantize_pack": 0},
+          f"train_single_image hyperprior 1x2: launches {h_launches} over {h_steps} steps")
+    check(h_full.step == h_resumed.step == MESH_HYPER_CLI_RESUME,
+          "train_single_image hyperprior 1x2: steps")
+    h_params = all(torch.equal(a, c) for a, c in zip(h_full.model.state_dict().values(),
+                                                    h_resumed.model.state_dict().values()))
+    sa, sr = h_full.optimizer.state_dict()["state"], h_resumed.optimizer.state_dict()["state"]
+    h_moments = all(torch.equal(sa[i][k], sr[i][k]) for i in sa
+                    for k in ("exp_avg", "exp_avg_sq", "step"))
+    check(h_params and h_moments, "train_single_image hyperprior 1x2: the resumed run's "
+                                  "parameters or Adam moments differ from the uninterrupted "
+                                  "run's")
+    check("mesh: data=1 tile=2" in open(os.path.join(work, "hyper_full", "train.log")).read(),
+          "train_single_image hyperprior 1x2: no mesh line in train.log")
+    result["train_single_image_hyperprior_1x2"] = {
+        "steps": MESH_HYPER_CLI_RESUME, "resumed_from": MESH_HYPER_CLI_STEPS,
+        "params_bit_equal": h_params, "adam_moments_bit_equal": h_moments,
+        "launches": h_launches, "seconds_full": h_ms / 1e3}
+    lap("train_single_image_hyperprior")
+
     # ---- the port's dryrun_multichip on 8 slots of the card
     (dry, dry_ms, _), dry_launches = counted(lambda: ms_pair(
         lambda: dryrun_multichip([dev] * MESH_DRYRUN_DEVICES)))
@@ -4199,9 +4396,11 @@ def mesh_train_phase(torch, dev, tools, hw: int = 256, kitti_dir: str = KITTI_TR
 
     seconds = time.perf_counter() - t_phase
     emit({"phase": "mesh_train", "ok": True, **result, "launches": launches,
-          "k2_mesh": k2_rows, "k1_c160": k1_rows, "section_s": section_s, "seconds": seconds})
+          "launches_tiles": tile_launches, "k2_mesh": k2_rows, "k1_mesh": k1_rows,
+          "section_s": section_s, "seconds": seconds})
     print(f"mesh_train phase seconds: {seconds:.1f}", flush=True)
-    return {"launches": launches, "k2": k2_rows, "k1": k1_rows}
+    return {"launches": launches, "launches_tiles": tile_launches, "k2": k2_rows,
+            "k1": k1_rows}
 
 
 def _fresh_like(torch, model):
@@ -5222,6 +5421,10 @@ def main() -> int:
              "hyper_train": hyper_train["launches"], "dsc_fusion": fusion["launches"],
              "aux": aux["launches"], "eval": evals["launches"], "tiled": tiled["launches"],
              "mesh_train": mesh["launches"]}
+    # parts of the paths above (counted there too): the fusion presets'
+    # tiled serving, and the training steps on meshes with a tile axis
+    parts = {"tiled/fusion_presets": tiled["launches_fusion"],
+             "mesh_train/tile_axis": mesh["launches_tiles"]}
 
     kernels = []
     meta = {
@@ -5237,7 +5440,7 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
                  "launches": sum(path[name] for path in paths.values()),
-                 "launches_by_path": {p: path[name] for p, path in paths.items()},
+                 "launches_by_path": {p: path[name] for p, path in {**paths, **parts}.items()},
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -5291,9 +5494,14 @@ def main() -> int:
                 {k: st.get(k) for k in ("where", "x", "inverse", "ms", "call_ms", "plain_ms",
                                         "bound_ms", "bound_by")}
                 for st in aux["k1_decoder_only"]["shapes"]]
+            entry["mesh_train_shapes"] = [
+                {k: st.get(k) for k in ("where", "x", "inverse", "ms", "call_ms", "plain_ms",
+                                        "bound_ms", "bound_by")}
+                for st in mesh["k1"]["shapes"]]
         else:
             entry.update(launch_floor_ms=row["launch_floor_ms"], dsc_step16=k3_dsc,
-                         dsc_validation=dsc_train["k3_validation"], fusion_codes=fusion["k3"])
+                         dsc_validation=dsc_train["k3_validation"], fusion_codes=fusion["k3"],
+                         fusion_tile_codes=tiled["k3"])
         if name == "conv_gdn":
             tr = tiled["k2"]
             entry["max_abs_err"] = max(entry["max_abs_err"], tr["max_abs_err"])

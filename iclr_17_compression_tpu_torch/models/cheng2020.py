@@ -35,7 +35,10 @@ bf16-rounded weights, as the hyperprior's (``ops.precision.promoted``).
 Training (``train=True``) replaces both roundings by additive U(±½)
 noise drawn from one explicit generator, ẑ's first and then ŷ's (JAX's
 ``rng_z, rng_y = split(rng)``); the masked context conv and the entropy
-parameters run in one parallel pass, as in the eval forward.
+parameters run in one parallel pass, as in the eval forward. The forward
+is its pieces (``quantize``, ``context_params``, ``outputs``), which the
+W-tiled train forward (``parallel.halo.tiled_joint_train``) calls tile by
+tile.
 """
 
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -156,30 +159,31 @@ class JointAutoregressive(nn.Module):
             f.init_(generator)
         return self
 
-    def forward(self, image: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """The forward on an NHWC batch in [0, 1]: the JAX model's dict
-        (recon clipped, latent ŷ, hyper_latent ẑ, sigma, mu, mse, bpp_y,
-        bpp_z, bpp). The context runs in one parallel masked conv.
-        ``train``: the noise quantizers, drawn from ``generator``."""
-        precision_on_cuda(image)
-        n_img, h, w, _ = image.shape
-        y = self.g_a(image)
-        z = self.h_a(y)
+    def quantize(self, y: torch.Tensor, z: torch.Tensor, train: bool = False,
+                 generator=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ẑ, ŷ): the training noise (from ``generator``, or a mesh slot's
+        ``ops.quant.SlotNoise``), ẑ's drawn first, else the rounding."""
         if train:
-            z_hat = quant.add_uniform_noise(z, generator, 0.5)
-            y_hat = quant.add_uniform_noise(y, generator, 0.5)
-        else:
-            z_hat, y_hat = torch.round(z), torch.round(y)
-        hyper = self.h_s(z_hat)
-        ctx = self.context_prediction(y_hat)
-        params = self.entropy_parameters(torch.cat([hyper, ctx], dim=-1))
+            return (quant.add_uniform_noise(z, generator, 0.5),
+                    quant.add_uniform_noise(y, generator, 0.5))
+        return torch.round(z), torch.round(y)
+
+    def context_params(self, y_hat: torch.Tensor, hyper: torch.Tensor) -> torch.Tensor:
+        """The entropy parameters (scales, then means) of ŷ from the hyper
+        decoder's output and ŷ's masked context, in one parallel pass."""
+        return self.entropy_parameters(torch.cat([hyper, self.context_prediction(y_hat)], dim=-1))
+
+    def outputs(self, image: torch.Tensor, y_hat: torch.Tensor, z_hat: torch.Tensor,
+                params: torch.Tensor, recon: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The forward's dict from its image, ŷ, ẑ, the entropy parameters
+        and the unclipped recon: ŷ's Gaussian rate, ẑ's under
+        ``bitEstimator_z``, each per pixel of ``image``."""
         sigma = torch.clamp(torch.abs(params[..., : self.n]), min=self.scale_bound)
         mu = params[..., self.n:]
         delta = y_hat - mu
         prob_y = normal_cdf((delta + 0.5) / sigma) - normal_cdf((delta - 0.5) / sigma)
-        recon = self.g_s(y_hat)
         prob_z = self.bitEstimator_z(z_hat + 0.5) - self.bitEstimator_z(z_hat - 0.5)
+        n_img, h, w, _ = image.shape
         n_pixels = n_img * h * w
         bits_y = torch.sum(_clip_bits(prob_y))
         bits_z = torch.sum(_clip_bits(prob_z))
@@ -187,6 +191,18 @@ class JointAutoregressive(nn.Module):
                 "sigma": sigma, "mu": mu, "mse": torch.mean((recon - image) ** 2),
                 "bpp_y": bits_y / n_pixels, "bpp_z": bits_z / n_pixels,
                 "bpp": (bits_y + bits_z) / n_pixels}
+
+    def forward(self, image: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The forward on an NHWC batch in [0, 1]: the JAX model's dict
+        (recon clipped, latent ŷ, hyper_latent ẑ, sigma, mu, mse, bpp_y,
+        bpp_z, bpp). The context runs in one parallel masked conv.
+        ``train``: the noise quantizers, drawn from ``generator``."""
+        precision_on_cuda(image)
+        y = self.g_a(image)
+        z_hat, y_hat = self.quantize(y, self.h_a(y), train, generator)
+        params = self.context_params(y_hat, self.h_s(z_hat))
+        return self.outputs(image, y_hat, z_hat, params, self.g_s(y_hat))
 
 
 # ---------------------------------------------------------------------------

@@ -212,6 +212,16 @@ def quantize_code(code_pre: torch.Tensor, cfg: DSCConfig
     return symbols, code
 
 
+def refuse_untrainable(cfg: DSCConfig) -> None:
+    """Raise for a preset that the JAX trainer cannot train: FIF's
+    ``AdaptiveBatchNorm`` needs ``batch_stats``, which the JAX trainer
+    does not keep (ROADMAP Queue 3)."""
+    if cfg.fusion_pre == "fif":
+        raise NotImplementedError(
+            f"{cfg.name}: the JAX trainer keeps only the params, not FIF's batch_stats, "
+            "and cannot train this preset; the port follows it (ROADMAP Queue 3)")
+
+
 # The modules each fusion option adds, by their names in the model.
 FUSION_MODULES = {"none": [], "fif": ["fif"], "bot_att": ["final_conv"],
                   "patch_att": ["bot_mhsa", "final_conv"], "pam": ["pam"]}
@@ -229,14 +239,21 @@ def _z_cat(cfg: DSCConfig, z1_hat, z2, z2_hat):
 
 class OneDevice:
     """How the DSC forward runs on one device: ``stack(name, *xs)`` calls
-    the module ``name`` of ``mods``, ``each(fn, *xs)`` calls ``fn`` once.
+    the module ``name`` of ``mods``, ``module(name)`` is that module,
+    ``whole(fn, *xs)`` and ``each(fn, *xs)`` call ``fn`` once.
     ``parallel.tiled.TileRun`` runs the same forward tile by tile."""
 
     def __init__(self, mods: nn.Module):
         self.mods = mods
 
+    def module(self, name: str) -> nn.Module:
+        return getattr(self.mods, name)
+
     def stack(self, name: str, *xs, **kw):
-        return getattr(self.mods, name)(*xs, **kw)
+        return self.module(name)(*xs, **kw)
+
+    def whole(self, fn, *xs):
+        return fn(*xs)
 
     def each(self, fn, *xs):
         return fn(*xs)
@@ -246,33 +263,41 @@ def _clip01(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0.0, 1.0)
 
 
+def _cat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.cat([a, b], dim=-1)
+
+
 def _fuse_and_synthesize(cfg: DSCConfig, run, z1_hat, z2, z2_hat, im2, train: bool = False):
     """SI fusion + synthesis, the receiver's tail shared by the full model
     and ``DSCDecoder``, under ``run`` (``OneDevice`` or a ``TileRun``):
-    (fused, recon_raw), the recon unclipped. ``train`` reaches FIF's batch
-    statistics only."""
+    (fused, recon_raw), the recon unclipped. The fusion modules that see
+    the whole latent (FIF, the bottleneck and patch-match attention) run
+    through ``run.whole``; ``train`` reaches FIF's batch statistics only."""
     z_cat = run.each(lambda a, b, c: _z_cat(cfg, a, b, c), z1_hat, z2, z2_hat)
     if cfg.fusion_pre == "fif":
-        z_cat = run.stack("fif", z_cat, train)
+        fif = run.module("fif")
+        z_cat = run.whole(lambda z: fif(z, train), z_cat)
     fused = run.stack("g_z1hat_z2", z_cat)
     if cfg.gz2:
         fused = run.each(torch.add, fused, run.stack("g_z1hat_z2_freq2", z_cat))
     if cfg.fusion_post == "bot_att":
-        fused = run.stack("final_conv", run.each(
-            lambda f, z: torch.cat([f, bottleneck_attention(f, z)], dim=-1), fused, z2))
+        att = run.whole(bottleneck_attention, fused, z2)
+        fused = run.stack("final_conv", run.each(_cat, fused, att))
     elif cfg.fusion_post == "patch_att":
-        def with_att(f, att):
-            # the 9×9 patch grid may stop short of the latent: pad back with zeros
-            att = F.pad(att, (0, 0, 0, f.shape[2] - att.shape[2], 0, f.shape[1] - att.shape[1]))
-            return torch.cat([f, att], dim=-1)
+        mhsa = run.module("bot_mhsa")
 
-        fused = run.stack("final_conv", run.each(with_att, fused, run.stack("bot_mhsa", fused, z2)))
+        def patch_att(f, z):
+            # the 9×9 patch grid may stop short of the latent: pad back with zeros
+            att = mhsa(f, z)
+            return F.pad(att, (0, 0, 0, f.shape[2] - att.shape[2], 0, f.shape[1] - att.shape[1]))
+
+        fused = run.stack("final_conv", run.each(_cat, fused, run.whole(patch_att, fused, z2)))
     elif cfg.fusion_post == "pam":
         fused = run.stack("pam", fused, z2, train=False)
     recon = run.stack("g_s", fused)
     if cfg.recon_residual:
         recon = run.each(torch.add, recon, run.stack(
-            "g_rec1_im2_new", run.each(lambda r, x: torch.cat([r, x], dim=-1), recon, im2)))
+            "g_rec1_im2_new", run.each(_cat, recon, im2)))
     return fused, recon
 
 

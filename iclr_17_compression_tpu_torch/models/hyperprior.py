@@ -35,7 +35,10 @@ the eval forward of a bf16 image runs in bf16 throughout, as JAX's does.
 Training (``train=True``) replaces both roundings by additive U(±½)
 noise drawn from one explicit generator, ẑ's first and then ŷ's (or
 y/σ's), the counterpart of JAX's ``rng_z, rng_y = split(rng)``; the K2
-and K1 launches are then their autograd Functions.
+and K1 launches are then their autograd Functions. The forward is its
+pieces (``quantize_z``, ``sigma``, ``quantize_y``, ``outputs``), which the
+W-tiled train forward (``parallel.halo.tiled_hyperprior_train``) calls
+tile by tile.
 """
 
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -86,13 +89,53 @@ class ScaleHyperprior(nn.Module):
         in module order."""
         return init_modules_(self, generator)
 
+    @staticmethod
+    def bound_sigma(raw: torch.Tensor) -> torch.Tensor:
+        """σ = clip(h_s(ẑ), 1e-10, 1e10) of the hyper decoder's output."""
+        return torch.clamp(raw, 1e-10, 1e10)
+
     def sigma(self, z_hat: torch.Tensor) -> torch.Tensor:
-        """σ = clip(h_s(ẑ), 1e-10, 1e10), with cuDNN held to deterministic
-        algorithms: h_s is transposed convs, whose default cuDNN algorithms
-        sum with atomics, and the encoder and decoder (and the eval forward)
-        must compute the same σ bit for bit."""
+        """σ of ẑ, with cuDNN held to deterministic algorithms: h_s is
+        transposed convs, whose default cuDNN algorithms sum with atomics,
+        and the encoder and decoder (and the eval forward) must compute the
+        same σ bit for bit."""
         with cudnn_deterministic():
-            return torch.clamp(self.priorDecoder(z_hat), 1e-10, 1e10)
+            return self.bound_sigma(self.priorDecoder(z_hat))
+
+    def quantize_z(self, z: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
+        """ẑ: the training noise (from ``generator``, or a mesh slot's
+        ``ops.quant.SlotNoise``), else the rounding."""
+        return quant.add_uniform_noise(z, generator, 0.5) if train else torch.round(z)
+
+    def quantize_y(self, y: torch.Tensor, sigma: torch.Tensor, train: bool = False,
+                   generator=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ŷ, P(ŷ)) of the analysis output ``y`` under σ, by the model's
+        quantizer; the noise, where ``train``, drawn after ẑ's."""
+        if self.quant == "sigma-norm":
+            y_norm = y / sigma
+            y_norm_hat = (quant.add_uniform_noise(y_norm, generator, 0.5) if train
+                          else torch.round(y_norm))
+            ones = torch.ones_like(sigma)
+            return (y_norm_hat * sigma,
+                    laplace_cdf(y_norm_hat + 0.5, ones) - laplace_cdf(y_norm_hat - 0.5, ones))
+        y_hat = quant.add_uniform_noise(y, generator, 0.5) if train else torch.round(y)
+        return y_hat, laplace_cdf(y_hat + 0.5, sigma) - laplace_cdf(y_hat - 0.5, sigma)
+
+    def outputs(self, image: torch.Tensor, y_hat: torch.Tensor, z_hat: torch.Tensor,
+                sigma: torch.Tensor, prob_y: torch.Tensor,
+                recon: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The forward's dict from its image, ŷ, ẑ, σ, P(ŷ) and unclipped
+        recon: ẑ's rate under ``bitEstimator_z``, each rate per pixel of
+        ``image``."""
+        prob_z = self.bitEstimator_z(z_hat + 0.5) - self.bitEstimator_z(z_hat - 0.5)
+        bits_y = torch.sum(_clip_bits(prob_y))
+        bits_z = torch.sum(_clip_bits(prob_z))
+        n_img, h, w, _ = image.shape
+        n_pixels = n_img * h * w
+        return {"recon": torch.clamp(recon, 0.0, 1.0), "latent": y_hat, "hyper_latent": z_hat,
+                "sigma": sigma, "mse": torch.mean((recon - image) ** 2),
+                "bpp_y": bits_y / n_pixels, "bpp_z": bits_z / n_pixels,
+                "bpp": (bits_y + bits_z) / n_pixels}
 
     def forward(self, image: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -100,30 +143,11 @@ class ScaleHyperprior(nn.Module):
         (recon clipped, latent ŷ, hyper_latent ẑ, sigma, mse, bpp_y, bpp_z,
         bpp). ``train``: the noise quantizers, drawn from ``generator``."""
         precision_on_cuda(image)
-        n_img, h, w, _ = image.shape
         y = self.Encoder(image)
-        z = self.priorEncoder(y)
-        z_hat = quant.add_uniform_noise(z, generator, 0.5) if train else torch.round(z)
+        z_hat = self.quantize_z(self.priorEncoder(y), train, generator)
         sigma = self.sigma(z_hat)
-        if self.quant == "sigma-norm":
-            y_norm = y / sigma
-            y_norm_hat = (quant.add_uniform_noise(y_norm, generator, 0.5) if train
-                          else torch.round(y_norm))
-            y_hat = y_norm_hat * sigma
-            ones = torch.ones_like(sigma)
-            prob_y = laplace_cdf(y_norm_hat + 0.5, ones) - laplace_cdf(y_norm_hat - 0.5, ones)
-        else:
-            y_hat = quant.add_uniform_noise(y, generator, 0.5) if train else torch.round(y)
-            prob_y = laplace_cdf(y_hat + 0.5, sigma) - laplace_cdf(y_hat - 0.5, sigma)
-        recon = self.Decoder(y_hat)
-        prob_z = self.bitEstimator_z(z_hat + 0.5) - self.bitEstimator_z(z_hat - 0.5)
-        bits_y = torch.sum(_clip_bits(prob_y))
-        bits_z = torch.sum(_clip_bits(prob_z))
-        n_pixels = n_img * h * w
-        return {"recon": torch.clamp(recon, 0.0, 1.0), "latent": y_hat, "hyper_latent": z_hat,
-                "sigma": sigma, "mse": torch.mean((recon - image) ** 2),
-                "bpp_y": bits_y / n_pixels, "bpp_z": bits_z / n_pixels,
-                "bpp": (bits_y + bits_z) / n_pixels}
+        y_hat, prob_y = self.quantize_y(y, sigma, train, generator)
+        return self.outputs(image, y_hat, z_hat, sigma, prob_y, self.Decoder(y_hat))
 
 
 class CompressedHyper(NamedTuple):

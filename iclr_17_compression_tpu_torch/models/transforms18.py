@@ -16,6 +16,10 @@ launches (``conv_gdn_module``); conv4 (Cout = M = 320, beyond K2's 256) is
 Each IGDN of ``Synthesis18`` is one K1 launch; the deconvolutions and the
 prior transforms are cuDNN. On the CPU every stage is plain PyTorch.
 ``init_`` gains are the JAX package's xavier gains, biases 0.01.
+
+Each transform's layer order is written once, in ``transform(run, x)``:
+``forward`` runs it under ``Layers`` (one device), the W-tiled train
+forward under ``parallel.halo.TileLayers`` (each conv with halos).
 """
 
 import math
@@ -26,6 +30,26 @@ from torch import nn
 
 from ..nn.layers import GDN, TorchConv, TorchConvTranspose
 from ..ops.kernels.conv_gdn_kernel import conv_gdn_module
+
+
+class Layers:
+    """How a transform's layers run on one device: ``conv_gdn(x, conv,
+    gdn)`` the conv and GDN of those names as one call (K2 on the card),
+    ``layer(x, name)`` the layer ``name``, ``each(fn, x)`` an elementwise
+    ``fn``. ``parallel.halo.TileLayers`` runs the same transforms tile by
+    tile."""
+
+    def __init__(self, mods: nn.Module):
+        self.mods = mods
+
+    def conv_gdn(self, x, conv: str, gdn: str):
+        return conv_gdn_module(x, getattr(self.mods, conv), getattr(self.mods, gdn))
+
+    def layer(self, x, name: str):
+        return getattr(self.mods, name)(x)
+
+    def each(self, fn, x):
+        return fn(x)
 
 
 def _deconv(cin: int, cout: int, k: int, stride: int, gain: float) -> TorchConvTranspose:
@@ -48,10 +72,12 @@ class Analysis18(nn.Module):
                                gain=math.sqrt(2 * (m + n) / (n + n)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for conv, gdn in ((self.conv1, self.gdn1), (self.conv2, self.gdn2),
-                          (self.conv3, self.gdn3)):
-            x = conv_gdn_module(x, conv, gdn)
-        return self.conv4(x)
+        return self.transform(Layers(self), x)
+
+    def transform(self, run, x):
+        for i in (1, 2, 3):
+            x = run.conv_gdn(x, f"conv{i}", f"gdn{i}")
+        return run.layer(x, "conv4")
 
 
 class Synthesis18(nn.Module):
@@ -68,10 +94,12 @@ class Synthesis18(nn.Module):
         self.deconv4 = _deconv(n, 3, 5, 2, math.sqrt(2 * (n + 3) / (n + n)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.igdn1(self.deconv1(x))
-        x = self.igdn2(self.deconv2(x))
-        x = self.igdn3(self.deconv3(x))
-        return self.deconv4(x)
+        return self.transform(Layers(self), x)
+
+    def transform(self, run, x):
+        for i in (1, 2, 3):
+            x = run.layer(run.layer(x, f"deconv{i}"), f"igdn{i}")
+        return run.layer(x, "deconv4")
 
 
 class AnalysisPrior(nn.Module):
@@ -85,9 +113,12 @@ class AnalysisPrior(nn.Module):
         self.conv3 = TorchConv(n, n, 5, stride=2, padding=2, gain=sq2)
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.conv1(torch.abs(y)))
-        x = F.relu(self.conv2(x))
-        return self.conv3(x)
+        return self.transform(Layers(self), y)
+
+    def transform(self, run, y):
+        x = run.each(F.relu, run.layer(run.each(torch.abs, y), "conv1"))
+        x = run.each(F.relu, run.layer(x, "conv2"))
+        return run.layer(x, "conv3")
 
 
 class SynthesisPrior(nn.Module):
@@ -102,6 +133,9 @@ class SynthesisPrior(nn.Module):
         self.deconv3 = _deconv(n, m, 3, 1, math.sqrt(2 * (m + n) / (n + n)))
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.deconv1(z))
-        x = F.relu(self.deconv2(x))
-        return torch.exp(self.deconv3(x))
+        return self.transform(Layers(self), z)
+
+    def transform(self, run, z):
+        x = run.each(F.relu, run.layer(z, "deconv1"))
+        x = run.each(F.relu, run.layer(x, "deconv2"))
+        return run.each(torch.exp, run.layer(x, "deconv3"))

@@ -42,8 +42,11 @@ model itself when every tile shares its device). On the card the tiled
 Ballé-17 runs the port's kernels tile by tile: K2
 for each conv + GDN of the analysis (and conv3), K3 for the rounding (its
 symbols), K1 for each IGDN; cuDNN runs the transposed convs. The training
-mesh's tile axis runs ``tiled_balle17_train``: the same exchanges, which
-carry gradients back to the neighbour's tile, on each slot's own replica.
+mesh's tile axis runs ``tiled_balle17_train`` and, for the scale
+hyperprior, ``tiled_hyperprior_train`` (the same per-conv exchanges, which
+carry gradients back to the neighbour's tile, on each slot's own replica);
+the joint codec's ``tiled_joint_train`` runs its stacks as local stacks
+and its masked context with a halo of two columns.
 """
 
 import math
@@ -56,7 +59,7 @@ from torch import nn
 from ..ops.conv import _pair, conv2d, conv_transpose2d
 from ..ops.kernels.conv_gdn_kernel import conv_gdn_module
 from ..ops.kernels.quant_pack_kernel import quantize_pack
-from ..utils.device import precision_on_cuda
+from ..utils.device import cudnn_deterministic, precision_on_cuda
 from .mesh import replicated, split_tiles, tile_dim
 
 Tiles = List[torch.Tensor]
@@ -232,6 +235,111 @@ def tiled_balle17_train(models: Sequence, tiles: Sequence[torch.Tensor],
     recon = tiled_synthesis17([m.Decoder for m in models], [q[0] for q in quantized])
     return [m.outputs(x, latent, r, pre)
             for m, x, (latent, pre), r in zip(models, tiles, quantized, recon)]
+
+
+def _tiled_conv(tiles: Sequence[torch.Tensor], convs: Sequence) -> Tiles:
+    """A ``TorchConv`` over tiles, ``convs[i]`` tile i's replica, with halos
+    (``tiled_conv2d``)."""
+    c = convs[0]
+    return tiled_conv2d(tiles, [m.weight for m in convs], [m.bias for m in convs],
+                        stride=c.stride, padding=c.padding)
+
+
+def _modules(models: Sequence, name: str) -> list:
+    """Each model's submodule ``name``: one a tile."""
+    return [getattr(m, name) for m in models]
+
+
+class TileLayers:
+    """How a transform of ``models.transforms18`` (its ``transform(run,
+    x)``, as ``Layers`` runs it on one device) runs over W-tiles, tile i on
+    replica ``mods[i]``: a conv + GDN as one K2 call a tile at padding
+    (p, 0) (``tiled_conv_gdn``), a conv or a transposed conv with halos
+    (``tiled_conv2d``, ``tiled_deconv``), a GDN (K1 for an IGDN) and
+    ``each``'s function tile by tile."""
+
+    def __init__(self, mods: Sequence):
+        self.mods = list(mods)
+
+    def conv_gdn(self, x: Tiles, conv: str, gdn: str) -> Tiles:
+        return tiled_conv_gdn(x, _modules(self.mods, conv), _modules(self.mods, gdn))
+
+    def layer(self, x: Tiles, name: str) -> Tiles:
+        from ..nn.layers import GDN
+
+        layers = _modules(self.mods, name)
+        if isinstance(layers[0], nn.ConvTranspose2d):
+            return tiled_deconv(x, layers)
+        if isinstance(layers[0], nn.Conv2d):
+            return _tiled_conv(x, layers)
+        if isinstance(layers[0], GDN):
+            return [g(t) for g, t in zip(layers, x)]
+        raise ValueError(f"{name}: {type(layers[0]).__name__} is not a layer TileLayers tiles")
+
+    def each(self, fn, x: Tiles) -> Tiles:
+        return [fn(t) for t in x]
+
+
+def tiled_transform(mods: Sequence, tiles: Sequence[torch.Tensor]) -> Tiles:
+    """The transform ``mods[0]`` (one of ``models.transforms18``) over
+    W-tiles, ``mods[i]`` tile i's replica (``TileLayers``)."""
+    return mods[0].transform(TileLayers(mods), list(tiles))
+
+
+def tiled_hyperprior_train(models: Sequence, tiles: Sequence[torch.Tensor],
+                           noises: Sequence) -> List[dict]:
+    """The scale hyperprior's train forward (``ScaleHyperprior``) over one
+    data row's W-tiles, tile i on replica ``models[i]`` with noise view
+    ``noises[i]`` (``ops.quant.SlotNoise``): the model's transforms
+    through ``tiled_transform`` (K2 at padding (p, 0) for the analysis'
+    conv + GDN, per-conv halos, K1 for each IGDN of the synthesis), each
+    replica's quantizers (``quantize_z``, then ``quantize_y`` under σ: its
+    part of the whole batch's draws at the ẑ and the y grid), and each
+    tile's dict as the model's forward gives it
+    (``ScaleHyperprior.outputs``: the tile's rates under its replica's
+    ``bitEstimator_z`` and Laplace terms).
+    Differentiable throughout. Each tile's extent must be a multiple of
+    64, ẑ's downsampling."""
+    from ..models.hyperprior import ScaleHyperprior
+
+    precision_on_cuda(tiles[0])
+    y = tiled_transform(_modules(models, "Encoder"), tiles)
+    z = tiled_transform(_modules(models, "priorEncoder"), y)
+    z_hat = [m.quantize_z(t, True, n) for m, t, n in zip(models, z, noises)]
+    with cudnn_deterministic():  # as ``ScaleHyperprior.sigma``
+        sigma = [ScaleHyperprior.bound_sigma(t) for t in
+                 tiled_transform(_modules(models, "priorDecoder"), z_hat)]
+    quantized = [m.quantize_y(t, sg, True, n) for m, t, sg, n in zip(models, y, sigma, noises)]
+    recon = tiled_transform(_modules(models, "Decoder"), [q[0] for q in quantized])
+    return [m.outputs(x, y_hat, zh, sg, prob_y, r) for m, x, (y_hat, prob_y), zh, sg, r
+            in zip(models, tiles, quantized, z_hat, sigma, recon)]
+
+
+def tiled_joint_train(models: Sequence, tiles: Sequence[torch.Tensor],
+                      noises: Sequence) -> List[dict]:
+    """The joint-autoregressive codec's train forward
+    (``JointAutoregressive``) over one data row's W-tiles, tile i on
+    replica ``models[i]`` with noise view ``noises[i]``: ``g_a``, ``h_a``,
+    ``h_s`` and ``g_s`` as local stacks (``stack_tiles``; K2 for the
+    residual blocks' conv + (I)GDN on each tile's overlap), each replica's
+    quantizers, the masked 5×5 context conv and the 1×1 entropy parameters
+    on ŷ's tiles and the hyper decoder's with their halo (``local_tiles``),
+    and each tile's dict as the model's forward gives it
+    (``JointAutoregressive.outputs``: the tile's Gaussian and ẑ rates).
+    Differentiable throughout. Each tile's extent must be a multiple of
+    64, ẑ's downsampling."""
+    precision_on_cuda(tiles[0])
+    y = stack_tiles(_modules(models, "g_a"), tiles)
+    z = stack_tiles(_modules(models, "h_a"), y)
+    quantized = [m.quantize(a, b, True, n) for m, a, b, n in zip(models, y, z, noises)]
+    z_hat, y_hat = [q[0] for q in quantized], [q[1] for q in quantized]
+    hyper = stack_tiles(_modules(models, "h_s"), z_hat)
+    m0 = models[0]
+    extent = _seq([module_extent(m0.context_prediction), module_extent(m0.entropy_parameters)])
+    params = local_tiles([m.context_params for m in models], [y_hat, hyper], extent)
+    recon = stack_tiles(_modules(models, "g_s"), y_hat)
+    return [m.outputs(x, yh, zh, p, r) for m, x, yh, zh, p, r
+            in zip(models, tiles, y_hat, z_hat, params, recon)]
 
 
 def refuse_binarize(model) -> None:

@@ -103,13 +103,18 @@ def split_tiles(x: torch.Tensor, mesh_or_devices, axis: Union[str, int] = "width
     """An NHWC tensor cut into one tile per tile device along ``axis``
     (``np.array_split``'s ragged split, in whole ``unit``s of columns: a
     training tile starts where the model's downsampled grids do), each
-    tile contiguous on its device."""
+    tile contiguous on its device; raises where a tile would get no
+    unit."""
     devices = _devices(mesh_or_devices)
     dim = tile_dim(axis)
     if x.shape[dim] % unit:
         raise ValueError(f"extent {x.shape[dim]} is not a multiple of the tile unit {unit}")
     sizes = [len(a) * unit for a in np.array_split(np.arange(x.shape[dim] // unit),
                                                    len(devices))]
+    if 0 in sizes:
+        # JAX's GSPMD pads such a shard; a tile here is at least one unit
+        raise ValueError(f"extent {x.shape[dim]} gives {len(devices)} tiles fewer than one "
+                         f"tile unit of {unit} columns each")
     parts = torch.split(x, sizes, dim=dim)
     return [p.to(d).contiguous() for p, d in zip(parts, devices)]
 

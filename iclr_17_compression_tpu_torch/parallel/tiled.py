@@ -14,17 +14,20 @@ halo; here the image is a list of tiles on the mesh's tile devices
   overlap of at least the stack's receptive radius, then crops
   (``halo.stack_tiles``): its stacks nest residual and attention blocks of
   up to twenty convs each, so one overlap a stack replaces a hundred
-  exchanges. Why it is exact: ``halo.py``'s docstring. Every DSC module
-  on that path is local along the tiled axis but three fusion options,
-  which the port refuses to tile: ``fif`` (its dilated convs pad
-  circularly, wrapping the latent's far edge in), ``bot_att`` (attention
-  over the whole latent) and ``patch_att`` (a patch grid over the whole
-  latent). ``pam`` attends along whole rows: it tiles along H only (its
-  convs and the mask's morphology take an overlap of 14 rows), and W-tiles
-  go through ``ring_pam.py``. The tiled receiver is the model's own
-  (``models.dsc.receive``) under a ``TileRun``, which runs each stack tile
-  by tile; the training mesh's W-tiles run the model's train forward so
-  (``tiled_dsc_train``).
+  exchanges. Why it is exact: ``halo.py``'s docstring. The fusion
+  presets' modules that see the whole latent run whole instead
+  (``TileRun.whole``: the tiles gathered onto the first tile's device, the
+  module run once, its output split back), as GSPMD gathers them in JAX:
+  ``fif`` (its dilated convs pad circularly, wrapping the latent's far
+  edge in), the bottleneck attention of ``bot_att`` (attention over the
+  whole latent) and the ``patch_att`` module (a patch grid over the whole
+  latent). ``pam`` attends along whole rows: it tiles along H (its convs
+  and the mask's morphology take an overlap of 14 rows); in serving, W-tiles
+  are refused as JAX refuses them and go through ``ring_pam.py``, and the
+  W-tiled train forward runs it whole. The tiled receiver is the model's
+  own (``models.dsc.receive``) under a ``TileRun``, which runs each stack
+  tile by tile; the training mesh's W-tiles run the model's train forward
+  so (``tiled_dsc_train``).
 
 Bitstreams are per tile: the quantized code is split along W (or H) and
 each tile rANS-encoded on its own (a thread pool; the C++ coder releases
@@ -46,16 +49,11 @@ import torch
 from ..utils.device import precision_on_cuda
 from .halo import (local_tiles, module_extent, refuse_binarize, round_tiles, stack_tiles,
                    tiled_analysis17, tiled_synthesis17)
-from .mesh import replicated, split_tiles, tile_dim
+from .mesh import gather_tiles, replicated, split_tiles, tile_dim
 
 # the receptive radius of the PAM mask's morphology (closing then opening,
 # each two passes with a disk of radius 3: models/passr.py clean_mask)
 PAM_MASK_RADIUS = 4 * 3
-
-# fusion options whose modules see the whole latent along both axes
-NON_LOCAL_FUSION = {"fif": "FIF's dilated convs pad circularly (wrap_pad)",
-                    "bot_att": "bottleneck attention attends over the whole latent",
-                    "patch_att": "patch-match attention tiles the whole latent"}
 
 
 @dataclass
@@ -155,44 +153,47 @@ def pam_extent(pam, dim: int = 1) -> Tuple[Fraction, Fraction]:
     return module_extent(pam.rb, dim)[0] + PAM_MASK_RADIUS, Fraction(1)
 
 
-def check_local(cfg, axis: str) -> None:
-    """Raise for a DSC preset whose modules are not all local along
-    ``axis``: PAM along W, and the fusion options of ``NON_LOCAL_FUSION``."""
-    if cfg.fusion_post == "pam" and axis != "height":
-        raise ValueError(
-            "fusion_post='pam' attends across the full latent width per row; "
-            "W-sharding would split its K/V. Use make_tiled_dsc(..., "
-            "axis='height') (PAM is row-independent) or run replicated."
-        )
-    for option in (cfg.fusion_pre, cfg.fusion_post):
-        if option in NON_LOCAL_FUSION:
-            raise ValueError(f"{cfg.name}: fusion {option!r} is not local along the tiled "
-                             f"axis ({NON_LOCAL_FUSION[option]}); run it untiled")
-
-
 class TileRun:
     """How the DSC forward (``models.dsc.dsc_outputs``, ``receive``) runs
-    over one image's tiles, tile i on replica ``models[i]``: ``stack(name,
-    x)`` runs each replica's stack ``name`` on its tile extended by one
-    overlap (``halo.stack_tiles``; PAM, along H, through ``local_tiles``
-    with its two inputs), ``each(fn, *xs)`` maps ``fn`` over the tiles, a
-    value that is not a list (a mask, None) passed to every tile. Refuses
-    a preset with a module that is not local along ``axis``
-    (``check_local``), so the forward never reaches a fusion branch that
-    would see only its own tile."""
+    over one image's tiles along ``axis``, tile i on replica ``models[i]``:
+    ``stack(name, x)`` runs each replica's stack ``name`` on its tile
+    extended by one overlap (``halo.stack_tiles``; PAM through
+    ``local_tiles`` with its two inputs along H, and whole along W, where
+    it attends across the tiles), ``whole(fn, *xs)`` runs ``fn`` once on
+    the gathered tiles (a fusion module that sees the whole latent, taken
+    from ``module``: tile 0's replica), ``each(fn, *xs)`` maps ``fn`` over
+    the tiles; in ``whole`` and ``each`` a value that is not a list (a
+    mask, None) is passed as it is."""
 
     def __init__(self, models, axis: str = "width"):
-        check_local(models[0].config, axis)
         self.models, self.axis = list(models), axis
+
+    def module(self, name: str):
+        return getattr(self.models[0], name)
 
     def stack(self, name: str, *xs, **kw) -> List[torch.Tensor]:
         if name == "pam":
+            if self.axis == "width":
+                return self.whole(functools.partial(self.module("pam"), **kw), *xs)
             pams = [functools.partial(m.pam, **kw) for m in self.models]
             return local_tiles(pams, list(xs), pam_extent(self.models[0].pam,
                                                           tile_dim(self.axis)), self.axis)
         if len(xs) != 1 or kw:
             raise ValueError(f"{name}: a tiled stack takes one input")
         return stack_tiles([getattr(m, name) for m in self.models], xs[0], self.axis)
+
+    def whole(self, fn, *xs) -> List[torch.Tensor]:
+        """``fn`` on the whole image: each list of tiles gathered along the
+        axis onto the first tile's device (``mesh.gather_tiles``, copies
+        that carry the gradient back to every tile), ``fn`` run once there,
+        its output split back into each tile's own extent at the output's
+        scale, each part on its tile's device."""
+        dim = tile_dim(self.axis)
+        first = next(x for x in xs if isinstance(x, list))
+        y = fn(*(gather_tiles(x, self.axis) if isinstance(x, list) else x for x in xs))
+        scale = Fraction(y.shape[dim], sum(t.shape[dim] for t in first))
+        parts = torch.split(y, [int(t.shape[dim] * scale) for t in first], dim=dim)
+        return [p.to(t.device).contiguous() for p, t in zip(parts, first)]
 
     def each(self, fn, *xs) -> list:
         return [fn(*(x[i] if isinstance(x, list) else x for x in xs))
@@ -212,17 +213,22 @@ def make_tiled_dsc(model, mesh, axis: str = "width") -> Tuple[Callable, Callable
     downsampling (32).
 
     ``axis``: which image axis the tiles split. PAM-fusion presets REQUIRE
-    ``axis='height'``: parallax attention computes a full W×W attention per
-    latent row (reference models/PASSRnet.py:124-136), so W-tiling would
-    split its K/V (``ring_pam.pam_eval_ring`` is the W-tiled PAM). Presets
-    with a fusion module that sees the whole latent (``NON_LOCAL_FUSION``)
-    are refused on either axis. The model is replicated onto the tile
-    devices once, here.
+    ``axis='height'``, as in JAX: parallax attention computes a full W×W
+    attention per latent row (reference models/PASSRnet.py:124-136), so
+    W-tiling would split its K/V (``ring_pam.pam_eval_ring`` is the W-tiled
+    PAM). The fusion modules that see the whole latent run on the gathered
+    tiles (``TileRun.whole``), on either axis. The model is replicated
+    onto the tile devices once, here.
     """
     from ..models.dsc import quantize_code, receive
 
     cfg = model.config
-    check_local(cfg, axis)  # before the model is replicated
+    if cfg.fusion_post == "pam" and axis != "height":
+        raise ValueError(
+            "fusion_post='pam' attends across the full latent width per row; "
+            "W-sharding would split its K/V. Use make_tiled_dsc(..., "
+            "axis='height') (PAM is row-independent) or run replicated."
+        )
     run = TileRun(replicated(model, mesh), axis)
 
     def encode_fn(image) -> List[torch.Tensor]:
@@ -247,9 +253,11 @@ def tiled_dsc_train(models, im1: List[torch.Tensor], im2: List[torch.Tensor],
     (``models.dsc.dsc_outputs``) over one data row's W-tiles of im1 and
     im2, under a ``TileRun``: tile i on replica ``models[i]`` with noise
     view ``noises[i]`` (``ops.quant.SlotNoise``), each stack on tiles
-    extended by one overlap (K2 for the blocks' conv + GDN). Differentiable
-    throughout. Returns one dict a tile. Each tile's extent must be a
-    multiple of the code's downsampling (32)."""
+    extended by one overlap (K2 for the blocks' conv + GDN), the fusion
+    modules that see the whole latent (bottleneck and patch-match
+    attention, PAM) on the gathered tiles at tile 0's replica.
+    Differentiable throughout. Returns one dict a tile. Each tile's extent
+    must be a multiple of the code's downsampling (32)."""
     from ..models.dsc import dsc_outputs
 
     precision_on_cuda(im1[0])

@@ -34,8 +34,8 @@ slots over ``devices`` (default: every CUDA device, ``device`` first; on
 the CPU, ``device`` alone), each batch split along N over the data axis and
 along W over the tile axis (``train/mesh_step.py``); the model, the
 optimizer and the checkpoints live at slot (0, 0). On one card that is a
-1×1 mesh, the one-device step. The hyperprior and joint codecs take the
-data axis only (their tile axis is ROADMAP item 20d).
+1×1 mesh, the one-device step. A W-tile is made of whole units of the
+model's downsampling (16 Ballé-17, 64 the hyperprior and joint, 32 DSC).
 
 Resume: ``--resume <dir-or-ckpt>`` restores the model (slot (0, 0), which
 the split step copies to every other slot), the Adam moments and the step,
@@ -60,7 +60,8 @@ import torch
 
 from ..data.datasets import ImageFolderDataset, KodakDataset, StereoKittiDataset, batch_iterator
 from ..eval.kodak import eval_kodak
-from ..models.dsc import DSC_PRESETS
+from ..models.dsc import DSC_PRESETS, refuse_untrainable
+from ..parallel.halo import tiled_hyperprior_train, tiled_joint_train
 from ..parallel.mesh import Device, training_mesh, validate_tile_extent
 from ..utils.device import cudnn_autotune, resolve_device
 from .checkpoint import (
@@ -99,23 +100,13 @@ SINGLE_IMAGE_MODELS = ("balle17", "hyperprior", "joint")
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise for what the port does not train, naming its ROADMAP entry:
-    ``fif_0031bpp`` in ``train_dsc`` (Queue 3: the JAX trainer keeps no
-    batch statistics), the tile axis of the hyperprior and joint codecs
-    (item 20d)."""
+    """Raise for what the port does not train: an unknown model, and
+    ``fif_0031bpp`` in ``train_dsc`` (ROADMAP Queue 3: the JAX trainer
+    keeps no batch statistics; ``models.dsc.refuse_untrainable``)."""
     if cfg.model.startswith("dsc:"):
-        preset = DSC_PRESETS[cfg.model.split(":", 1)[1]]
-        if preset.fusion_pre == "fif":
-            raise NotImplementedError(
-                f"model {cfg.model!r}: the JAX trainer keeps only the params, not FIF's "
-                "batch_stats, and cannot train this preset; the port follows it "
-                "(ROADMAP Queue 3)")
+        refuse_untrainable(DSC_PRESETS[cfg.model.split(":", 1)[1]])
     elif cfg.model not in SINGLE_IMAGE_MODELS and cfg.model not in TRAINERS:
         raise ValueError(f"unknown model {cfg.model!r}")
-    if cfg.model in ("hyperprior", "joint") and cfg.mesh_tile != 1:
-        raise NotImplementedError(
-            f"model {cfg.model!r}, mesh_tile={cfg.mesh_tile}: the port trains it over the "
-            "mesh's data axis only (its tile axis in training is ROADMAP item 20d)")
 
 
 def make_training_mesh(cfg: TrainConfig, dev: torch.device,
@@ -175,7 +166,9 @@ def train_single_image(cfg: TrainConfig, name: str, pretrain: str = "", resume: 
     if cfg.model == "balle17":
         step_fn = make_balle17_train_step(cfg.train_lambda, distortion=cfg.loss or "mse")
     else:
-        step_fn = make_hyperprior_train_step(cfg.train_lambda)
+        step_fn = make_hyperprior_train_step(
+            cfg.train_lambda,
+            tiled=tiled_joint_train if cfg.model == "joint" else tiled_hyperprior_train)
     step_fn = shard_train_step(step_fn, mesh)
     dataset = ImageFolderDataset(cfg.train_dir, cfg.image_size, cfg.seed)
     test_set = KodakDataset(cfg.test_dir) if cfg.test_dir else None

@@ -1,4 +1,4 @@
-"""A train step split over a device mesh (ROADMAP item 20b).
+"""A train step split over a device mesh.
 
 Counterpart of ``shard_train_step`` in
 ``iclr_17_compression_tpu/parallel/mesh.py``: JAX jits one step with state
@@ -92,9 +92,7 @@ def shard_train_step(step: TrainStep, mesh: Mesh, n_batch_args: int = 1) -> Call
     onto slot (0, 0) (``sum_gradients``); the clamp and the Adam update
     there once (``apply_gradients``: the clamp is on the summed gradient,
     as ``optax.clip`` on the all-reduced one). One optimizer, at slot
-    (0, 0); the replicas are made once, for the state's model. A step with
-    no ``tile_unit`` (the hyperprior and joint codecs) takes no tile axis:
-    ROADMAP item 20d."""
+    (0, 0); the replicas are made once, for the state's model."""
     n_data, n_tile = mesh.devices.shape
     if n_data * n_tile == 1:
         dev = mesh.devices[0, 0]
@@ -105,10 +103,6 @@ def shard_train_step(step: TrainStep, mesh: Mesh, n_batch_args: int = 1) -> Call
                                  for b in batches), generator)
 
         return one_device
-    if n_tile > 1 and step.tile_unit is None:
-        raise NotImplementedError(
-            f"mesh tile={n_tile}: this model's train step splits over the data axis only "
-            "(its tile axis in training is ROADMAP item 20d)")
     cache = {}
 
     def split_step(state, *args):
@@ -120,7 +114,7 @@ def shard_train_step(step: TrainStep, mesh: Mesh, n_batch_args: int = 1) -> Call
         models = cache["models"]
         broadcast_parameters(models)
         batches = [torch.as_tensor(b) for b in batches]
-        parts = [put_batch(mesh, b, unit=step.tile_unit or 1) for b in batches]
+        parts = [put_batch(mesh, b, unit=step.tile_unit) for b in batches]
         n, h, w = batches[0].shape[:3]
         noise = _noise_views(MeshNoise(generator, (n, h, w)), parts[0], n_data, n // n_data)
         with torch.profiler.record_function("train_step/forward"):

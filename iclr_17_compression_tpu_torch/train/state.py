@@ -17,9 +17,10 @@ Each step is a ``TrainStep``: the step, and what ``shard_train_step``
 (``train/mesh_step.py``) needs to split it over a device mesh:
 ``mesh_loss(split)``, the loss and the whole batch's metrics from the
 slots' forwards (a W-tiled data row through
-``parallel.halo.tiled_balle17_train`` or ``parallel.tiled.tiled_dsc_train``),
-and ``tile_unit``, the columns a W-tile is made of (the model's
-downsampling; None: no tile axis). A loss
+``parallel.halo.tiled_balle17_train``, ``tiled_hyperprior_train``,
+``tiled_joint_train`` or ``parallel.tiled.tiled_dsc_train``), and
+``tile_unit``, the columns a W-tile is made of (the model's
+downsampling). A loss
 that is a ratio of sums (MSE, L1, bpp) is pooled from the slots' sums and
 counts; MS-SSIM, a product of powers of per-level means, from its
 per-level sums (``ops.metrics.ms_ssim_sums``; a W-tiled data row's tiles
@@ -33,9 +34,9 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ..models.dsc import elementwise_error, loss_terms, loss_triplet
+from ..models.dsc import elementwise_error, loss_terms, loss_triplet, refuse_untrainable
 from ..ops.metrics import ms_ssim, ms_ssim_of_sums, ms_ssim_sums
-from ..parallel.halo import tiled_balle17_train
+from ..parallel.halo import tiled_balle17_train, tiled_hyperprior_train
 from ..parallel.mesh import gather_tiles
 from ..parallel.tiled import tiled_dsc_train
 from ..utils.device import resolve_device
@@ -87,11 +88,11 @@ class TrainStep:
     what splitting it over a device mesh needs
     (``train.mesh_step.shard_train_step``): ``mesh_loss(split)`` → (the
     loss, the whole batch's metrics) from the slots' forwards, and
-    ``tile_unit``, the columns a W-tile is made of (None: no tile axis)."""
+    ``tile_unit``, the columns a W-tile is made of."""
 
     step: Callable
     mesh_loss: Callable
-    tile_unit: Optional[int] = None
+    tile_unit: int
 
     def __call__(self, state: TrainState, *args) -> Dict[str, torch.Tensor]:
         return self.step(state, *args)
@@ -194,7 +195,8 @@ def make_dsc_train_step(w_full: float = 1.0, w_base: float = 1.0, w_z: float = 0
     (reference train_2StepsNet.py:190, train_new.py:177); one update; the
     metrics ``loss``, ``loss_full``, ``loss_base`` and ``loss_z`` (detached
     tensors). Splits over a mesh's data and tile axes (tiles of 32 columns,
-    the code's downsampling; presets local along W only)."""
+    the code's downsampling); the split step refuses what the JAX trainer
+    cannot train (``models.dsc.refuse_untrainable``)."""
 
     def total(loss_base, loss_full, loss_z):
         loss = w_full * loss_full + w_base * loss_base
@@ -213,6 +215,7 @@ def make_dsc_train_step(w_full: float = 1.0, w_base: float = 1.0, w_z: float = 0
 
     def mesh_loss(split):
         cfg, dev = split.models[0][0].config, split.device
+        refuse_untrainable(cfg)  # FIF's batch statistics are the whole batch's
         sums, counts = {}, {}
         for r, row in enumerate(split.models):
             im1, im2 = split.batches[0][r], split.batches[1][r]
@@ -241,12 +244,16 @@ def make_dsc_train_step(w_full: float = 1.0, w_base: float = 1.0, w_z: float = 0
     return TrainStep(train_step, mesh_loss, tile_unit=32)
 
 
-def make_hyperprior_train_step(train_lambda: float = 8192.0):
+def make_hyperprior_train_step(train_lambda: float = 8192.0,
+                               tiled: Callable = tiled_hyperprior_train):
     """``train_step(state, batch, generator)`` for a ``ScaleHyperprior`` or
     a ``JointAutoregressive``: rd_loss = λ·mse + bpp (bpp_y + bpp_z); one
     update; the metrics ``rd_loss``, ``mse``, ``bpp``, ``bpp_y`` and
-    ``bpp_z`` (detached tensors). Splits over a mesh's data axis only (the
-    tile axis is ROADMAP item 20d)."""
+    ``bpp_z`` (detached tensors). Splits over a mesh's data and tile axes
+    (tiles of 64 columns, ẑ's downsampling; a W-tiled data row through
+    ``tiled``, the model's W-tiled train forward:
+    ``parallel.halo.tiled_hyperprior_train``, or ``tiled_joint_train`` for
+    the joint codec)."""
 
     def metrics_of(rd_loss, parts):
         return {"rd_loss": rd_loss.detach(), **{k: v.detach() for k, v in parts.items()}}
@@ -266,21 +273,23 @@ def make_hyperprior_train_step(train_lambda: float = 8192.0):
         sse = bits_y = bits_z = None
         n_el = n_pix = 0
         for r, row in enumerate(split.models):
-            x = split.batches[0][r][0]
-            out = row[0](x, train=True, generator=split.noise[r][0])
-            pixels = x.numel() // x.shape[3]
-            sse = _add(sse, (out["mse"] * x.numel()).to(dev))
-            bits_y = _add(bits_y, (out["bpp_y"] * pixels).to(dev))
-            bits_z = _add(bits_z, (out["bpp_z"] * pixels).to(dev))
-            n_el += x.numel()
-            n_pix += pixels
+            tiles = split.batches[0][r]
+            outs = ([row[0](tiles[0], train=True, generator=split.noise[r][0])]
+                    if len(row) == 1 else tiled(row, tiles, split.noise[r]))
+            for out, x in zip(outs, tiles):
+                pixels = x.numel() // x.shape[3]
+                sse = _add(sse, (out["mse"] * x.numel()).to(dev))
+                bits_y = _add(bits_y, (out["bpp_y"] * pixels).to(dev))
+                bits_z = _add(bits_z, (out["bpp_z"] * pixels).to(dev))
+                n_el += x.numel()
+                n_pix += pixels
         mse = sse / n_el
         bpp = (bits_y + bits_z) / n_pix
         rd_loss = train_lambda * mse + bpp
         return rd_loss, metrics_of(rd_loss, {"mse": mse, "bpp": bpp, "bpp_y": bits_y / n_pix,
                                              "bpp_z": bits_z / n_pix})
 
-    return TrainStep(train_step, mesh_loss)
+    return TrainStep(train_step, mesh_loss, tile_unit=64)
 
 
 def build_model(name: str, device: Optional[str] = None, seed: int = 0, **kw) -> torch.nn.Module:

@@ -166,11 +166,11 @@ def test_train_single_image_end_to_end(data_dirs, tmp_path):
 def test_cli_refuses_what_it_does_not_train(data_dirs, tmp_path):
     # the hyperprior and joint models train now (test_torch_hyper_train.py);
     # fif_0031bpp is refused as the JAX trainer fails it (ROADMAP Queue 3);
-    # a mesh trains (test_torch_mesh.py) but the hyperprior's tile axis (item
-    # 20d), and a mesh larger than its devices (one CPU device by default)
+    # a mesh trains (test_torch_mesh.py), the hyperprior's over W-tiles too,
+    # but not a mesh larger than its devices (one CPU device by default)
     for kw, err, match in (({"model": "dsc:fif_0031bpp"}, NotImplementedError, "Queue 3"),
-                           ({"model": "hyperprior", "mesh_tile": 2}, NotImplementedError,
-                            "item 20d"),
+                           ({"model": "hyperprior", "mesh_tile": 2}, ValueError,
+                            "n_tile=2 exceeds 1 devices"),
                            ({"mesh_data": 2}, ValueError, "mesh 2x1 != 1 devices"),
                            ({"mesh_tile": 2}, ValueError, "n_tile=2 exceeds 1 devices")):
         with pytest.raises(err, match=match):

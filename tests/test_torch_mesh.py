@@ -6,7 +6,8 @@ noise cut for each slot, MS-SSIM pooled from per-level sums against JAX's
 whole-batch MS-SSIM, K2's autograd Function at a tile's padding pair
 against ``jax.grad`` of the JAX package's conv + GDN, the port's
 ``dryrun_multichip`` on ``["cpu"] * 8``, ``train_single_image`` on a 2×2
-mesh with an exact resume, and what the CLI refuses.
+mesh (the hyperprior and joint on 1×2 W-tiles) with an exact resume, and
+what the CLI refuses.
 
 Stated tolerances: the split helpers and the noise exact; MS-SSIM to rtol
 1e-5 (fp32 means in another order); K2's gradients to 1e-4 of each
@@ -246,9 +247,13 @@ def test_train_single_image_on_a_mesh_resumes_exactly(data_dirs, tmp_path):
 
 
 def test_what_the_mesh_refuses(data_dirs, tmp_path):
+    # the hyperprior and joint train over the tile axis
+    # (test_hyperprior_and_joint_train_single_image_on_tiles) in whole 64-column
+    # units: 64-pixel crops on 2 tiles leave one without one (JAX's GSPMD pads it)
     for kw, err, match in (
-            ({"model": "hyperprior", "out_channel_m": 24}, NotImplementedError, "item 20d"),
-            ({"model": "joint", "joint_n": 16}, NotImplementedError, "item 20d"),
+            ({"model": "hyperprior", "out_channel_m": 24}, ValueError,
+             "tile unit of 64 columns"),
+            ({"model": "joint", "joint_n": 16}, ValueError, "tile unit of 64 columns"),
             ({"image_size": 32}, ValueError, "mesh_tile=2 gives deepest-latent W shards of 1")):
         with pytest.raises(err, match=match):
             cli.train_single_image(_cfg(data_dirs, tmp_path, tot_step=1, **kw), "x",
@@ -260,4 +265,39 @@ def test_what_the_mesh_refuses(data_dirs, tmp_path):
                                   mesh_tile=2, save_root=str(tmp_path)), "x", device="cpu",
                       devices=_cpu(2))
     cli.check_supported(TrainConfig(model="balle17", mesh_data=4, mesh_tile=2))
-    cli.check_supported(TrainConfig(model="joint", mesh_data=4))
+    cli.check_supported(TrainConfig(model="joint", mesh_data=4, mesh_tile=2))
+
+
+@pytest.mark.parametrize("model", ["hyperprior", "joint"])
+def test_hyperprior_and_joint_train_single_image_on_tiles(tmp_path, model):
+    """``train_single_image`` of the hyperprior and the joint codec on a 1×2
+    mesh of ``["cpu"] * 2`` (128-pixel crops: one 64-column unit a tile):
+    2 steps, and 1 step then a resume to 2, end bit-equal (parameters and
+    Adam moments), the mesh in the log, the checkpoints written."""
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(1)
+    os.makedirs(tmp_path / "train")
+    for i in range(4):
+        write_ppm(str(tmp_path / "train" / f"{i}.ppm"),
+                  np.clip(rng.uniform(0.2, 0.8, (1, 1, 3)) + 0.1 * rng.standard_normal(
+                      (136, 144, 3)), 0, 1))
+    cfg = _cfg(str(tmp_path / "train"), tmp_path, model=model, out_channel_n=16,
+               out_channel_m=24, joint_n=16, image_size=128, mesh_data=1, mesh_tile=2,
+               save_model_freq=1)
+    full = cli.train_single_image(dataclasses.replace(cfg, tot_step=2), "full", device="cpu",
+                                  devices=_cpu(2))
+    cli.train_single_image(dataclasses.replace(cfg, tot_step=1), "half", device="cpu",
+                           devices=_cpu(2))
+    resumed = cli.train_single_image(dataclasses.replace(cfg, tot_step=2), "half",
+                                     resume=str(tmp_path / "half"), device="cpu",
+                                     devices=_cpu(2))
+    assert full.step == resumed.step == 2
+    for (k, a), b in zip(full.model.state_dict().items(), resumed.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    sa, sb = full.optimizer.state_dict()["state"], resumed.optimizer.state_dict()["state"]
+    assert len(sa) == len(list(full.model.parameters()))
+    for i in sa:
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(sa[i][k], sb[i][k])
+    assert "mesh: data=1 tile=2" in open(tmp_path / "full" / "train.log").read()
+    assert os.path.exists(tmp_path / "full" / "iter_2.ckpt")

@@ -8,9 +8,10 @@ functions against its full ones:
 
 - tiled conv2d / conv-transpose: rtol 1e-5 / atol 1e-5 of JAX's tiled op
   and of the port's full op;
-- the tiled Ballé-17 (N = 16, 64×256, 4 and 8 tiles) and the tiny DSC
-  codec (2 tiles, W and H with PAM): the latent / code equal to JAX's
-  tiled one and to the port's untiled one; recon rtol 1e-4 / atol 1e-4 of
+- the tiled Ballé-17 (N = 16, 64×256, 4 and 8 tiles), the tiny DSC
+  codec (2 tiles, W and H with PAM) and the fusion presets FIF,
+  bottleneck and patch-match attention at n = 16 (2 W- or H-tiles): the
+  latent / code equal to JAX's tiled one and to the port's untiled one; recon rtol 1e-4 / atol 1e-4 of
   the port's untiled one and (Ballé) of JAX's tiled one; the DSC recon
   within 2e-6 of the largest |pre-clip recon| of JAX's tiled one (the
   seeded tiny decoders reach ~1e3 before the clip);
@@ -253,7 +254,16 @@ def test_tiled_dsc_matches_jax(key, axis, fusion_post, shape):
     the tiny preset (the flagship's topology), H-tiles of it with PAM
     fusion (H = 128: 4 latent rows a tile, under the 14-row overlap)."""
     model, jmodel, jparams = _dsc("tiny", fusion_post)
-    im1, im2 = _stereo(key, *shape)
+    _hold_tiled_dsc(model, jmodel, jparams, axis, _stereo(key, *shape))
+
+
+def _hold_tiled_dsc(model, jmodel, jparams, axis, pair):
+    """The port's ``make_tiled_dsc`` over 2 tiles along ``axis`` against
+    JAX's and the port's untiled model on ``pair``: codes equal, per-tile
+    streams byte-equal to JAX's and decoding to the code, the recon within
+    ``RECON_TOL`` of the untiled one and within ``DSC_RAW_REL`` of the
+    largest pre-clip value of JAX's tiled one."""
+    im1, im2 = pair
     with torch.no_grad():
         ref = model(torch.from_numpy(im1), torch.from_numpy(im2))
     jmesh = jpar.make_mesh(n_data=1, n_tile=2, devices=jax.devices()[:2])
@@ -287,17 +297,71 @@ def test_tiled_dsc_matches_jax(key, axis, fusion_post, shape):
     np.testing.assert_allclose(recon, jrecon, rtol=0, atol=raw_tol)
 
 
+def small_fusion(preset: str, seed: int = 0, spread: float = 40.0, loss=None):
+    """``preset`` (a fusion preset) at n = 16: its fusion option, code
+    channels, quantizer and loss, with the Cheng stacks at 16 channels and
+    the tiny preset's g_a22 / g_s22 to its code width; the port's seeded
+    init, GDNs and FIF's adaptive BatchNorms off their init, the
+    patch-match ``scale_att`` at 0.5 (as ``test_torch_fusion``'s), the code
+    spread over several steps; ``loss`` in place of the preset's. (model,
+    JAX model, JAX variables)."""
+    from test_torch_fusion import _perturb_abn_, _variables
+
+    from iclr_17_compression_tpu_torch.models.dsc import _ga_specs, _gs_specs, _gz_specs
+    from iclr_17_compression_tpu_torch.nn.layers import GDN
+
+    base = DSC_PRESETS[preset]
+    widths = dict(loss=loss or base.loss,n=16, ga=_ga_specs(16), gs=_gs_specs(16), gz=_gz_specs(16),
+                  ga22=(("conv3", 8, 1), ("rbs", 8, 2), ("conv3", base.code_channels, 1)),
+                  gs22=(("conv3", 8, 1), ("rbu", 16, 2), ("rb", 16)))
+    gen = torch.Generator().manual_seed(seed)
+    model = DSCStereoModel(dataclasses.replace(base, **widths)).init_(gen).eval()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, GDN):
+                c = m.beta.shape[0]
+                m.beta.copy_(0.7 + 0.6 * torch.rand(c, generator=gen))
+                m.gamma.copy_(0.3 * torch.eye(c) + 0.1 * torch.rand((c, c), generator=gen))
+        _perturb_abn_(model, gen)
+        if hasattr(model, "bot_mhsa"):  # as test_torch_fusion.port_model
+            model.bot_mhsa.scale_att.fill_(0.5)
+        last = model.g_a22[-1]
+        x = np.random.default_rng(seed).uniform(0, 1, (1, 64, 128, 3)).astype(np.float32)
+        scale = spread / float(model.encode(torch.from_numpy(x)).std())
+        last.weight.mul_(scale)
+        last.bias.mul_(scale)
+    return (model, JaxDSC(dataclasses.replace(JAX_PRESETS[preset], **widths)),
+            _variables(model))
+
+
+@pytest.mark.parametrize("axis", ["width", "height"])
+@pytest.mark.parametrize("preset", ["fif_0031bpp", "att_0031bpp", "bottleneck_att_1bpp"])
+def test_tiled_fusion_presets_match_jax(key, preset, axis):
+    """The fusion presets whose modules see the whole latent (FIF's
+    circular dilated convs, the bottleneck and patch-match attention), at
+    n = 16 over 2 W- or H-tiles: those modules on the gathered tiles
+    (``TileRun.whole``), as GSPMD gathers them in JAX's
+    ``make_tiled_dsc``. The patch-match preset on a latent of 10×20 (20×10
+    along H): two 9×9 query patches, one a tile, attending over the whole
+    latent's keys."""
+    model, jmodel, jvariables = small_fusion(preset)
+    if preset == "bottleneck_att_1bpp":
+        shape = (160, 320) if axis == "width" else (320, 160)
+    else:
+        shape = (64, 256) if axis == "width" else (128, 128)
+    _hold_tiled_dsc(model, jmodel, jvariables, axis, _stereo(key, *shape))
+
+
 def test_tiled_dsc_refuses_what_is_not_local():
+    """PAM along W, as JAX refuses it (``ring_pam`` is the W-tiled PAM);
+    along H it tiles (``test_tiled_dsc_matches_jax``), and so do the other
+    fusion presets on either axis (``test_tiled_fusion_presets_match_jax``)."""
     mesh = tpar.make_mesh(1, 2, _cpu(2))
     with pytest.raises(ValueError, match="pam"):
         tpar.make_tiled_dsc(DSCStereoModel(DSC_PRESETS["pam_0031bpp"]), mesh)
     with pytest.raises(ValueError, match="pam"):
         jpar.make_tiled_dsc(JaxDSC(JAX_PRESETS["pam_0031bpp"]), params=None,
                             mesh=jpar.make_mesh(n_data=1, n_tile=2, devices=jax.devices()[:2]))
-    for preset in ("fif_0031bpp", "att_0031bpp", "bottleneck_att_1bpp"):
-        cfg = dataclasses.replace(DSC_PRESETS[preset], n=16)
-        with pytest.raises(ValueError, match="not local"):
-            tpar.make_tiled_dsc(type("M", (), {"config": cfg})(), mesh, axis="height")
     with pytest.raises(ValueError, match="not known to be local"):
         thalo.module_extent(torch.nn.Linear(2, 2))
 
